@@ -1,0 +1,128 @@
+"""Build the port's CUDA kernels with nvcc and bind them with ctypes.
+
+Every `csrc/*.cu` file is compiled for Hopper (`sm_90a`) by its own nvcc
+process, all started together, and the objects are linked into one shared
+library with a plain C interface under `build/` beside the package. The
+library's name carries a hash of the sources and flags, so a changed source
+is rebuilt and an unchanged one is reused within a checkout. Nothing is
+built until a kernel is first launched.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import re
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
+# no --use_fast_math: parity with the plain float32 path relies on the
+# accurate acosf / expf / sqrtf / atan2f
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+build_report: dict = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on a machine with the CUDA toolkit")
+    return found
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _parse_ptxas(text: str) -> dict:
+    """Registers, spill stores/loads and stack frame per kernel from
+    `-Xptxas -v` output."""
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+        elif name and "stack frame" in line:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                out[name].update(stack_bytes=int(m.group(1)), spill_store_bytes=int(m.group(2)),
+                                 spill_load_bytes=int(m.group(3)))
+        elif name and "Used" in line and "registers" in line:
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def build() -> Path:
+    """Compile and link the kernels if this checkout has not yet; return
+    the library's path. Raises with nvcc's output if a compile fails."""
+    lib_path = BUILD_DIR / f"libpulse_kernels_{_digest()}.so"
+    if lib_path.exists():
+        return lib_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    procs = []
+    for src in _sources():
+        obj = BUILD_DIR / f"{src.stem}_{_digest()}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        procs.append((src, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    objs, logs = [], []
+    for src, obj, proc in procs:
+        log, _ = proc.communicate()
+        logs.append(log)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src.name}:\n{log}")
+        objs.append(str(obj))
+    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+    link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *objs], capture_output=True, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
+    os.replace(tmp, lib_path)
+    build_report.update(seconds=time.perf_counter() - t0, ptxas=_parse_ptxas("\n".join(logs)))
+    return lib_path
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built at first use, with every entry point's
+    argument and result types declared."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            vp, i, sz = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+            lib.k1_model_consts_bytes.argtypes, lib.k1_model_consts_bytes.restype = [], sz
+            lib.k1_env_consts_bytes.argtypes, lib.k1_env_consts_bytes.restype = [], sz
+            lib.k1_set_consts.argtypes, lib.k1_set_consts.restype = [vp, sz, vp, sz, vp], i
+            lib.k1_step_reward_amp.argtypes, lib.k1_step_reward_amp.restype = [vp, vp, i, i, vp], i
+            lib.k2_observe.argtypes, lib.k2_observe.restype = [vp, vp, i, i, i, i, i, vp], i
+            lib.k_error_string.argtypes, lib.k_error_string.restype = [i], ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error (its cudaGetLastError)."""
+    if rc != 0:
+        raise RuntimeError(f"{what} failed: {load().k_error_string(rc).decode()} ({rc})")

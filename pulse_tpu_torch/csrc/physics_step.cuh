@@ -1,0 +1,254 @@
+// One control step of the humanoid physics for ONE env, run by one thread:
+// steps_per_control substeps (FK with pass-1 velocities, plane contacts,
+// stable-PD torques with limit springs, bias forces, ABA passes 2 and 3,
+// semi-implicit integration) and the final world-frame FK.
+//
+// Mirrors the plain version pulse_tpu_torch/physics/substep_fused.py and
+// physics/step.py formula for formula; the articulated-inertia update uses
+// the 3x3-block form of the TPU kernel (pulse_tpu/physics/substep_pallas.py
+// _substep_tiles). Sibling contributions are added to the parent one at a
+// time in reverse level order, where the plain version sums them per level
+// first: that reorders float adds only.
+//
+// The model is read from constant memory (c_model): every thread of a warp
+// reads the same address, the case constant memory serves in one
+// transaction. Bodies are walked with runtime loops over the level order,
+// not unrolled, so the per-env working set (~11 KB: body poses, spatial
+// velocities, articulated inertias, U/D^-1/u of pass 2) lives in local
+// memory, cached in L1/L2.
+#pragma once
+
+#include "humanoid_math.cuh"
+
+#define MAX_J 24   // bodies
+#define MAX_P 72   // ground contact points
+
+namespace hm {
+
+// All fields are 4-byte scalars or arrays of them, so the layout has no
+// padding; pulse_tpu_torch/physics/substep_cuda.py packs the same fields in
+// the same order.
+struct ModelConsts {
+  int J, P, n_sub, pad0;
+  int order[MAX_J];       // bodies in level order, root first
+  int parent[MAX_J];
+  float lt[MAX_J][3];     // joint origin in the parent frame
+  float mass[MAX_J];
+  float com[MAX_J][3];
+  float IA[MAX_J][9];     // spatial inertia about the body origin, blocks
+  float IB[MAX_J][9];     //   [[A, B], [B^T, C]], row-major 3x3 each
+  float IC[MAX_J][9];
+  float kp[MAX_J];        // per joint j = body - 1
+  float kd[MAX_J];
+  float armature[MAX_J];
+  float dof_lo[MAX_J][3];
+  float dof_hi[MAX_J][3];
+  int cp_body[MAX_P];
+  float cp_off[MAX_P][3];
+  float cp_radius[MAX_P];
+  float cp_fric[MAX_P];
+  float h, gravity, ks, kc, freg, fmax, wmax, vmax;
+  float lstiff, ldamp, taumax, lim_dex;  // lim_dex = h (ldamp + h lstiff)
+};
+
+static __constant__ ModelConsts c_model;
+
+struct PhysState {
+  V3 root_pos;
+  Q4 root_rot;
+  S6 v6;                  // root spatial velocity, root frame
+  Q4 jrot[MAX_J - 1];     // parent-from-child joint rotations
+  V3 omega[MAX_J - 1];    // joint angular velocity, child frame
+};
+
+struct WorldBodies {
+  V3 pos[MAX_J];
+  Q4 rot[MAX_J];
+  V3 vel[MAX_J];
+  V3 ang[MAX_J];
+};
+
+__device__ __forceinline__ V3 cm_v3(const float (*a)[3], int i) {
+  return V3{a[i][0], a[i][1], a[i][2]};
+}
+__device__ __forceinline__ M3 cm_m3(const float (*a)[9], int i) {
+  M3 r;
+  for (int k = 0; k < 9; ++k) r.m[k / 3][k % 3] = a[i][k];
+  return r;
+}
+
+// One substep; adds this substep's net contact force per body to acc.
+__device__ void substep(PhysState& s, const Q4* target, V3* acc) {
+  const int J = c_model.J;
+  const float h = c_model.h;
+
+  // ---- FK + pass-1 velocities ------------------------------------------ //
+  Q4 rot[MAX_J];
+  V3 pos[MAX_J];
+  S6 v[MAX_J];
+  rot[0] = s.root_rot;
+  pos[0] = s.root_pos;
+  v[0] = s.v6;
+  for (int k = 1; k < J; ++k) {
+    const int b = c_model.order[k], p = c_model.parent[b];
+    const Q4 q_pc = s.jrot[b - 1];
+    const V3 lt = cm_v3(c_model.lt, b);
+    rot[b] = qmul_norm(rot[p], q_pc);
+    pos[b] = pos[p] + qrot(rot[p], lt);
+    v[b] = motion_to_child(q_pc, lt, v[p]) + S6{s.omega[b - 1], V3{0, 0, 0}};
+  }
+  S6 cbias[MAX_J];
+  cbias[0] = s6_zero();
+  for (int b = 1; b < J; ++b) cbias[b] = cross_motion(v[b], S6{s.omega[b - 1], V3{0, 0, 0}});
+
+  // ---- plane contacts (physics/contact.py) ------------------------------ //
+  S6 fext[MAX_J];
+  for (int b = 0; b < J; ++b) fext[b] = s6_zero();
+  for (int i = 0; i < c_model.P; ++i) {
+    const int bi = c_model.cp_body[i];
+    const V3 pw = pos[bi] + qrot(rot[bi], cm_v3(c_model.cp_off, i));
+    const V3 arm = pw - pos[bi];
+    const float depth = c_model.cp_radius[i] - pw.z;
+    const V3 vp = qrot(rot[bi], v[bi].v) + cross(qrot(rot[bi], v[bi].w), arm);
+    const float vn = vp.z;
+    float fn = depth > 0.0f ? fmaxf(c_model.ks * depth - c_model.kc * vn, 0.0f) : 0.0f;
+    fn = fminf(fn, c_model.fmax);
+    const float vt_norm = sqrtf(vp.x * vp.x + vp.y * vp.y + 1e-12f);
+    const float scale = fminf(vt_norm / c_model.freg, 1.0f);
+    const float coef = -(c_model.cp_fric[i] * fn * scale / vt_norm);
+    const V3 fw = V3{coef * vp.x, coef * vp.y, fn};
+    fext[bi].w = fext[bi].w + cross(arm, fw);
+    fext[bi].v = fext[bi].v + fw;
+    acc[bi] = acc[bi] + fw;
+  }
+
+  // ---- stable-PD torques + limit springs (physics/dynamics.py) ----------- //
+  V3 tau[MAX_J - 1], dex[MAX_J - 1];
+  for (int j = 0; j < J - 1; ++j) {
+    const float kp = c_model.kp[j], kd = c_model.kd[j];
+    const V3 err = quat_to_expmap(qmul_norm(qconj(s.jrot[j]), target[j]));
+    const V3 t = err * kp - s.omega[j] * (kp * h + kd);
+    const V3 dof = quat_to_expmap(s.jrot[j]);
+    const float d[3] = {dof.x, dof.y, dof.z};
+    const float tt[3] = {t.x, t.y, t.z};
+    const float om[3] = {s.omega[j].x, s.omega[j].y, s.omega[j].z};
+    float to[3], dx[3];
+    for (int k = 0; k < 3; ++k) {
+      const float excess = fmaxf(d[k] - c_model.dof_hi[j][k], 0.0f) +
+                           fminf(d[k] - c_model.dof_lo[j][k], 0.0f);
+      const bool active = excess != 0.0f;
+      const float lim = -c_model.lstiff * excess - (active ? c_model.ldamp * om[k] : 0.0f);
+      to[k] = fminf(fmaxf(tt[k] + lim, -c_model.taumax), c_model.taumax);
+      dx[k] = h * kd + (active ? c_model.lim_dex : 0.0f);
+    }
+    tau[j] = V3{to[0], to[1], to[2]};
+    dex[j] = V3{dx[0], dx[1], dx[2]};
+  }
+
+  // ---- bias forces -------------------------------------------------------- //
+  S6 pA[MAX_J];
+  M3 IA[MAX_J], IB[MAX_J], IC[MAX_J];
+  for (int b = 0; b < J; ++b) {
+    const V3 fg = V3{0.0f, 0.0f, c_model.mass[b] * c_model.gravity};
+    const V3 com_w = qrot(rot[b], cm_v3(c_model.com, b));
+    const S6 f_body = S6{qrot_inv(rot[b], fext[b].w + cross(com_w, fg)),
+                         qrot_inv(rot[b], fext[b].v + fg)};
+    IA[b] = cm_m3(c_model.IA, b);
+    IB[b] = cm_m3(c_model.IB, b);
+    IC[b] = cm_m3(c_model.IC, b);
+    pA[b] = cross_force(v[b], mul_inertia(IA[b], IB[b], IC[b], v[b])) - f_body;
+  }
+
+  // ---- ABA pass 2 (leaves -> root) ---------------------------------------- //
+  M3 UA[MAX_J], UB[MAX_J], Dinv[MAX_J];
+  V3 u[MAX_J];
+  for (int k = J - 1; k >= 1; --k) {
+    const int b = c_model.order[k], p = c_model.parent[b], j = b - 1;
+    const M3 A = IA[b], B = IB[b], C = IC[b];
+    M3 D = A;
+    D.m[0][0] += c_model.armature[j] + dex[j].x;
+    D.m[1][1] += c_model.armature[j] + dex[j].y;
+    D.m[2][2] += c_model.armature[j] + dex[j].z;
+    const M3 Di = inv3(D);
+    const V3 ub = tau[j] - pA[b].w;
+    // Ia = IA - U D^-1 U^T with U = [A; B^T]
+    const M3 M1 = m3_mul(A, Di);
+    const M3 IaA = m3_sub(A, m3_mul(M1, A));
+    const M3 IaB = m3_sub(B, m3_mul(M1, B));
+    const M3 IaC = m3_sub(C, m3_mul(m3_T(B), m3_mul(Di, B)));
+    const V3 y = m3_vec(Di, ub);
+    const S6 pa = pA[b] + mul_inertia(IaA, IaB, IaC, cbias[b]) + S6{m3_vec(A, y), m3_tvec(B, y)};
+    const Q4 q_pc = s.jrot[j];
+    const V3 lt = cm_v3(c_model.lt, b);
+    M3 pAA, pAB, pAC;
+    inertia_to_parent(q_pc, lt, IaA, IaB, IaC, pAA, pAB, pAC);
+    IA[p] = m3_add(IA[p], pAA);
+    IB[p] = m3_add(IB[p], pAB);
+    IC[p] = m3_add(IC[p], pAC);
+    pA[p] = pA[p] + force_to_parent(q_pc, lt, pa);
+    UA[b] = A;
+    UB[b] = B;
+    Dinv[b] = Di;
+    u[b] = ub;
+  }
+
+  // ---- ABA pass 3 (root -> leaves) and joint integration ------------------ //
+  S6 a[MAX_J];
+  const S6 a0 = solve6_sym(IA[0], IB[0], IC[0], pA[0]);
+  a[0] = S6{-a0.w, -a0.v};
+  const float wmax = c_model.wmax, vmax = c_model.vmax;
+  for (int k = 1; k < J; ++k) {
+    const int b = c_model.order[k], p = c_model.parent[b], j = b - 1;
+    const S6 a_p = motion_to_child(s.jrot[j], cm_v3(c_model.lt, b), a[p]) + cbias[b];
+    const V3 ut_ap = m3_tvec(UA[b], a_p.w) + m3_vec(UB[b], a_p.v);
+    const V3 qdd = m3_vec(Dinv[b], u[b]) - m3_vec(Dinv[b], ut_ap);
+    a[b] = a_p + S6{qdd, V3{0, 0, 0}};
+    V3 om = s.omega[j] + qdd * h;
+    om = V3{fminf(fmaxf(om.x, -wmax), wmax), fminf(fmaxf(om.y, -wmax), wmax),
+            fminf(fmaxf(om.z, -wmax), wmax)};
+    s.omega[j] = om;
+    s.jrot[j] = qmul_norm(s.jrot[j], expmap_to_quat(om * h));
+  }
+
+  // ---- root integration --------------------------------------------------- //
+  V3 w = s.v6.w + a[0].w * h;
+  V3 vl = s.v6.v + a[0].v * h;
+  w = V3{fminf(fmaxf(w.x, -wmax), wmax), fminf(fmaxf(w.y, -wmax), wmax), fminf(fmaxf(w.z, -wmax), wmax)};
+  vl = V3{fminf(fmaxf(vl.x, -vmax), vmax), fminf(fmaxf(vl.y, -vmax), vmax), fminf(fmaxf(vl.z, -vmax), vmax)};
+  s.v6 = S6{w, vl};
+  s.root_pos = s.root_pos + qrot(s.root_rot, vl) * h;
+  s.root_rot = qmul_norm(s.root_rot, expmap_to_quat(w * h));
+}
+
+// World body state of the generalized coordinates (physics/state.py
+// refresh_kinematics).
+__device__ void final_fk(const PhysState& s, WorldBodies& wb) {
+  const int J = c_model.J;
+  wb.pos[0] = s.root_pos;
+  wb.rot[0] = s.root_rot;
+  wb.ang[0] = qrot(s.root_rot, s.v6.w);
+  wb.vel[0] = qrot(s.root_rot, s.v6.v);
+  for (int k = 1; k < J; ++k) {
+    const int b = c_model.order[k], p = c_model.parent[b];
+    wb.rot[b] = qmul_norm(wb.rot[p], s.jrot[b - 1]);
+    wb.pos[b] = wb.pos[p] + qrot(wb.rot[p], cm_v3(c_model.lt, b));
+    const V3 r = wb.pos[b] - wb.pos[p];
+    wb.vel[b] = wb.vel[p] + cross(wb.ang[p], r);
+    wb.ang[b] = wb.ang[p] + qrot(wb.rot[b], s.omega[b - 1]);
+  }
+}
+
+// steps_per_control substeps under the held PD target, then final FK.
+// acc receives the substep-mean net contact force per body.
+__device__ void control_step(PhysState& s, const V3* pd_target, V3* acc, WorldBodies& wb) {
+  const int J = c_model.J;
+  Q4 target[MAX_J - 1];
+  for (int j = 0; j < J - 1; ++j) target[j] = expmap_to_quat(pd_target[j]);
+  for (int b = 0; b < J; ++b) acc[b] = V3{0, 0, 0};
+  for (int i = 0; i < c_model.n_sub; ++i) substep(s, target, acc);
+  const float inv_n = 1.0f / (float)c_model.n_sub;
+  for (int b = 0; b < J; ++b) acc[b] = acc[b] * inv_n;
+  final_fk(s, wb);
+}
+
+}  // namespace hm

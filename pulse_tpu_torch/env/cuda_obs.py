@@ -1,0 +1,272 @@
+"""The imitation env step's two hand-written CUDA kernels, their wrappers
+and their plain PyTorch versions.
+
+Counterpart of `pulse_tpu/env/pallas_obs.py`:
+
+  * K1 `step_reward_amp` — one launch for the pre-merge half of the step:
+    the physics control step, the imitation reward and its raw terms, the
+    termination distances and the AMP row of the stepped state
+    (csrc/step_reward_amp.cu; replaces `pallas_step_reward_amp`).
+  * K2 `observe` — self obs v1 ++ task obs v6 (T = 1) of the post-merge
+    state (csrc/observe.cu; replaces `pallas_observe`).
+
+A wrapper given CPU tensors runs the plain version. Given CUDA tensors it
+launches the kernel or raises; it never falls back. `launches` counts the
+kernel launches of each wrapper.
+
+Kernel layout: inputs and outputs are [rows, B] float32 (one row per
+scalar of the per-env record), so neighbouring threads read neighbouring
+addresses. The wrapper builds that layout from the [B, ...] tensors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from pulse_tpu_torch import _build
+from pulse_tpu_torch.env import kernels
+from pulse_tpu_torch.physics import substep_cuda
+from pulse_tpu_torch.physics.model import Model
+from pulse_tpu_torch.physics.state import PhysicsState, dof_pos_from_state, dof_vel_from_state
+from pulse_tpu_torch.physics.step import physics_step
+
+MAX_KEY = 8           # csrc/step_reward_amp.cu MAX_KEY
+# K1 threads per block (at most its __launch_bounds__(64)): one warp a block
+# spreads 3072 envs over 96 SMs; 8% faster than 64 on the H100 (PERF.md)
+K1_BLOCK = 32
+K2_BLOCK = 128        # matches __launch_bounds__(128)
+
+launches = {"step_reward_amp": 0, "observe": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class EnvConsts:
+    """Per-env constants both kernels need (key/reset bodies, obs flags,
+    reward k/w)."""
+
+    J: int
+    key_ids: tuple
+    reset_ids: tuple
+    local_root_obs: bool
+    root_height_obs: bool
+    amp_v: int
+    k_pos: float
+    k_rot: float
+    k_vel: float
+    k_ang_vel: float
+    w_pos: float
+    w_rot: float
+    w_vel: float
+    w_ang_vel: float
+
+    def table(self) -> bytes:
+        """The bytes of csrc EnvConsts (4-byte fields, no padding)."""
+        if len(self.key_ids) > MAX_KEY or len(self.reset_ids) > substep_cuda.MAX_J:
+            raise NotImplementedError("too many key or reset bodies for the CUDA kernel")
+        ints = np.zeros(8 + MAX_KEY + substep_cuda.MAX_J, np.int32)
+        ints[:5] = [len(self.key_ids), len(self.reset_ids), self.local_root_obs, self.root_height_obs, self.amp_v]
+        ints[8 : 8 + len(self.key_ids)] = self.key_ids
+        ints[8 + MAX_KEY : 8 + MAX_KEY + len(self.reset_ids)] = self.reset_ids
+        floats = np.asarray(
+            [self.k_pos, self.k_rot, self.k_vel, self.k_ang_vel, self.w_pos, self.w_rot, self.w_vel, self.w_ang_vel],
+            np.float32,
+        )
+        return ints.tobytes() + floats.tobytes()
+
+
+def env_consts_from(env) -> EnvConsts:
+    cfg = env.config
+    return EnvConsts(
+        J=env.model.num_bodies,
+        key_ids=tuple(int(b) for b in env.key_body_ids),
+        reset_ids=tuple(int(b) for b in env.reset_body_ids),
+        local_root_obs=bool(cfg.local_root_obs),
+        root_height_obs=bool(cfg.root_height_obs),
+        amp_v=int(cfg.amp_obs_v),
+        k_pos=float(cfg.k_pos), k_rot=float(cfg.k_rot), k_vel=float(cfg.k_vel), k_ang_vel=float(cfg.k_ang_vel),
+        w_pos=float(cfg.w_pos), w_rot=float(cfg.w_rot), w_vel=float(cfg.w_vel), w_ang_vel=float(cfg.w_ang_vel),
+    )
+
+
+def amp_obs_dim(J: int, num_key: int, amp_v: int, root_height: bool) -> int:
+    D = 3 * (J - 1)
+    return (1 if root_height else 0) + 6 + 3 + 3 + 2 * D + D + 3 * num_key + (3 * num_key if amp_v == 2 else 0)
+
+
+def obs_dim(J: int, root_height: bool) -> int:
+    return (1 if root_height else 0) + 3 * (J - 1) + 12 * J + 24 * J
+
+
+# --------------------------------------------------------------------------- #
+# plain versions
+# --------------------------------------------------------------------------- #
+
+def reward_amp_plain(e: EnvConsts, physics: PhysicsState, ref: dict):
+    """K1's epilogue on an already-stepped state: (reward [B], raw [B, 4],
+    dist_mean [B], dist_max [B], amp row [B, A])."""
+    reward, raw = kernels.compute_imitation_reward(
+        physics.body_pos, physics.body_rot, physics.body_vel, physics.body_ang_vel,
+        ref["rg_pos"], ref["rb_rot"], ref["body_vel"], ref["body_ang_vel"],
+        k_pos=e.k_pos, k_rot=e.k_rot, k_vel=e.k_vel, k_ang_vel=e.k_ang_vel,
+        w_pos=e.w_pos, w_rot=e.w_rot, w_vel=e.w_vel, w_ang_vel=e.w_ang_vel,
+    )
+    rid = list(e.reset_ids)
+    dist = torch.linalg.vector_norm(physics.body_pos[:, rid] - ref["rg_pos"][:, rid], dim=-1)
+    kid = list(e.key_ids)
+    args = (
+        physics.root_pos, physics.root_rot, physics.body_vel[:, 0], physics.body_ang_vel[:, 0],
+        dof_pos_from_state(physics), dof_vel_from_state(physics), physics.body_pos[:, kid],
+    )
+    kw = dict(local_root_obs=e.local_root_obs, root_height_obs=e.root_height_obs)
+    if e.amp_v == 2:
+        amp = kernels.build_amp_observations_smpl_v2(*args, physics.body_vel[:, kid], **kw)
+    else:
+        amp = kernels.build_amp_observations_smpl(*args, **kw)
+    return reward, raw, dist.mean(dim=-1), dist.amax(dim=-1), amp
+
+
+def step_reward_amp_plain(model: Model, e: EnvConsts, state: PhysicsState, pd_target: torch.Tensor, ref: dict):
+    """K1's plain version: physics_step, then the epilogue."""
+    physics = physics_step(model, state, pd_target)
+    return (physics,) + reward_amp_plain(e, physics, ref)
+
+
+def observe_plain(e: EnvConsts, physics: PhysicsState, ref: dict) -> torch.Tensor:
+    """K2's plain version: [B, obs_dim] self obs v1 ++ task obs v6 (T = 1),
+    with body 0 as the root."""
+    self_obs = kernels.compute_humanoid_self_obs_max(
+        physics.body_pos, physics.body_rot, physics.body_vel, physics.body_ang_vel,
+        local_root_obs=e.local_root_obs, root_height_obs=e.root_height_obs,
+    )
+    task_obs = kernels.compute_imitation_observations_v6(
+        physics.body_pos[:, 0], physics.body_rot[:, 0],
+        physics.body_pos, physics.body_rot, physics.body_vel, physics.body_ang_vel,
+        ref["rg_pos"][:, None], ref["rb_rot"][:, None], ref["body_vel"][:, None], ref["body_ang_vel"][:, None],
+    )
+    return torch.cat([self_obs, task_obs], dim=-1)
+
+
+# --------------------------------------------------------------------------- #
+# kernel wrappers
+# --------------------------------------------------------------------------- #
+
+def _check_inputs(parts: list[torch.Tensor], B: int) -> torch.device:
+    dev = parts[0].device
+    for t in parts:
+        if t.device != dev or t.dtype != torch.float32 or t.shape[0] != B:
+            raise ValueError(f"kernel input on {t.device} {t.dtype} {tuple(t.shape)}: expected float32 [B={B}, ...] on {dev}")
+    if dev.type != "cuda":
+        raise ValueError(f"CUDA kernel given tensors on {dev}")
+    return dev
+
+
+def _rows(parts: list[torch.Tensor], B: int, n_rows: int) -> torch.Tensor:
+    """[B, ...] tensors -> one contiguous [n_rows, B] block."""
+    x = torch.cat([t.reshape(B, -1) for t in parts], dim=1)
+    if x.shape[1] != n_rows:
+        raise ValueError(f"kernel input has {x.shape[1]} rows, expected {n_rows}")
+    return x.t().contiguous()
+
+
+def _bodies(ref: dict) -> list[torch.Tensor]:
+    return [ref["rg_pos"], ref["rb_rot"], ref["body_vel"], ref["body_ang_vel"]]
+
+
+_uploaded: dict = {}
+
+
+def _upload_consts(lib, model: Model, e: EnvConsts, dev: torch.device, stream: int) -> None:
+    """Upload the constant tables when this device does not hold this
+    (model, env) pair yet. The cache holds the model itself, so its id
+    cannot be reused by another model while it is cached."""
+    held = _uploaded.get(dev.index)
+    if held is not None and held[0] is model and held[1] == e:
+        return
+    mt, et = substep_cuda.model_const_table(model), e.table()
+    if lib.k1_model_consts_bytes() != len(mt) or lib.k1_env_consts_bytes() != len(et):
+        raise RuntimeError("constant table layout differs between Python and csrc")
+    _build.check(lib.k1_set_consts(mt, len(mt), et, len(et), stream), "constant upload")
+    _uploaded[dev.index] = (model, e)
+
+
+def physics_state_from_rows(rows: torch.Tensor, J: int) -> PhysicsState:
+    """[B, >= 174 + 16 J] kernel output rows -> PhysicsState."""
+    B, Jm1 = rows.shape[0], J - 1
+    n_state = 7 + 4 * Jm1 + 6 + 3 * Jm1
+    body = rows[:, n_state + 3 * J : n_state + 16 * J].reshape(B, J, 13)
+    return PhysicsState(
+        root_pos=rows[:, 0:3].contiguous(),
+        root_rot=rows[:, 3:7].contiguous(),
+        joint_rot=rows[:, 7 : 7 + 4 * Jm1].reshape(B, Jm1, 4),
+        root_vel6=rows[:, 7 + 4 * Jm1 : 13 + 4 * Jm1].contiguous(),
+        joint_omega=rows[:, 13 + 4 * Jm1 : n_state].reshape(B, Jm1, 3),
+        body_pos=body[..., 0:3].contiguous(),
+        body_rot=body[..., 3:7].contiguous(),
+        body_vel=body[..., 7:10].contiguous(),
+        body_ang_vel=body[..., 10:13].contiguous(),
+        contact_force=rows[:, n_state : n_state + 3 * J].reshape(B, J, 3),
+    )
+
+
+def step_reward_amp(model: Model, e: EnvConsts, state: PhysicsState, pd_target: torch.Tensor, ref: dict):
+    """K1. Returns (stepped PhysicsState, reward [B], raw [B, 4],
+    dist_mean [B], dist_max [B], amp row [B, A])."""
+    if state.root_pos.device.type == "cpu":
+        return step_reward_amp_plain(model, e, state, pd_target, ref)
+    if not substep_cuda.supported(model):
+        raise NotImplementedError("model outside the CUDA kernel's surface")
+    B, J = state.root_pos.shape[0], model.num_bodies
+    Jm1 = J - 1
+    parts = [state.root_pos, state.root_rot, state.joint_rot, state.root_vel6, state.joint_omega, pd_target]
+    dev = _check_inputs(parts + _bodies(ref), B)
+    n_state = 7 + 4 * Jm1 + 6 + 3 * Jm1
+    n_in = n_state + 3 * Jm1 + 13 * J
+    n_amp = amp_obs_dim(J, len(e.key_ids), e.amp_v, e.root_height_obs)
+    n_out = n_state + 16 * J + 7 + n_amp
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        x = _rows(parts + _bodies(ref), B, n_in)
+        out = torch.empty(n_out, B, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _upload_consts(lib, model, e, dev, stream)
+        _build.check(lib.k1_step_reward_amp(x.data_ptr(), out.data_ptr(), B, K1_BLOCK, stream), "K1 launch")
+    launches["step_reward_amp"] += 1
+    rows = out.t()
+    ra = rows[:, n_state + 16 * J :]
+    return (
+        physics_state_from_rows(rows, J),
+        ra[:, 0].contiguous(),
+        ra[:, 1:5].contiguous(),
+        ra[:, 5].contiguous(),
+        ra[:, 6].contiguous(),
+        ra[:, 7:].contiguous(),
+    )
+
+
+def observe(e: EnvConsts, physics: PhysicsState, ref: dict) -> torch.Tensor:
+    """K2. [B, obs_dim] observation of the (post-merge) state against the
+    reference bodies at the next control time."""
+    if physics.body_pos.device.type == "cpu":
+        return observe_plain(e, physics, ref)
+    B, J = physics.body_pos.shape[0], e.J
+    parts = [physics.body_pos, physics.body_rot, physics.body_vel, physics.body_ang_vel] + _bodies(ref)
+    dev = _check_inputs(parts, B)
+    n_out = obs_dim(J, e.root_height_obs)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        x = _rows(parts, B, 26 * J)
+        out = torch.empty(n_out, B, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.k2_observe(x.data_ptr(), out.data_ptr(), B, J, int(e.local_root_obs), int(e.root_height_obs),
+                            K2_BLOCK, stream)
+        _build.check(rc, "K2 launch")
+    launches["observe"] += 1
+    return out.t().contiguous()

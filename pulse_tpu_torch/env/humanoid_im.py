@@ -1,0 +1,279 @@
+"""HumanoidIm, the motion-imitation environment, batched over envs in
+PyTorch.
+
+Counterpart of `pulse_tpu/env/humanoid_im.py` on its fused hot path
+(`_fused_step_ok`: obs v6 with one future step, self obs v1, AMP obs v1/v2,
+isaac_pd control, no far-goal, cycling, power reward, occlusion, obs noise,
+domain randomization or shape channels). A config off that surface raises
+NotImplementedError.
+
+One `step`: gather the reference at the post-step time, kernel K1 (physics,
+reward, termination distances, AMP row), termination, the branch-free
+auto-reset merge with freshly sampled reference-state inits, kernel K2 (the
+observation of the merged state). Random draws come from the env's
+`torch.Generator`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from pulse_tpu_torch._device import resolve_device
+from pulse_tpu_torch.assets import load_smpl_humanoid
+from pulse_tpu_torch.env import cuda_obs, kernels
+from pulse_tpu_torch.motion.motion_lib import MotionData, get_motion_state, sample_motions, sample_time
+from pulse_tpu_torch.ops import quat as q
+from pulse_tpu_torch.physics import substep_cuda
+from pulse_tpu_torch.physics.model import Model
+from pulse_tpu_torch.physics.state import PhysicsState, physics_state_from_numpy, state_from_motion_ref
+
+DEFAULT_KEY_BODIES = ("R_Ankle", "L_Ankle", "R_Wrist", "L_Wrist")
+DEFAULT_RESET_BODIES = (
+    "Pelvis", "L_Hip", "L_Knee", "R_Hip", "R_Knee", "Torso", "Spine", "Chest",
+    "Neck", "Head", "L_Thorax", "L_Shoulder", "L_Elbow", "L_Wrist", "L_Hand",
+    "R_Thorax", "R_Shoulder", "R_Elbow", "R_Wrist", "R_Hand",
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class EnvConfig:
+    """The knobs of env_im that shape the step (defaults = configs/env/im.yaml)."""
+
+    control_mode: str = "isaac_pd"
+    termination_distance: float = 0.25
+    enable_early_termination: bool = True
+    use_mean_termination: bool = True
+    num_traj_samples: int = 1
+    local_root_obs: bool = True
+    root_height_obs: bool = True
+    state_init: str = "Random"         # reference-state init at a random clip time
+    power_reward: bool = False
+    cycle_motion: bool = False
+    obs_v: int = 6
+    self_obs_v: int = 1
+    obs_noise_std: float = 0.0
+    zero_out_far: bool = False
+    occlusion_prob: float = 0.0
+    num_amp_obs_steps: int = 10
+    amp_obs_v: int = 1
+    has_shape_obs: bool = False
+    has_shape_obs_disc: bool = False
+    has_limb_weight_obs: bool = False
+    key_bodies: Sequence[str] = DEFAULT_KEY_BODIES
+    reset_bodies: Sequence[str] = DEFAULT_RESET_BODIES
+    track_bodies: Sequence[str] | None = None
+    k_pos: float = 100.0
+    k_rot: float = 10.0
+    k_vel: float = 0.1
+    k_ang_vel: float = 0.1
+    w_pos: float = 0.5
+    w_rot: float = 0.3
+    w_vel: float = 0.1
+    w_ang_vel: float = 0.1
+
+
+@dataclasses.dataclass
+class EnvState:
+    """Batched env state; every field has a leading env axis B."""
+
+    physics: PhysicsState
+    motion_id: torch.Tensor    # [B] long
+    start_time: torch.Tensor   # [B] f32
+    progress: torch.Tensor     # [B] int32
+    obs: torch.Tensor          # [B, obs_dim]
+    reward: torch.Tensor       # [B]
+    reward_raw: torch.Tensor   # [B, 4]
+    done: torch.Tensor         # [B] bool
+    terminate: torch.Tensor    # [B] bool
+    amp_hist: torch.Tensor     # [B, S, A] newest first
+
+    @property
+    def amp_obs(self) -> torch.Tensor:
+        return self.amp_hist.flatten(1)
+
+    def replace(self, **kw) -> "EnvState":
+        return dataclasses.replace(self, **kw)
+
+
+def env_state_from_numpy(d: dict, device=None) -> EnvState:
+    """Build an EnvState from numpy arrays keyed by field name, with
+    d["physics"] a dict of PhysicsState fields (e.g. a JAX EnvState
+    converted leaf by leaf)."""
+    def t(x, dtype):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+    return EnvState(
+        physics=physics_state_from_numpy(d["physics"], device=device),
+        motion_id=t(d["motion_id"], torch.long),
+        start_time=t(d["start_time"], torch.float32),
+        progress=t(d["progress"], torch.int32),
+        obs=t(d["obs"], torch.float32),
+        reward=t(d["reward"], torch.float32),
+        reward_raw=t(d["reward_raw"], torch.float32),
+        done=t(d["done"], torch.bool),
+        terminate=t(d["terminate"], torch.bool),
+        amp_hist=t(d["amp_hist"], torch.float32),
+    )
+
+
+def _select(mask: torch.Tensor, a, b):
+    """Field-wise where(mask, a, b) over (nested) state dataclasses."""
+    if dataclasses.is_dataclass(a):
+        return type(a)(**{f.name: _select(mask, getattr(a, f.name), getattr(b, f.name)) for f in dataclasses.fields(a)})
+    return torch.where(mask.reshape(mask.shape + (1,) * (a.ndim - 1)), a, b)
+
+
+class HumanoidImEnv:
+    """Bundles (physics model, motion data, config) with the env's random
+    generator. `reset` and `step` take and return batched EnvStates."""
+
+    def __init__(self, model: Model, motion: MotionData, config: EnvConfig | None = None,
+                 device=None, seed: int = 0):
+        self.device = resolve_device(device)
+        if model.device != self.device or motion.gts.device != self.device:
+            raise ValueError(f"model and motion must live on {self.device}")
+        self.model = model
+        self.motion = motion
+        self.config = cfg = config or EnvConfig()
+        if not self._fused_step_ok():
+            raise NotImplementedError("only the fused imitation step surface (pulse_tpu _fused_step_ok) is ported")
+        if self.device.type == "cuda" and not substep_cuda.supported(model):
+            raise NotImplementedError("model outside the CUDA kernel's surface")
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
+
+        names = load_smpl_humanoid().skeleton.node_names
+        self.key_body_ids = np.asarray([names.index(n) for n in cfg.key_bodies], np.int32)
+        self.reset_body_ids = np.asarray([names.index(n) for n in cfg.reset_bodies], np.int32)
+        J = model.num_bodies
+        self.num_bodies = J
+        self.obs_dim = cuda_obs.obs_dim(J, cfg.root_height_obs)
+        self.amp_obs_dim_single = cuda_obs.amp_obs_dim(J, len(self.key_body_ids), cfg.amp_obs_v, cfg.root_height_obs)
+        self.amp_obs_dim = cfg.num_amp_obs_steps * self.amp_obs_dim_single
+        self.action_dim = model.num_dof
+        self.consts = cuda_obs.env_consts_from(self)
+        self.amp_frame_table = self._build_amp_frame_table()
+
+    def _fused_step_ok(self) -> bool:
+        cfg = self.config
+        return (
+            cfg.control_mode == "isaac_pd"
+            and cfg.state_init == "Random"
+            and cfg.obs_v == 6
+            and cfg.self_obs_v == 1
+            and cfg.amp_obs_v in (1, 2)
+            and cfg.num_traj_samples == 1
+            and not cfg.cycle_motion
+            and not cfg.zero_out_far
+            and not cfg.power_reward
+            and cfg.occlusion_prob == 0
+            and cfg.obs_noise_std == 0
+            and not (cfg.has_shape_obs or cfg.has_shape_obs_disc or cfg.has_limb_weight_obs)
+            and cfg.track_bodies is None
+        )
+
+    def _build_amp_frame_table(self) -> torch.Tensor:
+        """AMP obs of every stored motion frame, [F, A]: resets gather their
+        discriminator window from it."""
+        m = self.motion
+        F = m.gts.shape[0]
+        args = (m.gts[:, 0], m.grs[:, 0], m.gvs[:, 0], m.gavs[:, 0],
+                q.quat_to_exp_map(m.lrs[:, 1:]).reshape(F, -1), m.dvs, m.gts[:, self.key_body_ids])
+        kw = dict(local_root_obs=self.config.local_root_obs, root_height_obs=self.config.root_height_obs)
+        if self.config.amp_obs_v == 2:
+            return kernels.build_amp_observations_smpl_v2(*args, m.gvs[:, self.key_body_ids], **kw)
+        return kernels.build_amp_observations_smpl(*args, **kw)
+
+    # ------------------------------------------------------------------ #
+    # reset (reference state init)
+    # ------------------------------------------------------------------ #
+
+    def _motion_time(self, start_time: torch.Tensor, progress: torch.Tensor) -> torch.Tensor:
+        return start_time + progress.to(torch.float32) * self.model.config.control_dt
+
+    def _sample_reset(self, n: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """(motion ids [n], start times [n]) for n fresh episodes."""
+        motion_ids = sample_motions(self.generator, self.motion, n)
+        return motion_ids, sample_time(self.generator, self.motion, motion_ids)
+
+    def _init_amp_hist(self, motion_ids: torch.Tensor, start_times: torch.Tensor) -> torch.Tensor:
+        """Discriminator window from the clip's past frames: [B, S, A]."""
+        m = self.motion
+        S = self.config.num_amp_obs_steps
+        steps = torch.arange(S, dtype=torch.float32, device=self.device) * self.model.config.control_dt
+        times = torch.clamp(start_times[:, None] - steps, min=0.0)
+        ids = motion_ids[:, None].expand(-1, S)
+        f = torch.round(times / m.motion_dt[ids]).to(torch.long)
+        f = torch.minimum(torch.clamp(f, min=0), m.motion_num_frames[ids] - 1)
+        return self.amp_frame_table[m.length_starts[ids] + f]
+
+    def _fresh(self, motion_ids: torch.Tensor, start_times: torch.Tensor) -> EnvState:
+        """Reference-state init onto (clip, time) pairs; obs left at zero."""
+        B = motion_ids.shape[0]
+        ref = get_motion_state(self.motion, motion_ids, start_times)
+        z = torch.zeros(B, device=self.device)
+        return EnvState(
+            physics=state_from_motion_ref(self.model, ref),
+            motion_id=motion_ids,
+            start_time=start_times,
+            progress=torch.zeros(B, dtype=torch.int32, device=self.device),
+            obs=torch.zeros(B, self.obs_dim, device=self.device),
+            reward=z,
+            reward_raw=torch.zeros(B, 4, device=self.device),
+            done=torch.zeros(B, dtype=torch.bool, device=self.device),
+            terminate=torch.zeros(B, dtype=torch.bool, device=self.device),
+            amp_hist=self._init_amp_hist(motion_ids, start_times),
+        )
+
+    def reset_to(self, motion_ids: torch.Tensor, start_times: torch.Tensor) -> EnvState:
+        state = self._fresh(motion_ids, start_times)
+        return state.replace(obs=self._observe(state))
+
+    def reset(self, num_envs: int) -> EnvState:
+        return self.reset_to(*self._sample_reset(num_envs))
+
+    def _observe(self, state: EnvState) -> torch.Tensor:
+        """K2 against the reference at the next control step's time."""
+        t_next = self._motion_time(state.start_time, state.progress) + self.model.config.control_dt
+        ref = get_motion_state(self.motion, state.motion_id, t_next)
+        return cuda_obs.observe(self.consts, state.physics, ref)
+
+    # ------------------------------------------------------------------ #
+    # step
+    # ------------------------------------------------------------------ #
+
+    def action_to_pd_target(self, actions: torch.Tensor) -> torch.Tensor:
+        return self.model.pd_action_offset + self.model.pd_action_scale * actions
+
+    def step(self, state: EnvState, actions: torch.Tensor) -> EnvState:
+        cfg = self.config
+        B = actions.shape[0]
+        progress = state.progress + 1
+        # the reference at the post-step time depends only on (clip,
+        # progress), so it is gathered before physics and rides into K1
+        t = self._motion_time(state.start_time, progress)
+        ref = get_motion_state(self.motion, state.motion_id, t)
+        physics, reward, reward_raw, dmean, dmax, amp_row = cuda_obs.step_reward_amp(
+            self.model, self.consts, state.physics, self.action_to_pd_target(actions), ref
+        )
+
+        pass_time = t >= self.motion.motion_lengths[state.motion_id]
+        dist = dmean if cfg.use_mean_termination else dmax
+        terminate = (dist > cfg.termination_distance) & (progress > 1)
+        if not cfg.enable_early_termination:
+            terminate = torch.zeros_like(terminate)
+        reset = pass_time | terminate
+
+        stepped = state.replace(
+            physics=physics,
+            progress=progress,
+            amp_hist=torch.cat([amp_row[:, None], state.amp_hist[:, :-1]], dim=1),
+        )
+        merged = _select(reset, self._fresh(*self._sample_reset(B)), stepped)
+        return merged.replace(
+            obs=self._observe(merged), reward=reward, reward_raw=reward_raw, done=reset, terminate=terminate
+        )
