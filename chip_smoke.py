@@ -4,25 +4,51 @@
     python3 chip_smoke.py
 
 Phases, each printed as one JSON line:
-  device   the card, its power limit (the raw nvidia-smi line is printed too)
-  build    nvcc of pulse_tpu_torch/csrc/*.cu for sm_90a: seconds, registers
-           and spill bytes per kernel from -Xptxas -v
-  kernels  K1 (step_reward_amp) and K2 (observe) against their plain PyTorch
-           versions at 3072 envs, on states from a reference-state reset of
-           synthetic clips plus a few plain physics steps (feet in contact)
-  slice    HumanoidImEnv (default EnvConfig/PhysicsConfig, 4 synthetic
-           clips, 3072 envs) acting for 32 steps under the 2048-1536-1024
-           ActorCritic in bf16 autocast; each kernel must launch exactly 32
-           times, obs/reward finite, reward in [0, 1], some auto-reset
-  timing   env steps/s with the policy acting and with random actions; each
-           kernel's and plain version's ms (CUDA events), bound and launches
+  device       the card, its power limit (the raw nvidia-smi line is printed
+               too)
+  build        nvcc of pulse_tpu_torch/csrc/*.cu for sm_90a, one process per
+               source: seconds, registers and spill bytes per kernel
+  kernels      K1 (step_reward_amp), K2 (observe), K3 (physics_step) and RA
+               (reward_amp) against their plain PyTorch versions at 3072
+               envs, on states from a reference-state reset of synthetic
+               clips plus a few plain physics steps (feet in contact); and
+               K3 -> RA against K1 on the same inputs
+  slice        HumanoidImEnv (default EnvConfig/PhysicsConfig, 4 synthetic
+               clips, 3072 envs) acting for 32 steps under the 2048-1536-1024
+               ActorCritic in bf16 autocast; K1 and K2 must launch exactly 32
+               times, obs/reward finite, reward in [0, 1], some auto-reset
+  timing       env steps/s with the policy acting and with random actions;
+               K1's and K2's ms and their plain versions' (CUDA events)
+  train_im     `python -m pulse_tpu_torch.run env=im learning=im_ppo
+               num_envs=3072` for 2 epochs through run.main: finite losses,
+               changed parameters, obs_rms.count grown by 32 * 3072 an epoch,
+               32 launches of K1 and of K2 an epoch and none of K3 or RA
+  getup_tables K3 against physics_step on the fall-state settle's ragdoll
+               model (kp 0, kd 5) at 256 envs, on the settle's first input;
+               then, with no cache cleared, K3 on the real model against the
+               kernels phase's plain step (the constant table must be
+               uploaded again); in mid-settle, where the step is
+               ill-conditioned, K3's and plain float32's envs beyond the
+               tolerances against a float64 step (measured, not checked)
+  train_getup  the same with env=im_getup at its full settings: 60 K3
+               launches (the fall-state settle) while the env is built, then
+               32 of K3, RA and K2 an epoch and none of K1; some resets drew
+               fall states and some terminations were held back by the grace
+               window; reward in [0, 1], finite obs; then K3 on the run's own
+               model against physics_step on the run's last state
+  Both training phases time rollout, GAE and update (epochs after the first)
+  and the training env steps/s; then K3's and RA's ms and their plain
+  versions'.
 Then the kernels' JSON line, the card's nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed check exits non-zero before the
 last line. Exits non-zero without CUDA or without the package beside it.
 """
 
+import dataclasses
 import json
+import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -30,6 +56,7 @@ import time
 N_ENVS = 3072
 HORIZON = 32
 WINDOWS = 4                     # timed windows of HORIZON steps per regime
+TRAIN_EPOCHS = 2
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_FP32_OPS_PER_S = 67e12     # fp32 outside the tensor cores, H100 SXM
 
@@ -42,7 +69,10 @@ K1_TOL = {"root_pos": 2e-4, "root_rot": 2e-4, "joint_rot": 2e-4, "root_vel6": 5e
           "body_pos": 3e-4, "body_rot": 2e-4, "body_vel": 5e-3, "body_ang_vel": 5e-3, "contact_force": 1.0,
           "reward": 1e-4, "reward_raw": 1e-4, "dist_mean": 3e-4, "dist_max": 3e-4, "amp": 1e-3}
 K2_TOL = 1e-3
+PHYS_FIELDS = ("root_pos", "root_rot", "joint_rot", "root_vel6", "joint_omega", "body_pos", "body_rot", "body_vel",
+               "body_ang_vel", "contact_force")
 OUTLIER_FRAC = 0.01
+SETTLE_CHECK_STEP = 8           # the mid-settle step (in contact) where K3 is measured
 
 
 def emit(obj) -> None:
@@ -75,7 +105,8 @@ OPS["solve6_sym"] = 2 * OPS["inv3"] + 2 * OPS["m3_mul"] + OPS["m3_add"] + 3 * OP
 OPS["inertia_to_parent"] = OPS["quat_to_matrix_conj"] + 8 * OPS["m3_mul"] + 3 * OPS["m3_add"] + 9
 
 
-def k1_ops_per_env(J: int, P: int, n_sub: int, n_reset: int, n_key: int, amp_v: int) -> int:
+def physics_ops_per_env(J: int, P: int, n_sub: int) -> int:
+    """K3, and K1's physics half: the control step and the final FK."""
     o = OPS
     fk = o["qmul_norm"] + o["qrot"] + 3 + o["motion_to_child"] + 6
     contact = 3 * o["qrot"] + o["cross"] * 2 + 3 * 6 + 6 + 5 + 2 + 3 + 2 + 3 * 3
@@ -88,12 +119,22 @@ def k1_ops_per_env(J: int, P: int, n_sub: int, n_reset: int, n_key: int, amp_v: 
     substep = ((J - 1) * (fk + o["cross_motion"] + torque + pass2 + pass3) + P * contact + J * bias
                + o["solve6_sym"] + root)
     final_fk = (J - 1) * (o["qmul_norm"] + 2 * o["qrot"] + 3 + 3 + o["cross"] + 3 + 3) + 2 * o["qrot"]
+    return (J - 1) * o["expmap_to_quat"] + n_sub * substep + 3 * J + final_fk
+
+
+def epilogue_ops_per_env(J: int, n_reset: int, n_key: int, amp_v: int) -> int:
+    """RA, and K1's epilogue: reward, termination distances, AMP row."""
+    o = OPS
     reward = J * (3 * 9 + o["qmul"] + o["quat_angle"] + 2) + 20
     dist = n_reset * 11
     amp = (o["heading"] + o["zrot"] + o["qmul"] + o["tan_norm"] + 2 * o["qrot"]
            + (J - 1) * (o["quat_to_expmap"] + o["expmap_to_quat"] + o["tan_norm"])
            + n_key * (3 + o["qrot"]) * (2 if amp_v == 2 else 1))
-    return (J - 1) * o["expmap_to_quat"] + n_sub * substep + 3 * J + final_fk + reward + dist + amp
+    return reward + dist + amp
+
+
+def k1_ops_per_env(J: int, P: int, n_sub: int, n_reset: int, n_key: int, amp_v: int) -> int:
+    return physics_ops_per_env(J, P, n_sub) + epilogue_ops_per_env(J, n_reset, n_key, amp_v)
 
 
 def k2_ops_per_env(J: int) -> int:
@@ -140,6 +181,26 @@ def compare(got, want, tol: float, n_envs: int) -> dict:
     }
 
 
+def envs_beyond(got, want, n_envs: int) -> int:
+    """Envs whose error exceeds K1_TOL in any physics field."""
+    import torch
+
+    bad = torch.zeros(n_envs, dtype=torch.bool, device=got.root_pos.device)
+    for f in PHYS_FIELDS:
+        err = (getattr(got, f).double() - getattr(want, f).double()).abs().reshape(n_envs, -1).amax(dim=1)
+        bad |= err > K1_TOL[f]
+    return int(bad.sum())
+
+
+def as_float64(obj):
+    """A copy of a Model or PhysicsState with its float tensors in float64."""
+    import torch
+
+    return dataclasses.replace(obj, **{f.name: getattr(obj, f.name).double() for f in dataclasses.fields(obj)
+                                       if isinstance(getattr(obj, f.name), torch.Tensor)
+                                       and getattr(obj, f.name).is_floating_point()})
+
+
 def main() -> int:
     import torch
 
@@ -156,6 +217,7 @@ def main() -> int:
     from pulse_tpu_torch.learning.running_norm import RunningMeanStd
     from pulse_tpu_torch.motion.motion_lib import build_motion_data, get_motion_state
     from pulse_tpu_torch.motion.synthetic import make_synthetic_clips
+    from pulse_tpu_torch.physics import substep_cuda
     from pulse_tpu_torch.physics.model import PhysicsConfig, build_model
     from pulse_tpu_torch.physics.step import physics_step
 
@@ -202,25 +264,36 @@ def main() -> int:
         ref_next = get_motion_state(motion, state.motion_id, t + model.config.control_dt)
         k2 = cuda_obs.observe(e, k1[0], ref_next)
         p2 = cuda_obs.observe_plain(e, k1[0], ref_next)
+        # K3 on the same inputs, against the plain physics (p1's) and K1's;
+        # RA on K3's stepped state, against the plain epilogue and K1's
+        k3 = substep_cuda.physics_step_cuda(model, state.physics, pd)
+        ra = cuda_obs.reward_amp(e, k3, ref)
+        pra = cuda_obs.reward_amp_plain(e, k3, ref)
     torch.cuda.synchronize()
+    kin_phys, kin_pd, kin_ref = state.physics, pd, ref   # K3's and RA's timing inputs
     names = ("reward", "reward_raw", "dist_mean", "dist_max", "amp")
-    k1_cmp = {f: compare(getattr(k1[0], f), getattr(p1[0], f), K1_TOL[f], N_ENVS) for f in
-              ("root_pos", "root_rot", "joint_rot", "root_vel6", "joint_omega", "body_pos", "body_rot",
-               "body_vel", "body_ang_vel", "contact_force")}
+    phys = PHYS_FIELDS
+    k1_cmp = {f: compare(getattr(k1[0], f), getattr(p1[0], f), K1_TOL[f], N_ENVS) for f in phys}
     k1_cmp.update({n: compare(a, b, K1_TOL[n], N_ENVS) for n, a, b in zip(names, k1[1:], p1[1:])})
     epi_cmp = {n: compare(a, b, K1_TOL[n], N_ENVS) for n, a, b in zip(names, k1[1:], ep)}
     k2_cmp = compare(k2, p2, K2_TOL, N_ENVS)
+    k3_cmp = {f: compare(getattr(k3, f), getattr(p1[0], f), K1_TOL[f], N_ENVS) for f in phys}
+    ra_cmp = {n: compare(a, b, K1_TOL[n], N_ENVS) for n, a, b in zip(names, ra, pra)}
+    k3ra_vs_k1 = {f: compare(getattr(k3, f), getattr(k1[0], f), K1_TOL[f], N_ENVS) for f in phys}
+    k3ra_vs_k1.update({n: compare(a, b, K1_TOL[n], N_ENVS) for n, a, b in zip(names, ra, k1[1:])})
     in_contact = int((k1[0].contact_force.abs().amax(dim=(1, 2)) > 1.0).sum())
-    k1_max_err = max(c["max"] for c in k1_cmp.values())
+    max_err = {"step_reward_amp": max(c["max"] for c in k1_cmp.values()), "observe": k2_cmp["max"],
+               "physics_step": max(c["max"] for c in k3_cmp.values()),
+               "reward_amp": max(c["max"] for c in ra_cmp.values())}
     emit({"phase": "kernels", "envs": N_ENVS, "envs_in_contact": in_contact, "K1_vs_plain": k1_cmp,
-          "K1_epilogue_on_kernel_state": epi_cmp, "K2_vs_plain": k2_cmp})
+          "K1_epilogue_on_kernel_state": epi_cmp, "K2_vs_plain": k2_cmp, "K3_vs_plain": k3_cmp,
+          "RA_vs_plain_on_K3_state": ra_cmp, "K3_RA_vs_K1": k3ra_vs_k1})
     allowed = int(OUTLIER_FRAC * N_ENVS)
-    for name, c in k1_cmp.items():
-        if not c["outlier_envs"] <= allowed:
-            fail(f"K1 {name}: {c['outlier_envs']} envs beyond {c['tol']} (max {c['max']})")
-    for name, c in epi_cmp.items():
-        if c["outlier_envs"]:
-            fail(f"K1 epilogue {name}: {c['outlier_envs']} envs beyond {c['tol']} (max {c['max']})")
+    for label, cmps, limit in (("K1", k1_cmp, allowed), ("K1 epilogue", epi_cmp, 0), ("K3", k3_cmp, allowed),
+                               ("RA", ra_cmp, 0), ("K3 -> RA vs K1", k3ra_vs_k1, 0)):
+        for name, c in cmps.items():
+            if not c["outlier_envs"] <= limit:
+                fail(f"{label} {name}: {c['outlier_envs']} envs beyond {c['tol']} (max {c['max']})")
     if k2_cmp["outlier_envs"]:
         fail(f"K2: {k2_cmp['outlier_envs']} envs beyond {K2_TOL} (max {k2_cmp['max']})")
     if in_contact == 0:
@@ -238,7 +311,7 @@ def main() -> int:
     with torch.no_grad():
         state = act(act(state))   # warm-up: cuBLAS, allocator
         torch.cuda.synchronize()
-        cuda_obs.reset_launch_counts()
+        _build.reset_launch_counts()
         resets, rewards = 0, []
         t0 = time.perf_counter()
         for _ in range(HORIZON):
@@ -247,7 +320,7 @@ def main() -> int:
             rewards.append(state.reward)
         torch.cuda.synchronize()
         policy_s = time.perf_counter() - t0
-        launches = dict(cuda_obs.launches)
+        launches = dict(_build.launches)
     rewards = torch.stack(rewards)
     resets = int(resets)
     slice_info = {"phase": "slice", "envs": N_ENVS, "steps": HORIZON, "launches": launches,
@@ -257,9 +330,9 @@ def main() -> int:
                   "obs_finite": bool(torch.isfinite(state.obs).all()),
                   "reward_finite": bool(torch.isfinite(rewards).all())}
     emit(slice_info)
-    for name, n in launches.items():
-        if n != HORIZON:
-            fail(f"kernel {name} launched {n} times in {HORIZON} env steps")
+    want = {"step_reward_amp": HORIZON, "observe": HORIZON, "physics_step": 0, "reward_amp": 0}
+    if launches != want:
+        fail(f"launches {launches} in {HORIZON} env steps, expected {want}")
     if not (slice_info["obs_finite"] and slice_info["reward_finite"]):
         fail("non-finite obs or reward")
     if not (0.0 <= slice_info["reward_min"] and slice_info["reward_max"] <= 1.0):
@@ -299,12 +372,12 @@ def main() -> int:
         stream = torch.cuda.current_stream().cuda_stream
         ph = state.physics
         J, Jm1 = model.num_bodies, model.num_joints
-        x1 = cuda_obs._rows([ph.root_pos, ph.root_rot, ph.joint_rot, ph.root_vel6, ph.joint_omega, pd]
-                            + cuda_obs._bodies(ref), N_ENVS, 174 + 69 + 13 * J)
+        x1 = substep_cuda.rows_block([ph.root_pos, ph.root_rot, ph.joint_rot, ph.root_vel6, ph.joint_omega, pd]
+                                     + cuda_obs._bodies(ref), N_ENVS, 174 + 69 + 13 * J)
         n_amp = cuda_obs.amp_obs_dim(J, len(e.key_ids), e.amp_v, e.root_height_obs)
         o1 = torch.empty(174 + 16 * J + 7 + n_amp, N_ENVS, device=dev)
-        x2 = cuda_obs._rows([ph.body_pos, ph.body_rot, ph.body_vel, ph.body_ang_vel] + cuda_obs._bodies(ref),
-                            N_ENVS, 26 * J)
+        x2 = substep_cuda.rows_block([ph.body_pos, ph.body_rot, ph.body_vel, ph.body_ang_vel]
+                                     + cuda_obs._bodies(ref), N_ENVS, 26 * J)
         o2 = torch.empty(env.obs_dim, N_ENVS, device=dev)
         k1_ms = cuda_ms(lambda: _build.check(lib.k1_step_reward_amp(
             x1.data_ptr(), o1.data_ptr(), N_ENVS, cuda_obs.K1_BLOCK, stream), "K1"), 20)
@@ -358,16 +431,223 @@ def main() -> int:
                                            len(e.reset_ids), len(e.key_ids), e.amp_v),
           "K2_ops_per_env": k2_ops_per_env(J)})
 
+    # ---- training through the CLI's entry point ------------------------------ #
+    from pulse_tpu_torch import run
+    from pulse_tpu_torch.env.humanoid_im_getup import GetupConfig, fall_drop_start, ragdoll
+    from pulse_tpu_torch.learning.ppo import PPOAgent, compute_gae
+
+    def device_busy(fn) -> tuple:
+        """(device-busy ms, device kernels) of fn() under the profiler."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_:
+            fn()
+            torch.cuda.synchronize()
+        kern_ = [ev for ev in prof_.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+        return sum(ev.time_range.elapsed_us() for ev in kern_) / 1e3, len(kern_)
+
+    out_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "output", "chip_smoke")
+    per_epoch = HORIZON * N_ENVS
+
+    def train(exp: str, env_args: list, want_epoch: dict) -> tuple:
+        """run.main for TRAIN_EPOCHS epochs; returns (result, the run's launch
+        counts, its info dict) after the checks every training path shares."""
+        epoch_launches = []
+        train_epoch = PPOAgent.train_epoch
+
+        def counted_epoch(agent, ts):   # each epoch's launches, read around the trainer's own epoch
+            before = dict(_build.launches)
+            out = train_epoch(agent, ts)
+            epoch_launches.append({k: n - before[k] for k, n in _build.launches.items()})
+            return out
+
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        PPOAgent.train_epoch = counted_epoch
+        t0 = time.perf_counter()
+        try:
+            res = run.main([*env_args, "learning=im_ppo", f"num_envs={N_ENVS}", f"max_epochs={TRAIN_EPOCHS}",
+                            "log_frequency=1", "device=cuda", f"output_dir={out_root}", f"exp_name={exp}"])
+        finally:
+            PPOAgent.train_epoch = train_epoch
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = dict(_build.launches)
+        ms = res.metrics
+        ts = res.train_state
+        # main's network before training: the same seed and widths
+        fresh = ActorCritic(res.agent.env.obs_dim, res.agent.env.action_dim, device=dev, seed=0).state_dict()
+        changed = [k for k, v in ts.network.state_dict().items() if not torch.equal(v, fresh[k])]
+        timed = ms[1:]
+        epoch_s = [m["rollout_s"] + m["gae_s"] + m["update_s"] for m in timed]
+        rewards = res.agent._buffers.rewards
+        info = {"phase": exp, "card": card, "envs": N_ENVS, "epochs": len(ms), "seconds_all": seconds,
+                "launches": counts, "launches_per_epoch": epoch_launches,
+                "losses": [{k: m[k] for k in ("a_loss", "c_loss", "b_loss")} for m in ms],
+                "reward_mean": [m["reward_mean"] for m in ms], "episode_done_frac": [m["episode_done_frac"] for m in ms],
+                "obs_rms_count": float(ts.obs_rms.count), "params_changed": len(changed),
+                "rollout_ms": [1e3 * m["rollout_s"] for m in timed], "gae_ms": [1e3 * m["gae_s"] for m in timed],
+                "update_ms": [1e3 * m["update_s"] for m in timed],
+                "train_env_steps_per_s": [per_epoch / s_ for s_ in epoch_s],
+                "rollout_env_steps_per_s": [per_epoch / m["rollout_s"] for m in timed],
+                "reward_min": float(rewards.min()), "reward_max": float(rewards.max()),
+                "obs_finite": bool(torch.isfinite(ts.env_state.obs).all())}
+        if not all(math.isfinite(v) for m in info["losses"] for v in m.values()):
+            fail(f"{exp}: non-finite loss {info['losses']}")
+        if not changed:
+            fail(f"{exp}: no parameter changed in {len(ms)} epochs")
+        if abs(info["obs_rms_count"] - len(ms) * per_epoch) > 1.0:
+            fail(f"{exp}: obs_rms.count {info['obs_rms_count']}, expected {len(ms) * per_epoch}")
+        if len(epoch_launches) != len(ms) or any(el != want_epoch for el in epoch_launches):
+            fail(f"{exp}: launches per epoch {epoch_launches}, expected {want_epoch}")
+        if not (0.0 <= info["reward_min"] and info["reward_max"] <= 1.0 and info["obs_finite"]):
+            fail(f"{exp}: reward outside [0, 1] or non-finite obs")
+        # device time of one more rollout and update, from a profiler trace
+        # (after the checks; the profiler slows the host, so the idle share
+        # is taken against the unprofiled phase times above)
+        agent, ts = res.agent, res.train_state
+        roll_busy, roll_kernels = device_busy(lambda: agent.rollout(ts))
+        adv, ret = compute_gae(agent.config, agent._buffers, agent._value(ts, ts.env_state.obs).detach())
+        upd_busy, upd_kernels = device_busy(lambda: agent.update(ts, agent._buffers, adv, ret))
+        info.update(rollout_device_busy_ms=roll_busy, rollout_device_kernels=roll_kernels,
+                    rollout_device_idle_share=1.0 - roll_busy / median(info["rollout_ms"]),
+                    update_device_busy_ms=upd_busy, update_device_kernels=upd_kernels,
+                    update_device_idle_share=1.0 - upd_busy / median(info["update_ms"]))
+        return res, counts, info
+
+    res, im_launches, info = train("train_im", ["env=im"], {"step_reward_amp": HORIZON, "observe": HORIZON,
+                                                            "physics_step": 0, "reward_amp": 0})
+    emit(info)
+    del res
+
+    # ---- K3 on the fall-state settle's ragdoll table, then on the real model - #
+    # The getup env uploads the ragdoll's table to K3's unit for its settle
+    # and must upload the real model's again for its steps. K3 is held
+    # against plain physics_step on the settle's first step (B =
+    # num_fall_states, at rest just above the ground), then on the real
+    # model with the kernels phase's inputs, with no cache cleared between.
+    # In mid-settle the ragdoll step is ill-conditioned (plain float32 and
+    # float64 disagree beyond the tolerances in ~10% of the envs), so there
+    # K3 is only measured: its envs beyond the tolerances against plain
+    # float32 and float64, beside plain float32's against float64.
+    gcfg = GetupConfig()
+    n_fall = gcfg.num_fall_states
+    rag = ragdoll(model)
+    with torch.no_grad():
+        drop = [fall_drop_start(model, n_fall, gcfg.fall_drop_height, dev)]
+        pd0 = torch.zeros(n_fall, model.num_dof, device=dev)
+        for _ in range(SETTLE_CHECK_STEP):
+            drop.append(substep_cuda.physics_step_cuda(rag, drop[-1], pd0))
+        k3_first = substep_cuda.physics_step_cuda(rag, drop[0], pd0)
+        plain_first = physics_step(rag, drop[0], pd0)
+        rag_cmp = {f: compare(getattr(k3_first, f), getattr(plain_first, f), K1_TOL[f], n_fall) for f in phys}
+        # what a skipped upload would give: the real gains on the ragdoll's input
+        real_on_drop = physics_step(model, drop[0], pd0)
+        teeth = {f: compare(getattr(real_on_drop, f), getattr(plain_first, f), K1_TOL[f], n_fall) for f in phys}
+        back = substep_cuda.physics_step_cuda(model, kin_phys, kin_pd)
+        mid = drop[SETTLE_CHECK_STEP]
+        mid_k3 = substep_cuda.physics_step_cuda(rag, mid, pd0)
+        mid_f32 = physics_step(rag, mid, pd0)
+        mid_f64 = physics_step(as_float64(rag), as_float64(mid), pd0.double())
+    torch.cuda.synchronize()
+    back_cmp = {f: compare(getattr(back, f), getattr(p1[0], f), K1_TOL[f], N_ENVS) for f in phys}
+    drop_in_contact = int((mid.contact_force.abs().amax(dim=(1, 2)) > 1.0).sum())
+    emit({"phase": "getup_tables", "fall_states": n_fall, "K3_ragdoll_first_step_vs_plain": rag_cmp,
+          "real_model_vs_ragdoll_first_step": teeth, "K3_real_model_after_ragdoll_vs_plain": back_cmp,
+          f"settle_step_{SETTLE_CHECK_STEP}": {
+              "envs_in_contact": drop_in_contact,
+              "envs_beyond_tol": {"K3_vs_plain_f32": envs_beyond(mid_k3, mid_f32, n_fall),
+                                  "K3_vs_plain_f64": envs_beyond(mid_k3, mid_f64, n_fall),
+                                  "plain_f32_vs_plain_f64": envs_beyond(mid_f32, mid_f64, n_fall)}}})
+    allowed_fall = int(OUTLIER_FRAC * n_fall)
+    for label, cmps, limit in (("K3 ragdoll first step", rag_cmp, allowed_fall),
+                               ("K3 real model after ragdoll", back_cmp, allowed)):
+        for name, c in cmps.items():
+            if not c["outlier_envs"] <= limit:
+                fail(f"{label} {name}: {c['outlier_envs']} envs beyond {c['tol']} (max {c['max']})")
+    if max(c["outlier_envs"] for c in teeth.values()) <= allowed_fall:
+        fail("the ragdoll's and the real model's steps agree: the table check cannot tell them apart")
+    del drop, k3_first, back, mid, mid_k3, mid_f32, mid_f64
+
+    res, getup_launches, info = train("train_getup", ["env=im_getup"], {"step_reward_amp": 0, "observe": HORIZON,
+                                                                        "physics_step": HORIZON,
+                                                                        "reward_amp": HORIZON})
+    genv = res.agent.env
+    settle = getup_launches["physics_step"] - sum(el["physics_step"] for el in info["launches_per_epoch"])
+    info.update(fall_settle_launches=settle, fall_resets=int(genv.fall_resets), grace_holds=int(genv.grace_holds),
+                num_fall_states=genv.config.num_fall_states, fall_settle_steps=genv.config.fall_settle_steps,
+                fall_root_height_median=float(genv.fall_states.root_pos[:, 2].median()))
+    emit(info)
+    if settle != genv.config.fall_settle_steps or getup_launches["step_reward_amp"] != 0:
+        fail(f"train_getup: {settle} K3 launches while building, expected {genv.config.fall_settle_steps}; "
+             f"K1 launched {getup_launches['step_reward_amp']} times")
+    if info["fall_resets"] == 0 or info["grace_holds"] == 0:
+        fail(f"train_getup: {info['fall_resets']} fall-state resets, {info['grace_holds']} grace holds")
+    # the run's own model after its settle: K3 against plain on its last state
+    with torch.no_grad():
+        gphys = res.train_state.env_state.physics
+        gpd = genv.action_to_pd_target(0.3 * torch.randn(N_ENVS, genv.action_dim, generator=g, device=dev))
+        got = substep_cuda.physics_step_cuda(genv.model, gphys, gpd)
+        want = physics_step(genv.model, gphys, gpd)
+    run_cmp = {f: compare(getattr(got, f), getattr(want, f), K1_TOL[f], N_ENVS) for f in phys}
+    emit({"phase": "train_getup_model_table", "K3_vs_plain_on_final_state": run_cmp})
+    for name, c in run_cmp.items():
+        if not c["outlier_envs"] <= allowed:
+            fail(f"train_getup K3 on its model {name}: {c['outlier_envs']} envs beyond {c['tol']} (max {c['max']})")
+    del res, genv
+    shutil.rmtree(out_root, ignore_errors=True)
+
+    # ---- K3's and RA's times on the kernel phase's inputs ---------------------- #
+    with torch.no_grad():
+        P, n_sub = int(model.cp_body.shape[0]), model.config.steps_per_control
+        n_amp = cuda_obs.amp_obs_dim(J, len(e.key_ids), e.amp_v, e.root_height_obs)
+        k3_in = [kin_phys.root_pos, kin_phys.root_rot, kin_phys.joint_rot, kin_phys.root_vel6, kin_phys.joint_omega,
+                 kin_pd]
+        x3 = substep_cuda.rows_block(k3_in, N_ENVS, 174 + 69)
+        o3 = torch.empty(174 + 16 * J, N_ENVS, device=dev)
+        x3_fall = substep_cuda.rows_block([t_[:n_fall] for t_ in k3_in], n_fall, 174 + 69)
+        xr = substep_cuda.rows_block([k3.body_pos, k3.body_rot, k3.body_vel, k3.body_ang_vel, k3.joint_rot,
+                                      k3.joint_omega] + cuda_obs._bodies(kin_ref), N_ENVS, 785)
+        o_ra = torch.empty(cuda_obs.RA_ROWS + n_amp, N_ENVS, device=dev)
+        # the wrappers upload this model's and env's tables to K3's and RA's units
+        substep_cuda.physics_step_cuda(model, kin_phys, kin_pd)
+        cuda_obs.reward_amp(e, k3, kin_ref)
+        k3_ms = cuda_ms(lambda: _build.check(lib.k3_physics_step(
+            x3.data_ptr(), o3.data_ptr(), N_ENVS, substep_cuda.K3_BLOCK, stream), "K3"), 20)
+        k3_ms_fall = cuda_ms(lambda: _build.check(lib.k3_physics_step(
+            x3_fall.data_ptr(), o3.data_ptr(), n_fall, substep_cuda.K3_BLOCK, stream), "K3"), 20)
+        ra_ms = cuda_ms(lambda: _build.check(lib.ra_reward_amp(
+            xr.data_ptr(), o_ra.data_ptr(), N_ENVS, cuda_obs.RA_BLOCK, stream), "RA"), 100)
+        k3_plain_ms = cuda_ms(lambda: physics_step(model, kin_phys, kin_pd), 3)
+        ra_plain_ms = cuda_ms(lambda: cuda_obs.reward_amp_plain(e, k3, kin_ref), 10)
+        k3_wrap_ms = cuda_ms(lambda: substep_cuda.physics_step_cuda(model, kin_phys, kin_pd), 20)
+        ra_wrap_ms = cuda_ms(lambda: cuda_obs.reward_amp(e, k3, kin_ref), 20)
+    k3_bound, k3_by = bound_ms(4.0 * N_ENVS * (x3.shape[0] + o3.shape[0]), N_ENVS * physics_ops_per_env(J, P, n_sub))
+    ra_bound, ra_by = bound_ms(4.0 * N_ENVS * (xr.shape[0] + o_ra.shape[0]),
+                               N_ENVS * epilogue_ops_per_env(J, len(e.reset_ids), len(e.key_ids), e.amp_v))
+    emit({"phase": "timing_k3_ra", "card": card, "envs": N_ENVS, "K3_ms": k3_ms, "K3_ms_256_envs": k3_ms_fall,
+          "RA_ms": ra_ms, "K3_plain_ms": k3_plain_ms, "RA_plain_ms": ra_plain_ms, "K3_wrapper_ms": k3_wrap_ms,
+          "RA_wrapper_ms": ra_wrap_ms, "K3_bound_ms": k3_bound, "RA_bound_ms": ra_bound,
+          "physics_ops_per_env": physics_ops_per_env(J, P, n_sub),
+          "epilogue_ops_per_env": epilogue_ops_per_env(J, len(e.reset_ids), len(e.key_ids), e.amp_v)})
+
     src = "pulse_tpu_torch/csrc/"
     emit({"kernels": [
         {"name": "step_reward_amp", "route": "cuda", "source": src + "step_reward_amp.cu",
-         "replaces": "pulse_tpu/env/pallas_obs.py:376", "launches": launches["step_reward_amp"],
-         "max_abs_err": k1_max_err, "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
+         "replaces": "pulse_tpu/env/pallas_obs.py:376", "launches": im_launches["step_reward_amp"],
+         "max_abs_err": max_err["step_reward_amp"], "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": None},
         {"name": "observe", "route": "cuda", "source": src + "observe.cu",
-         "replaces": "pulse_tpu/env/pallas_obs.py:558", "launches": launches["observe"],
-         "max_abs_err": k2_cmp["max"], "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
+         "replaces": "pulse_tpu/env/pallas_obs.py:558", "launches": im_launches["observe"],
+         "max_abs_err": max_err["observe"], "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": None},
+        {"name": "physics_step", "route": "cuda", "source": src + "physics_step.cu",
+         "replaces": "pulse_tpu/physics/substep_pallas.py:847", "launches": getup_launches["physics_step"],
+         "max_abs_err": max_err["physics_step"], "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
+         "bound_by": k3_by, "library_ms": None},
+        {"name": "reward_amp", "route": "cuda", "source": src + "reward_amp.cu",
+         "replaces": "pulse_tpu/env/pallas_obs.py:309", "launches": getup_launches["reward_amp"],
+         "max_abs_err": max_err["reward_amp"], "ms": ra_ms, "plain_ms": ra_plain_ms, "bound_ms": ra_bound,
+         "bound_by": ra_by, "library_ms": None},
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}})

@@ -6,6 +6,9 @@ library with a plain C interface under `build/` beside the package. The
 library's name carries a hash of the sources and flags, so a changed source
 is rebuilt and an unchanged one is reused within a checkout. Nothing is
 built until a kernel is first launched.
+
+Also the state every kernel wrapper shares: the launch counts and the
+cache of constant tables each translation unit holds on each device.
 """
 
 from __future__ import annotations
@@ -32,6 +35,24 @@ NVCC_FLAGS = (
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 build_report: dict = {}
+
+# kernel launches per wrapper; each wrapper adds one where it launches its
+# kernel and nowhere else
+launches = {"step_reward_amp": 0, "observe": 0, "physics_step": 0, "reward_amp": 0}
+
+# translation unit -> (its C upload function, the C size functions of the
+# tables it takes, in order); each unit has its own __constant__ copies
+_CONST_UNITS = {
+    "step_reward_amp": ("k1_set_consts", ("k1_model_consts_bytes", "k1_env_consts_bytes")),
+    "physics_step": ("k3_set_consts", ("k3_model_consts_bytes",)),
+    "reward_amp": ("ra_set_consts", ("ra_env_consts_bytes",)),
+}
+_uploaded: dict = {}
+
+
+def reset_launch_counts() -> None:
+    for k in launches:
+        launches[k] = 0
 
 
 def _nvcc() -> str:
@@ -117,6 +138,12 @@ def load() -> ctypes.CDLL:
             lib.k1_set_consts.argtypes, lib.k1_set_consts.restype = [vp, sz, vp, sz, vp], i
             lib.k1_step_reward_amp.argtypes, lib.k1_step_reward_amp.restype = [vp, vp, i, i, vp], i
             lib.k2_observe.argtypes, lib.k2_observe.restype = [vp, vp, i, i, i, i, i, vp], i
+            lib.k3_model_consts_bytes.argtypes, lib.k3_model_consts_bytes.restype = [], sz
+            lib.k3_set_consts.argtypes, lib.k3_set_consts.restype = [vp, sz, vp], i
+            lib.k3_physics_step.argtypes, lib.k3_physics_step.restype = [vp, vp, i, i, vp], i
+            lib.ra_env_consts_bytes.argtypes, lib.ra_env_consts_bytes.restype = [], sz
+            lib.ra_set_consts.argtypes, lib.ra_set_consts.restype = [vp, sz, vp], i
+            lib.ra_reward_amp.argtypes, lib.ra_reward_amp.restype = [vp, vp, i, i, vp], i
             lib.k_error_string.argtypes, lib.k_error_string.restype = [i], ctypes.c_char_p
             _lib = lib
         return _lib
@@ -126,3 +153,23 @@ def check(rc: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error (its cudaGetLastError)."""
     if rc != 0:
         raise RuntimeError(f"{what} failed: {load().k_error_string(rc).decode()} ({rc})")
+
+
+def upload_consts(unit: str, owners: tuple, tables, dev, stream: int) -> None:
+    """Upload a translation unit's constant tables on `stream` unless its
+    copy on `dev` already holds those of `owners` (the model and/or env
+    constants the tables were packed from, compared by identity: the cache
+    holds them, so an id cannot be reused by another object while cached).
+    `tables()` packs the bytes, in the order the unit's upload takes them."""
+    key = (unit, dev.index)
+    held = _uploaded.get(key)
+    if held is not None and all(a is b for a, b in zip(held, owners)):
+        return
+    lib = load()
+    setter, sizers = _CONST_UNITS[unit]
+    packed = tables()
+    if [getattr(lib, f)() for f in sizers] != [len(t) for t in packed]:
+        raise RuntimeError(f"constant table layout differs between Python and csrc/{unit}.cu")
+    args = [x for t in packed for x in (t, len(t))]
+    check(getattr(lib, setter)(*args, stream), f"{unit} constant upload")
+    _uploaded[key] = owners

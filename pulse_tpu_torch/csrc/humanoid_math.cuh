@@ -16,6 +16,8 @@
 #define HD inline
 #endif
 
+#define MAX_J 24   // bodies: the kernels' per-env arrays are sized by it
+
 namespace hm {
 
 constexpr float kEps = 1e-9f;
@@ -25,6 +27,19 @@ constexpr float kPi = 3.14159265358979323846f;
 struct V3 { float x, y, z; };
 struct Q4 { float x, y, z, w; };
 struct M3 { float m[3][3]; };
+
+// One env's column of a [rows, B] block: row r lives at p[r * stride]
+// (stride B on the card, 1 for a host record).
+struct RowsIn {
+  const float* p;
+  long long stride;
+  HD float operator()(int r) const { return p[r * stride]; }
+};
+struct RowsOut {
+  float* p;
+  long long stride;
+  HD void operator()(int r, float v) const { p[r * stride] = v; }
+};
 
 HD V3 v3(float x, float y, float z) { return V3{x, y, z}; }
 HD V3 operator+(V3 a, V3 b) { return V3{a.x + b.x, a.y + b.y, a.z + b.z}; }

@@ -20,7 +20,6 @@
 
 #include "humanoid_math.cuh"
 
-#define MAX_J 24   // bodies
 #define MAX_P 72   // ground contact points
 
 namespace hm {
@@ -51,6 +50,8 @@ struct ModelConsts {
   float lstiff, ldamp, taumax, lim_dex;  // lim_dex = h (ldamp + h lstiff)
 };
 
+// Every translation unit that includes this header (K1, K3) has its own
+// copy, uploaded by its own *_set_consts entry point.
 static __constant__ ModelConsts c_model;
 
 struct PhysState {
@@ -68,17 +69,17 @@ struct WorldBodies {
   V3 ang[MAX_J];
 };
 
-__device__ __forceinline__ V3 cm_v3(const float (*a)[3], int i) {
+static __device__ __forceinline__ V3 cm_v3(const float (*a)[3], int i) {
   return V3{a[i][0], a[i][1], a[i][2]};
 }
-__device__ __forceinline__ M3 cm_m3(const float (*a)[9], int i) {
+static __device__ __forceinline__ M3 cm_m3(const float (*a)[9], int i) {
   M3 r;
   for (int k = 0; k < 9; ++k) r.m[k / 3][k % 3] = a[i][k];
   return r;
 }
 
 // One substep; adds this substep's net contact force per body to acc.
-__device__ void substep(PhysState& s, const Q4* target, V3* acc) {
+static __device__ void substep(PhysState& s, const Q4* target, V3* acc) {
   const int J = c_model.J;
   const float h = c_model.h;
 
@@ -222,7 +223,7 @@ __device__ void substep(PhysState& s, const Q4* target, V3* acc) {
 
 // World body state of the generalized coordinates (physics/state.py
 // refresh_kinematics).
-__device__ void final_fk(const PhysState& s, WorldBodies& wb) {
+static __device__ void final_fk(const PhysState& s, WorldBodies& wb) {
   const int J = c_model.J;
   wb.pos[0] = s.root_pos;
   wb.rot[0] = s.root_rot;
@@ -240,7 +241,7 @@ __device__ void final_fk(const PhysState& s, WorldBodies& wb) {
 
 // steps_per_control substeps under the held PD target, then final FK.
 // acc receives the substep-mean net contact force per body.
-__device__ void control_step(PhysState& s, const V3* pd_target, V3* acc, WorldBodies& wb) {
+static __device__ void control_step(PhysState& s, const V3* pd_target, V3* acc, WorldBodies& wb) {
   const int J = c_model.J;
   Q4 target[MAX_J - 1];
   for (int j = 0; j < J - 1; ++j) target[j] = expmap_to_quat(pd_target[j]);
@@ -249,6 +250,50 @@ __device__ void control_step(PhysState& s, const V3* pd_target, V3* acc, WorldBo
   const float inv_n = 1.0f / (float)c_model.n_sub;
   for (int b = 0; b < J; ++b) acc[b] = acc[b] * inv_n;
   final_fk(s, wb);
+}
+
+// ---- the per-env record in [rows, B] layout ------------------------------ //
+// state: root pos 3 | root rot 4 | joint rot 4(J-1) | root vel6 6 | joint
+// omega 3(J-1), 7 + 7(J-1) + 6 rows; then, on input, the PD target 3(J-1)
+// and, on output, contact 3J | world bodies 13J (pos 3, rot 4, vel 3, ang 3
+// per body).
+static __device__ __forceinline__ int state_rows(int J) { return 13 + 7 * (J - 1); }
+
+static __device__ void read_step_inputs(RowsIn x, PhysState& s, V3* pd) {
+  const int Jm1 = c_model.J - 1;
+  const int r_jrot = 7, r_v6 = 7 + 4 * Jm1, r_om = r_v6 + 6, r_pd = r_om + 3 * Jm1;
+  s.root_pos = V3{x(0), x(1), x(2)};
+  s.root_rot = Q4{x(3), x(4), x(5), x(6)};
+  s.v6 = S6{V3{x(r_v6), x(r_v6 + 1), x(r_v6 + 2)}, V3{x(r_v6 + 3), x(r_v6 + 4), x(r_v6 + 5)}};
+  for (int j = 0; j < Jm1; ++j) {
+    const int q0 = r_jrot + 4 * j, o0 = r_om + 3 * j, p0 = r_pd + 3 * j;
+    s.jrot[j] = Q4{x(q0), x(q0 + 1), x(q0 + 2), x(q0 + 3)};
+    s.omega[j] = V3{x(o0), x(o0 + 1), x(o0 + 2)};
+    pd[j] = V3{x(p0), x(p0 + 1), x(p0 + 2)};
+  }
+}
+
+static __device__ void write_step_outputs(RowsOut y, const PhysState& s, const V3* contact, const WorldBodies& wb) {
+  const int J = c_model.J, Jm1 = J - 1;
+  const int r_jrot = 7, r_v6 = 7 + 4 * Jm1, r_om = r_v6 + 6, n_state = r_om + 3 * Jm1;
+  y(0, s.root_pos.x); y(1, s.root_pos.y); y(2, s.root_pos.z);
+  y(3, s.root_rot.x); y(4, s.root_rot.y); y(5, s.root_rot.z); y(6, s.root_rot.w);
+  y(r_v6, s.v6.w.x); y(r_v6 + 1, s.v6.w.y); y(r_v6 + 2, s.v6.w.z);
+  y(r_v6 + 3, s.v6.v.x); y(r_v6 + 4, s.v6.v.y); y(r_v6 + 5, s.v6.v.z);
+  for (int j = 0; j < Jm1; ++j) {
+    const int q0 = r_jrot + 4 * j, o0 = r_om + 3 * j;
+    y(q0, s.jrot[j].x); y(q0 + 1, s.jrot[j].y); y(q0 + 2, s.jrot[j].z); y(q0 + 3, s.jrot[j].w);
+    y(o0, s.omega[j].x); y(o0 + 1, s.omega[j].y); y(o0 + 2, s.omega[j].z);
+  }
+  const int r_contact = n_state, r_body = n_state + 3 * J;
+  for (int b = 0; b < J; ++b) {
+    const int c0 = r_contact + 3 * b, b0 = r_body + 13 * b;
+    y(c0, contact[b].x); y(c0 + 1, contact[b].y); y(c0 + 2, contact[b].z);
+    y(b0, wb.pos[b].x); y(b0 + 1, wb.pos[b].y); y(b0 + 2, wb.pos[b].z);
+    y(b0 + 3, wb.rot[b].x); y(b0 + 4, wb.rot[b].y); y(b0 + 5, wb.rot[b].z); y(b0 + 6, wb.rot[b].w);
+    y(b0 + 7, wb.vel[b].x); y(b0 + 8, wb.vel[b].y); y(b0 + 9, wb.vel[b].z);
+    y(b0 + 10, wb.ang[b].x); y(b0 + 11, wb.ang[b].y); y(b0 + 12, wb.ang[b].z);
+  }
 }
 
 }  // namespace hm

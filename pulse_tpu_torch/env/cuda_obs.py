@@ -1,5 +1,5 @@
-"""The imitation env step's two hand-written CUDA kernels, their wrappers
-and their plain PyTorch versions.
+"""The imitation env step's hand-written CUDA kernels, their wrappers and
+their plain PyTorch versions.
 
 Counterpart of `pulse_tpu/env/pallas_obs.py`:
 
@@ -7,12 +7,15 @@ Counterpart of `pulse_tpu/env/pallas_obs.py`:
     the physics control step, the imitation reward and its raw terms, the
     termination distances and the AMP row of the stepped state
     (csrc/step_reward_amp.cu; replaces `pallas_step_reward_amp`).
+  * RA `reward_amp` — K1's epilogue alone, on a state K3 stepped
+    (csrc/reward_amp.cu; replaces `pallas_reward_amp`). The env runs K3 →
+    RA where a subclass overrides termination or reset.
   * K2 `observe` — self obs v1 ++ task obs v6 (T = 1) of the post-merge
     state (csrc/observe.cu; replaces `pallas_observe`).
 
 A wrapper given CPU tensors runs the plain version. Given CUDA tensors it
-launches the kernel or raises; it never falls back. `launches` counts the
-kernel launches of each wrapper.
+launches the kernel or raises; it never falls back. `_build.launches`
+counts the kernel launches of each wrapper.
 
 Kernel layout: inputs and outputs are [rows, B] float32 (one row per
 scalar of the per-env record), so neighbouring threads read neighbouring
@@ -32,19 +35,15 @@ from pulse_tpu_torch.physics import substep_cuda
 from pulse_tpu_torch.physics.model import Model
 from pulse_tpu_torch.physics.state import PhysicsState, dof_pos_from_state, dof_vel_from_state
 from pulse_tpu_torch.physics.step import physics_step
+from pulse_tpu_torch.physics.substep_cuda import check_kernel_inputs, physics_state_from_rows, rows_block
 
-MAX_KEY = 8           # csrc/step_reward_amp.cu MAX_KEY
+MAX_KEY = 8           # csrc/reward_amp.cuh MAX_KEY
+RA_ROWS = 7           # csrc/reward_amp.cuh kRaRows: reward, 4 raws, dist mean, dist max
 # K1 threads per block (at most its __launch_bounds__(64)): one warp a block
 # spreads 3072 envs over 96 SMs; 8% faster than 64 on the H100 (PERF.md)
 K1_BLOCK = 32
 K2_BLOCK = 128        # matches __launch_bounds__(128)
-
-launches = {"step_reward_amp": 0, "observe": 0}
-
-
-def reset_launch_counts() -> None:
-    for k in launches:
-        launches[k] = 0
+RA_BLOCK = 128        # matches __launch_bounds__(128)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,7 +71,8 @@ class EnvConsts:
         if len(self.key_ids) > MAX_KEY or len(self.reset_ids) > substep_cuda.MAX_J:
             raise NotImplementedError("too many key or reset bodies for the CUDA kernel")
         ints = np.zeros(8 + MAX_KEY + substep_cuda.MAX_J, np.int32)
-        ints[:5] = [len(self.key_ids), len(self.reset_ids), self.local_root_obs, self.root_height_obs, self.amp_v]
+        ints[:6] = [len(self.key_ids), len(self.reset_ids), self.local_root_obs, self.root_height_obs, self.amp_v,
+                    self.J]
         ints[8 : 8 + len(self.key_ids)] = self.key_ids
         ints[8 + MAX_KEY : 8 + MAX_KEY + len(self.reset_ids)] = self.reset_ids
         floats = np.asarray(
@@ -158,62 +158,8 @@ def observe_plain(e: EnvConsts, physics: PhysicsState, ref: dict) -> torch.Tenso
 # kernel wrappers
 # --------------------------------------------------------------------------- #
 
-def _check_inputs(parts: list[torch.Tensor], B: int) -> torch.device:
-    dev = parts[0].device
-    for t in parts:
-        if t.device != dev or t.dtype != torch.float32 or t.shape[0] != B:
-            raise ValueError(f"kernel input on {t.device} {t.dtype} {tuple(t.shape)}: expected float32 [B={B}, ...] on {dev}")
-    if dev.type != "cuda":
-        raise ValueError(f"CUDA kernel given tensors on {dev}")
-    return dev
-
-
-def _rows(parts: list[torch.Tensor], B: int, n_rows: int) -> torch.Tensor:
-    """[B, ...] tensors -> one contiguous [n_rows, B] block."""
-    x = torch.cat([t.reshape(B, -1) for t in parts], dim=1)
-    if x.shape[1] != n_rows:
-        raise ValueError(f"kernel input has {x.shape[1]} rows, expected {n_rows}")
-    return x.t().contiguous()
-
-
 def _bodies(ref: dict) -> list[torch.Tensor]:
     return [ref["rg_pos"], ref["rb_rot"], ref["body_vel"], ref["body_ang_vel"]]
-
-
-_uploaded: dict = {}
-
-
-def _upload_consts(lib, model: Model, e: EnvConsts, dev: torch.device, stream: int) -> None:
-    """Upload the constant tables when this device does not hold this
-    (model, env) pair yet. The cache holds the model itself, so its id
-    cannot be reused by another model while it is cached."""
-    held = _uploaded.get(dev.index)
-    if held is not None and held[0] is model and held[1] == e:
-        return
-    mt, et = substep_cuda.model_const_table(model), e.table()
-    if lib.k1_model_consts_bytes() != len(mt) or lib.k1_env_consts_bytes() != len(et):
-        raise RuntimeError("constant table layout differs between Python and csrc")
-    _build.check(lib.k1_set_consts(mt, len(mt), et, len(et), stream), "constant upload")
-    _uploaded[dev.index] = (model, e)
-
-
-def physics_state_from_rows(rows: torch.Tensor, J: int) -> PhysicsState:
-    """[B, >= 174 + 16 J] kernel output rows -> PhysicsState."""
-    B, Jm1 = rows.shape[0], J - 1
-    n_state = 7 + 4 * Jm1 + 6 + 3 * Jm1
-    body = rows[:, n_state + 3 * J : n_state + 16 * J].reshape(B, J, 13)
-    return PhysicsState(
-        root_pos=rows[:, 0:3].contiguous(),
-        root_rot=rows[:, 3:7].contiguous(),
-        joint_rot=rows[:, 7 : 7 + 4 * Jm1].reshape(B, Jm1, 4),
-        root_vel6=rows[:, 7 + 4 * Jm1 : 13 + 4 * Jm1].contiguous(),
-        joint_omega=rows[:, 13 + 4 * Jm1 : n_state].reshape(B, Jm1, 3),
-        body_pos=body[..., 0:3].contiguous(),
-        body_rot=body[..., 3:7].contiguous(),
-        body_vel=body[..., 7:10].contiguous(),
-        body_ang_vel=body[..., 10:13].contiguous(),
-        contact_force=rows[:, n_state : n_state + 3 * J].reshape(B, J, 3),
-    )
 
 
 def step_reward_amp(model: Model, e: EnvConsts, state: PhysicsState, pd_target: torch.Tensor, ref: dict):
@@ -226,29 +172,54 @@ def step_reward_amp(model: Model, e: EnvConsts, state: PhysicsState, pd_target: 
     B, J = state.root_pos.shape[0], model.num_bodies
     Jm1 = J - 1
     parts = [state.root_pos, state.root_rot, state.joint_rot, state.root_vel6, state.joint_omega, pd_target]
-    dev = _check_inputs(parts + _bodies(ref), B)
-    n_state = 7 + 4 * Jm1 + 6 + 3 * Jm1
+    dev = check_kernel_inputs(parts + _bodies(ref), B)
+    n_state = substep_cuda.state_rows(J)
     n_in = n_state + 3 * Jm1 + 13 * J
-    n_amp = amp_obs_dim(J, len(e.key_ids), e.amp_v, e.root_height_obs)
-    n_out = n_state + 16 * J + 7 + n_amp
+    n_out = n_state + 16 * J + RA_ROWS + amp_obs_dim(J, len(e.key_ids), e.amp_v, e.root_height_obs)
     lib = _build.load()
     with torch.cuda.device(dev):
-        x = _rows(parts + _bodies(ref), B, n_in)
+        x = rows_block(parts + _bodies(ref), B, n_in)
         out = torch.empty(n_out, B, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _upload_consts(lib, model, e, dev, stream)
+        _build.upload_consts("step_reward_amp", (model, e),
+                             lambda: (substep_cuda.model_const_table(model), e.table()), dev, stream)
         _build.check(lib.k1_step_reward_amp(x.data_ptr(), out.data_ptr(), B, K1_BLOCK, stream), "K1 launch")
-    launches["step_reward_amp"] += 1
+    _build.launches["step_reward_amp"] += 1
     rows = out.t()
-    ra = rows[:, n_state + 16 * J :]
+    return (physics_state_from_rows(rows, J),) + _split_reward_amp(rows[:, n_state + 16 * J :])
+
+
+def _split_reward_amp(ra: torch.Tensor):
+    """[B, 7 + A] epilogue rows -> (reward, raw, dist_mean, dist_max, amp)."""
     return (
-        physics_state_from_rows(rows, J),
         ra[:, 0].contiguous(),
         ra[:, 1:5].contiguous(),
         ra[:, 5].contiguous(),
         ra[:, 6].contiguous(),
-        ra[:, 7:].contiguous(),
+        ra[:, RA_ROWS:].contiguous(),
     )
+
+
+def reward_amp(e: EnvConsts, physics: PhysicsState, ref: dict):
+    """RA. K1's epilogue on an already-stepped state against the reference
+    at the post-step time: (reward [B], raw [B, 4], dist_mean [B],
+    dist_max [B], amp row [B, A])."""
+    if physics.body_pos.device.type == "cpu":
+        return reward_amp_plain(e, physics, ref)
+    B, J = physics.body_pos.shape[0], e.J
+    parts = [physics.body_pos, physics.body_rot, physics.body_vel, physics.body_ang_vel,
+             physics.joint_rot, physics.joint_omega] + _bodies(ref)
+    dev = check_kernel_inputs(parts, B)
+    n_out = RA_ROWS + amp_obs_dim(J, len(e.key_ids), e.amp_v, e.root_height_obs)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        x = rows_block(parts, B, 26 * J + 7 * (J - 1))
+        out = torch.empty(n_out, B, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _build.upload_consts("reward_amp", (e,), lambda: (e.table(),), dev, stream)
+        _build.check(lib.ra_reward_amp(x.data_ptr(), out.data_ptr(), B, RA_BLOCK, stream), "RA launch")
+    _build.launches["reward_amp"] += 1
+    return _split_reward_amp(out.t())
 
 
 def observe(e: EnvConsts, physics: PhysicsState, ref: dict) -> torch.Tensor:
@@ -258,15 +229,15 @@ def observe(e: EnvConsts, physics: PhysicsState, ref: dict) -> torch.Tensor:
         return observe_plain(e, physics, ref)
     B, J = physics.body_pos.shape[0], e.J
     parts = [physics.body_pos, physics.body_rot, physics.body_vel, physics.body_ang_vel] + _bodies(ref)
-    dev = _check_inputs(parts, B)
+    dev = check_kernel_inputs(parts, B)
     n_out = obs_dim(J, e.root_height_obs)
     lib = _build.load()
     with torch.cuda.device(dev):
-        x = _rows(parts, B, 26 * J)
+        x = rows_block(parts, B, 26 * J)
         out = torch.empty(n_out, B, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.k2_observe(x.data_ptr(), out.data_ptr(), B, J, int(e.local_root_obs), int(e.root_height_obs),
                             K2_BLOCK, stream)
         _build.check(rc, "K2 launch")
-    launches["observe"] += 1
+    _build.launches["observe"] += 1
     return out.t().contiguous()

@@ -1,15 +1,21 @@
 """HumanoidIm, the motion-imitation environment, batched over envs in
 PyTorch.
 
-Counterpart of `pulse_tpu/env/humanoid_im.py` on its fused hot path
-(`_fused_step_ok`: obs v6 with one future step, self obs v1, AMP obs v1/v2,
-isaac_pd control, no far-goal, cycling, power reward, occlusion, obs noise,
-domain randomization or shape channels). A config off that surface raises
+Counterpart of `pulse_tpu/env/humanoid_im.py` on the surface of its Pallas
+kernels (obs v6 with one future step, self obs v1, AMP obs v1/v2, isaac_pd
+control, no far-goal, cycling, power reward, occlusion, obs noise, domain
+randomization or shape channels). A config off that surface raises
 NotImplementedError.
 
-One `step`: gather the reference at the post-step time, kernel K1 (physics,
-reward, termination distances, AMP row), termination, the branch-free
-auto-reset merge with freshly sampled reference-state inits, kernel K2 (the
+One `step`: gather the reference at the post-step time, then
+
+  * on the fused path (`_fused_step_ok`: no subclass overrides termination
+    or reset) kernel K1: physics, reward, termination distances, AMP row;
+  * else kernel K3 (physics) and kernel RA (reward, distances, AMP row on
+    the stepped state), which together compute what K1 does;
+
+then termination (`_termination`), the AMP history roll, the branch-free
+auto-reset merge with fresh states (`_reset_states`), and kernel K2 (the
 observation of the merged state). Random draws come from the env's
 `torch.Generator`.
 """
@@ -90,6 +96,7 @@ class EnvState:
     done: torch.Tensor         # [B] bool
     terminate: torch.Tensor    # [B] bool
     amp_hist: torch.Tensor     # [B, S, A] newest first
+    recovery_counter: torch.Tensor  # [B] int32: steps of termination grace (getup)
 
     @property
     def amp_obs(self) -> torch.Tensor:
@@ -102,9 +109,11 @@ class EnvState:
 def env_state_from_numpy(d: dict, device=None) -> EnvState:
     """Build an EnvState from numpy arrays keyed by field name, with
     d["physics"] a dict of PhysicsState fields (e.g. a JAX EnvState
-    converted leaf by leaf)."""
+    converted leaf by leaf). A missing recovery_counter is zeros."""
     def t(x, dtype):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+    B = np.asarray(d["progress"]).shape[0]
 
     return EnvState(
         physics=physics_state_from_numpy(d["physics"], device=device),
@@ -117,6 +126,7 @@ def env_state_from_numpy(d: dict, device=None) -> EnvState:
         done=t(d["done"], torch.bool),
         terminate=t(d["terminate"], torch.bool),
         amp_hist=t(d["amp_hist"], torch.float32),
+        recovery_counter=t(d.get("recovery_counter", np.zeros(B)), torch.int32),
     )
 
 
@@ -139,8 +149,8 @@ class HumanoidImEnv:
         self.model = model
         self.motion = motion
         self.config = cfg = config or EnvConfig()
-        if not self._fused_step_ok():
-            raise NotImplementedError("only the fused imitation step surface (pulse_tpu _fused_step_ok) is ported")
+        if not self._surface_ok():
+            raise NotImplementedError("only the imitation step surface of the kernels (pulse_tpu _fused_step_ok) is ported")
         if self.device.type == "cuda" and not substep_cuda.supported(model):
             raise NotImplementedError("model outside the CUDA kernel's surface")
         self.generator = torch.Generator(device=self.device)
@@ -158,7 +168,8 @@ class HumanoidImEnv:
         self.consts = cuda_obs.env_consts_from(self)
         self.amp_frame_table = self._build_amp_frame_table()
 
-    def _fused_step_ok(self) -> bool:
+    def _surface_ok(self) -> bool:
+        """The config is one the kernels cover."""
         cfg = self.config
         return (
             cfg.control_mode == "isaac_pd"
@@ -174,6 +185,15 @@ class HumanoidImEnv:
             and cfg.obs_noise_std == 0
             and not (cfg.has_shape_obs or cfg.has_shape_obs_disc or cfg.has_limb_weight_obs)
             and cfg.track_bodies is None
+        )
+
+    def _fused_step_ok(self) -> bool:
+        """K1 may run the step: no subclass replaces a stage it fuses."""
+        t = type(self)
+        return (
+            self._surface_ok()
+            and t._termination is HumanoidImEnv._termination
+            and t._reset_states is HumanoidImEnv._reset_states
         )
 
     def _build_amp_frame_table(self) -> torch.Tensor:
@@ -227,14 +247,22 @@ class HumanoidImEnv:
             done=torch.zeros(B, dtype=torch.bool, device=self.device),
             terminate=torch.zeros(B, dtype=torch.bool, device=self.device),
             amp_hist=self._init_amp_hist(motion_ids, start_times),
+            recovery_counter=torch.zeros(B, dtype=torch.int32, device=self.device),
         )
+
+    def _reset_states(self, mask: torch.Tensor) -> EnvState:
+        """Fresh states (obs left at zero) for all [B] envs, of which those
+        in `mask` take them. A hook for subclasses; here the
+        reference-state init at a random clip time."""
+        return self._fresh(*self._sample_reset(mask.shape[0]))
 
     def reset_to(self, motion_ids: torch.Tensor, start_times: torch.Tensor) -> EnvState:
         state = self._fresh(motion_ids, start_times)
         return state.replace(obs=self._observe(state))
 
     def reset(self, num_envs: int) -> EnvState:
-        return self.reset_to(*self._sample_reset(num_envs))
+        state = self._reset_states(torch.ones(num_envs, dtype=torch.bool, device=self.device))
+        return state.replace(obs=self._observe(state))
 
     def _observe(self, state: EnvState) -> torch.Tensor:
         """K2 against the reference at the next control step's time."""
@@ -249,31 +277,41 @@ class HumanoidImEnv:
     def action_to_pd_target(self, actions: torch.Tensor) -> torch.Tensor:
         return self.model.pd_action_offset + self.model.pd_action_scale * actions
 
-    def step(self, state: EnvState, actions: torch.Tensor) -> EnvState:
+    def _termination(self, state: EnvState, dist_mean: torch.Tensor, dist_max: torch.Tensor,
+                     pass_time: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(reset, terminate) [B] of the stepped state (progress already
+        advanced) from the reset bodies' distances to the reference. A hook
+        for subclasses (getup adds a grace window)."""
         cfg = self.config
-        B = actions.shape[0]
+        dist = dist_mean if cfg.use_mean_termination else dist_max
+        terminate = (dist > cfg.termination_distance) & (state.progress > 1)
+        if not cfg.enable_early_termination:
+            terminate = torch.zeros_like(terminate)
+        return pass_time | terminate, terminate
+
+    def step(self, state: EnvState, actions: torch.Tensor) -> EnvState:
         progress = state.progress + 1
         # the reference at the post-step time depends only on (clip,
         # progress), so it is gathered before physics and rides into K1
         t = self._motion_time(state.start_time, progress)
         ref = get_motion_state(self.motion, state.motion_id, t)
-        physics, reward, reward_raw, dmean, dmax, amp_row = cuda_obs.step_reward_amp(
-            self.model, self.consts, state.physics, self.action_to_pd_target(actions), ref
-        )
-
-        pass_time = t >= self.motion.motion_lengths[state.motion_id]
-        dist = dmean if cfg.use_mean_termination else dmax
-        terminate = (dist > cfg.termination_distance) & (progress > 1)
-        if not cfg.enable_early_termination:
-            terminate = torch.zeros_like(terminate)
-        reset = pass_time | terminate
+        pd_target = self.action_to_pd_target(actions)
+        if self._fused_step_ok():
+            physics, reward, reward_raw, dmean, dmax, amp_row = cuda_obs.step_reward_amp(
+                self.model, self.consts, state.physics, pd_target, ref
+            )
+        else:
+            physics = substep_cuda.physics_step_cuda(self.model, state.physics, pd_target)
+            reward, reward_raw, dmean, dmax, amp_row = cuda_obs.reward_amp(self.consts, physics, ref)
 
         stepped = state.replace(
             physics=physics,
             progress=progress,
             amp_hist=torch.cat([amp_row[:, None], state.amp_hist[:, :-1]], dim=1),
         )
-        merged = _select(reset, self._fresh(*self._sample_reset(B)), stepped)
+        pass_time = t >= self.motion.motion_lengths[state.motion_id]
+        reset, terminate = self._termination(stepped, dmean, dmax, pass_time)
+        merged = _select(reset, self._reset_states(reset), stepped)
         return merged.replace(
             obs=self._observe(merged), reward=reward, reward_raw=reward_raw, done=reset, terminate=terminate
         )

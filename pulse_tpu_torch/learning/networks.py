@@ -84,15 +84,30 @@ class ActorCritic(nn.Module):
         return mu, self.log_sigma, value
 
 
+def _tower(p: dict) -> list:
+    return [p[f"Dense_{i}"] for i in range(len(p))]
+
+
+def flax_leaves(net: ActorCritic, tree: dict):
+    """(torch parameter or buffer, the matching leaf of a flax ActorCritic
+    tree in torch layout) pairs. The tree is the param tree or one shaped
+    like it (Adam's moments): MLP_0 actor, MLP_1 critic, Dense_0 mu head,
+    Dense_1 value head, optional log_sigma. Flax kernels are [in, out];
+    torch weights [out, in]."""
+    linears = [m for m in net.actor if isinstance(m, nn.Linear)] + [m for m in net.critic if isinstance(m, nn.Linear)]
+    dense = _tower(tree["MLP_0"]) + _tower(tree["MLP_1"]) + [tree["Dense_0"], tree["Dense_1"]]
+    for lin, d in zip(linears + [net.mu, net.value], dense):
+        yield lin.weight, torch.tensor(np.asarray(d["kernel"], np.float32).T)
+        yield lin.bias, torch.tensor(np.asarray(d["bias"], np.float32))
+    if "log_sigma" in tree:
+        yield net.log_sigma, torch.tensor(np.asarray(tree["log_sigma"], np.float32))
+
+
 def actor_critic_from_jax(params: dict, activation: str = "silu", init_sigma: float = -2.9,
                           device=None) -> ActorCritic:
-    """Load a flax ActorCritic param tree (numpy leaves: MLP_0 actor,
-    MLP_1 critic, Dense_0 mu head, Dense_1 value head, optional log_sigma)
-    into an ActorCritic. Flax kernels are [in, out]; torch weights [out, in]."""
-    def tower(p):
-        return [p[f"Dense_{i}"] for i in range(len(p))]
-
-    actor, critic = tower(params["MLP_0"]), tower(params["MLP_1"])
+    """Load a flax ActorCritic param tree (numpy leaves) into an
+    ActorCritic of the same widths."""
+    actor, critic = _tower(params["MLP_0"]), _tower(params["MLP_1"])
     obs_dim = np.asarray(actor[0]["kernel"]).shape[0]
     action_dim = np.asarray(params["Dense_0"]["kernel"]).shape[1]
     net = ActorCritic(
@@ -102,11 +117,7 @@ def actor_critic_from_jax(params: dict, activation: str = "silu", init_sigma: fl
         activation=activation, init_sigma=init_sigma, learn_sigma="log_sigma" in params,
         device="cpu",
     )
-    linears = [m for m in net.actor if isinstance(m, nn.Linear)] + [m for m in net.critic if isinstance(m, nn.Linear)]
     with torch.no_grad():
-        for lin, d in zip(linears + [net.mu, net.value], actor + critic + [params["Dense_0"], params["Dense_1"]]):
-            lin.weight.copy_(torch.tensor(np.asarray(d["kernel"], np.float32).T))
-            lin.bias.copy_(torch.tensor(np.asarray(d["bias"], np.float32)))
-        if "log_sigma" in params:
-            net.log_sigma.copy_(torch.tensor(np.asarray(params["log_sigma"], np.float32)))
+        for t, x in flax_leaves(net, params):
+            t.copy_(x)
     return net.to(resolve_device(device))

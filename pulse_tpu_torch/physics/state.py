@@ -109,6 +109,38 @@ def refresh_kinematics(model: Model, state: PhysicsState) -> PhysicsState:
     )
 
 
+def state_from_kinematics(
+    model: Model,
+    root_pos: torch.Tensor,
+    root_rot: torch.Tensor,
+    dof_pos: torch.Tensor,
+    root_vel: torch.Tensor,
+    root_ang_vel: torch.Tensor,
+    dof_vel: torch.Tensor,
+) -> PhysicsState:
+    """State of [B] humanoids from motion-lib style quantities (world-frame
+    root velocities, exp-map dof [B, D]), with FK for the world bodies."""
+    B, Jm1, J = root_pos.shape[0], model.num_joints, model.num_bodies
+    root_vel6 = torch.cat(
+        [q.quat_rotate_inverse(root_rot, root_ang_vel), q.quat_rotate_inverse(root_rot, root_vel)], dim=-1
+    )
+    z3 = torch.zeros(B, J, 3, device=root_pos.device)
+    state = PhysicsState(
+        root_pos=root_pos,
+        root_rot=q.quat_unit(root_rot),
+        joint_rot=q.exp_map_to_quat(dof_pos.reshape(B, Jm1, 3)),
+        root_vel6=root_vel6,
+        joint_omega=dof_vel.reshape(B, Jm1, 3),
+        # the world bodies are filled by refresh_kinematics
+        body_pos=z3,
+        body_rot=torch.zeros(B, J, 4, device=root_pos.device),
+        body_vel=z3,
+        body_ang_vel=z3,
+        contact_force=z3,
+    )
+    return refresh_kinematics(model, state)
+
+
 def state_from_motion_ref(model: Model, ref: dict) -> PhysicsState:
     """Reset state straight from a get_motion_state dict: the motion tables
     already hold the FK'd body poses and velocities, so no FK runs here."""

@@ -1,0 +1,269 @@
+"""CLI entry point: config-driven PPO training.
+
+Counterpart of `pulse_tpu/run.py`:
+
+    python -m pulse_tpu_torch.run env=im_getup learning=im_ppo num_envs=3072
+
+composes the YAML config tree (`utils/config.py`), builds the model, the
+synthetic motion clips, the env and the PPO agent, and runs the epoch loop
+with JSONL metric lines every `log_frequency` epochs and `torch.save`
+checkpoints of the train state every `save_frequency` epochs and at the end.
+With `epoch` not 0 the latest checkpoint of the experiment is restored.
+`device=cpu` runs the kernels' plain PyTorch versions on the CPU.
+
+Ported: the HumanoidIm and HumanoidImGetup tasks with `agent: ppo`. Other
+tasks, agents and options raise NotImplementedError naming the ROADMAP item
+that ports them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import glob
+import json
+import os
+import re
+import sys
+import time
+
+import torch
+
+# task -> the ROADMAP item that ports it
+_UNPORTED_TASKS = {
+    "HumanoidAMP": 10, "HumanoidAMPGetup": 10,
+    "HumanoidImMCP": 10, "HumanoidImMCPGetup": 10, "HumanoidImMCPDemo": 15, "HumanoidImDemo": 15,
+    "HumanoidImDistill": 11, "HumanoidImDistillGetup": 11, "HumanoidImZ": 11,
+    "HumanoidSpeed": 11, "HumanoidReach": 11, "HumanoidTraj": 11, "HumanoidStrike": 11,
+    "HumanoidPedestrianTerrain": 11,
+}
+
+
+def _unported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, item {item})")
+
+
+def build_model_from_cfg(cfg, device):
+    from pulse_tpu_torch.assets import load_smpl_humanoid
+    from pulse_tpu_torch.physics.model import PhysicsConfig, build_model
+
+    sim = cfg["sim"]
+    pc = PhysicsConfig(
+        dt=float(sim["dt"]),
+        substeps=int(sim["substeps"]),
+        control_freq_inv=int(sim["control_freq_inv"]),
+        gravity=float(sim["gravity"]),
+        contact_stiffness=float(sim["contact_stiffness"]),
+        contact_damping=float(sim["contact_damping"]),
+        friction_regularization=float(sim["friction_regularization"]),
+        limit_stiffness=float(sim["limit_stiffness"]),
+        limit_damping=float(sim["limit_damping"]),
+        kp_scale=float(sim["kp_scale"]),
+        kd_scale=float(sim["kd_scale"]),
+    )
+    spec = load_smpl_humanoid()
+    return spec, build_model(spec, pc, device=device)
+
+
+def build_motion_from_cfg(cfg, spec, device):
+    from pulse_tpu_torch.motion.motion_lib import build_motion_data
+    from pulse_tpu_torch.motion.synthetic import make_synthetic_clips
+
+    if cfg["env"].get("motion_file", ""):
+        raise _unported("env.motion_file (motion/loader.py)", 13)
+    clips = make_synthetic_clips(spec.skeleton, num_clips=int(cfg["env"].get("num_synthetic_clips", 4)))
+    return build_motion_data(spec.skeleton, clips, device=device)
+
+
+def build_env_from_cfg(cfg, model, motion, device):
+    from pulse_tpu_torch.env.humanoid_im import DEFAULT_KEY_BODIES, DEFAULT_RESET_BODIES, EnvConfig, HumanoidImEnv
+    from pulse_tpu_torch.env.humanoid_im_getup import GetupConfig, HumanoidImGetupEnv
+
+    e = cfg["env"]
+    task = e["task"]
+    if task not in ("HumanoidIm", "HumanoidImGetup"):
+        if task in _UNPORTED_TASKS or task.endswith("Z"):
+            raise _unported(f"task {task}", _UNPORTED_TASKS.get(task, 11))
+        raise ValueError(f"unknown task {task!r}")
+    if bool(e.get("randomize", False)):
+        raise _unported("domain randomization (env.randomize, env/domain_rand.py)", 10)
+    if bool(e.get("shape_variation", False)):
+        raise _unported("shape variation (env.shape_variation)", 12)
+    if str(e.get("control_mode", "isaac_pd")) != "isaac_pd":
+        raise _unported(f"control_mode {e['control_mode']}", 12)
+    common = dict(
+        termination_distance=float(e["termination_distance"]),
+        enable_early_termination=bool(e["enable_early_termination"]),
+        use_mean_termination=bool(e["use_mean_termination"]),
+        num_traj_samples=int(e["num_traj_samples"]),
+        local_root_obs=bool(e["local_root_obs"]),
+        root_height_obs=bool(e["root_height_obs"]),
+        state_init=str(e["state_init"]),
+        power_reward=bool(e["power_reward"]),
+        cycle_motion=bool(e["cycle_motion"]),
+        obs_v=int(e.get("obs_v", 6)),
+        self_obs_v=int(e.get("self_obs_v", 1)),
+        obs_noise_std=float(e.get("obs_noise_std", 0.0)),
+        zero_out_far=bool(e.get("zero_out_far", False)),
+        occlusion_prob=float(e.get("occlusion_prob", 0.0)),
+        num_amp_obs_steps=int(e.get("num_amp_obs_steps", 10)),
+        amp_obs_v=int(e.get("amp_obs_v", 1)),
+        has_shape_obs=bool(e.get("has_shape_obs", False)),
+        has_shape_obs_disc=bool(e.get("has_shape_obs_disc", False)),
+        has_limb_weight_obs=bool(e.get("has_limb_weight_obs", False)),
+        key_bodies=tuple(e["key_bodies"]) if e.get("key_bodies") else DEFAULT_KEY_BODIES,
+        reset_bodies=tuple(e["reset_bodies"]) if e.get("reset_bodies") else DEFAULT_RESET_BODIES,
+        track_bodies=tuple(e["track_bodies"]) if e.get("track_bodies") else None,
+        **{k: float(v) for k, v in (e.get("reward_specs") or {}).items()},
+    )
+    seed = int(cfg["seed"])
+    if task == "HumanoidIm":
+        return HumanoidImEnv(model, motion, EnvConfig(**common), device=device, seed=seed)
+    gc = GetupConfig(
+        recovery_steps=int(e.get("recovery_steps", 90)),
+        recovery_episode_prob=float(e.get("recovery_episode_prob", 0.3)),
+        fall_init_prob=float(e.get("fall_init_prob", 0.1)),
+        num_fall_states=int(e.get("num_fall_states", 256)),
+        fall_settle_steps=int(e.get("fall_settle_steps", 60)),
+        **common,
+    )
+    return HumanoidImGetupEnv(model, motion, gc, device=device, seed=seed)
+
+
+def build_agent_from_cfg(cfg, env):
+    from pulse_tpu_torch.learning.networks import ActorCritic
+    from pulse_tpu_torch.learning.ppo import PPOAgent, PPOConfig
+
+    l = cfg["learning"]
+    kind = l["agent"]
+    if kind == "amp":
+        raise _unported("the AMP agent", 9)
+    if kind == "distill":
+        raise _unported("the distill agent", 11)
+    if kind != "ppo":
+        raise ValueError(f"unknown agent {kind!r}")
+    ppo_cfg = PPOConfig(
+        num_envs=int(cfg["num_envs"]),
+        horizon_length=int(l["horizon_length"]),
+        minibatch_size=int(l["minibatch_size"]),
+        mini_epochs=int(l["mini_epochs"]),
+        gamma=float(l["gamma"]),
+        tau=float(l["tau"]),
+        learning_rate=float(l["learning_rate"]),
+        e_clip=float(l["e_clip"]),
+        critic_coef=float(l["critic_coef"]),
+        bounds_loss_coef=float(l["bounds_loss_coef"]),
+        grad_norm=float(l["grad_norm"]),
+        normalize_input=bool(l["normalize_input"]),
+        normalize_value=bool(l["normalize_value"]),
+        normalize_advantage=bool(l["normalize_advantage"]),
+    )
+    seed = int(cfg["seed"])
+    net = ActorCritic(
+        env.obs_dim, env.action_dim,
+        actor_units=tuple(l["actor_units"]),
+        critic_units=tuple(l["critic_units"]),
+        init_sigma=float(l["init_sigma"]),
+        device=env.device,
+        seed=seed,
+    )
+    # the agent's generator gets its own stream, apart from the env's
+    return PPOAgent(env, ppo_cfg, net, seed=seed + 1)
+
+
+# --------------------------------------------------------------------------- #
+# checkpoints: the train state without the env state (num_envs-dependent)
+# --------------------------------------------------------------------------- #
+
+def _rms_dict(r) -> dict:
+    return {"mean": r.mean, "var": r.var, "count": r.count}
+
+
+def save_checkpoint(ckpt_dir: str, epoch: int, ts) -> str:
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, f"epoch_{epoch}.pt")
+    torch.save({"network": ts.network.state_dict(), "optimizer": ts.optimizer.state_dict(),
+                "obs_rms": _rms_dict(ts.obs_rms), "value_rms": _rms_dict(ts.value_rms), "epoch": ts.epoch}, path)
+    return path
+
+
+def latest_checkpoint(ckpt_dir: str) -> str | None:
+    found = [(int(m.group(1)), p) for p in glob.glob(os.path.join(ckpt_dir, "epoch_*.pt"))
+             if (m := re.search(r"epoch_(\d+)\.pt$", p))]
+    return max(found)[1] if found else None
+
+
+def restore_checkpoint(path: str, ts):
+    from pulse_tpu_torch.learning.running_norm import RunningMeanStd
+
+    dev = ts.obs_rms.mean.device
+    ck = torch.load(path, map_location=dev, weights_only=True)
+    ts.network.load_state_dict(ck["network"])
+    ts.optimizer.load_state_dict(ck["optimizer"])
+    return dataclasses.replace(ts, obs_rms=RunningMeanStd(**ck["obs_rms"]), value_rms=RunningMeanStd(**ck["value_rms"]),
+                               epoch=int(ck["epoch"]))
+
+
+@dataclasses.dataclass
+class TrainResult:
+    agent: object
+    train_state: object
+    metrics: list            # one dict of floats per epoch run
+
+
+def main(argv=None) -> TrainResult:
+    from pulse_tpu_torch._device import resolve_device
+    from pulse_tpu_torch.utils.config import load_config
+    from pulse_tpu_torch.utils.logger import MetricLogger
+
+    cfg = load_config(argv if argv is not None else sys.argv[1:])
+    if cfg["test"]:
+        raise _unported("test=true (im_eval)", 8)
+    if int(cfg.get("eval_frequency", 0)) > 0:
+        raise _unported("eval_frequency > 0 (im_eval)", 8)
+    device = resolve_device(cfg["device"])
+
+    out_dir = os.path.join(cfg["output_dir"], cfg["exp_name"])
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "config.json"), "w") as fh:
+        json.dump(cfg, fh, indent=2, default=str)
+
+    spec, model = build_model_from_cfg(cfg, device)
+    motion = build_motion_from_cfg(cfg, spec, device)
+    env = build_env_from_cfg(cfg, model, motion, device)
+    agent = build_agent_from_cfg(cfg, env)
+
+    ts = agent.init()
+    ckpt_dir = os.path.join(out_dir, "ckpt")
+    epoch0 = 0
+    if int(cfg["epoch"]) != 0:
+        path = latest_checkpoint(ckpt_dir)
+        if path:
+            ts = restore_checkpoint(path, ts)
+            epoch0 = int(re.search(r"epoch_(\d+)\.pt$", path).group(1))
+            print(f"restored {path}")
+
+    logger = MetricLogger(out_dir)
+    t_start = time.time()
+    t_window, e_window = t_start, epoch0   # windowed fps
+    steps_per_epoch = int(cfg["num_envs"]) * int(cfg["learning"]["horizon_length"])
+    history = []
+    for epoch in range(epoch0, int(cfg["max_epochs"])):
+        ts, metrics = agent.train_epoch(ts)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        history.append(metrics)
+        if epoch % int(cfg["log_frequency"]) == 0:
+            now = time.time()
+            line = dict(metrics, time=round(now - t_start, 1),
+                        fps=round(steps_per_epoch * (epoch - e_window + 1) / max(now - t_window, 1e-6)))
+            t_window, e_window = now, epoch + 1
+            logger.log(line, epoch)
+            print(f"epoch={epoch} " + " ".join(
+                f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}" for k, v in line.items()), flush=True)
+        if int(cfg["save_frequency"]) > 0 and epoch > 0 and epoch % int(cfg["save_frequency"]) == 0:
+            save_checkpoint(ckpt_dir, epoch, ts)
+    save_checkpoint(ckpt_dir, int(cfg["max_epochs"]), ts)
+    return TrainResult(agent=agent, train_state=ts, metrics=history)
+
+
+if __name__ == "__main__":
+    main()

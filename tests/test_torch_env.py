@@ -63,8 +63,7 @@ def stepped():
     jstate = JaxEnvState(
         physics=JaxPhysicsState(**{k: jnp.asarray(v) for k, v in d["physics"].items()}),
         key=jax.random.split(jax.random.PRNGKey(1), B),
-        recovery_counter=jnp.zeros(B, jnp.int32),
-        **{k: jnp.asarray(v) for k, v in d.items() if k != "physics"},
+        **{k: jnp.asarray(v) for k, v in d.items() if k != "physics"},   # recovery_counter zeros
     )
     want = jax.jit(jenv.step)(jstate, jnp.asarray(actions))
 

@@ -7,7 +7,8 @@ seed and handed to both packages as numpy arrays.
 Also: the port imports no JAX, its entry points demand CUDA unless given
 device="cpu", its asset file equals the JAX package's, the constant tables
 the kernels read match the C structs' layout, and the kernels' per-env math
-header, built for the host by g++, agrees with the plain functions.
+and reward/AMP epilogue headers, built for the host by g++, agree with the
+plain functions.
 """
 
 import ast
@@ -34,7 +35,9 @@ from pulse_tpu.physics import build_model as jax_build_model
 
 from pulse_tpu_torch.assets import load_smpl_humanoid
 from pulse_tpu_torch.env import cuda_obs
+from pulse_tpu_torch import run
 from pulse_tpu_torch.env.humanoid_im import EnvConfig, HumanoidImEnv
+from pulse_tpu_torch.env.humanoid_im_getup import GetupConfig, HumanoidImGetupEnv
 from pulse_tpu_torch.learning.networks import ActorCritic, actor_critic_from_jax
 from pulse_tpu_torch.learning.ppo import gaussian_neglogp, policy_step
 from pulse_tpu_torch.learning.running_norm import running_mean_std_from_jax
@@ -106,6 +109,10 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch, port):
     with pytest.raises(RuntimeError, match="CUDA"):
         HumanoidImEnv(model, motion)
     with pytest.raises(RuntimeError, match="CUDA"):
+        HumanoidImGetupEnv(model, motion, GetupConfig(num_fall_states=2, fall_settle_steps=1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run.main([])          # the config's device defaults to cuda
+    with pytest.raises(RuntimeError, match="CUDA"):
         ActorCritic(10, 3, actor_units=(8,), critic_units=(8,))
     ActorCritic(10, 3, actor_units=(8,), critic_units=(8,), device="cpu")
 
@@ -138,12 +145,13 @@ def _c_struct_words(src: str, name: str, consts: dict) -> int:
 def test_constant_tables_match_c_structs(port):
     _, model, _, env = port
     consts = {"MAX_J": substep_cuda.MAX_J, "MAX_P": substep_cuda.MAX_P, "MAX_KEY": cuda_obs.MAX_KEY}
-    hdr = (ROOT / "pulse_tpu_torch" / "csrc" / "physics_step.cuh").read_text()
-    k1 = (ROOT / "pulse_tpu_torch" / "csrc" / "step_reward_amp.cu").read_text()
-    for src, define in ((hdr, "MAX_J"), (hdr, "MAX_P"), (k1, "MAX_KEY")):
+    csrc = ROOT / "pulse_tpu_torch" / "csrc"
+    math_h, hdr, ra = ((csrc / f).read_text() for f in ("humanoid_math.cuh", "physics_step.cuh", "reward_amp.cuh"))
+    for src, define in ((math_h, "MAX_J"), (hdr, "MAX_P"), (ra, "MAX_KEY")):
         assert int(re.search(r"#define %s (\d+)" % define, src).group(1)) == consts[define]
+    assert int(re.search(r"kRaRows = (\d+);", ra).group(1)) == cuda_obs.RA_ROWS
     assert len(substep_cuda.model_const_table(model)) == 4 * _c_struct_words(hdr, "ModelConsts", consts)
-    assert len(env.consts.table()) == 4 * _c_struct_words(k1, "EnvConsts", consts)
+    assert len(env.consts.table()) == 4 * _c_struct_words(ra, "EnvConsts", consts)
 
 
 # --------------------------------------------------------------------------- #
@@ -486,3 +494,91 @@ def test_kernel_math_header_matches_plain_functions(tmp_path):
     want = torch.cat(want, dim=1).numpy()
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-4)
+
+
+# --------------------------------------------------------------------------- #
+# the reward/AMP epilogue header (K1's and RA's), built for the host by g++
+# --------------------------------------------------------------------------- #
+
+_EPILOGUE_HARNESS = r"""
+#include <cstdio>
+#include <vector>
+#include "reward_amp.cuh"
+using namespace hm;
+// in: n, width, n_out, table bytes, EnvConsts, then per env the RA kernel's
+// input record (bodies 13J | joint rot 4(J-1) | joint omega 3(J-1) | ref 13J)
+int main(int argc, char** argv) {
+  FILE* f = std::fopen(argv[1], "rb");
+  int n, width, n_out, table_bytes;
+  EnvConsts c;
+  if (std::fread(&n, 4, 1, f) != 1 || std::fread(&width, 4, 1, f) != 1 || std::fread(&n_out, 4, 1, f) != 1 ||
+      std::fread(&table_bytes, 4, 1, f) != 1 || table_bytes != (int)sizeof(EnvConsts) ||
+      std::fread(&c, sizeof(EnvConsts), 1, f) != 1) return 2;
+  std::vector<float> in((size_t)n * width), out((size_t)n * n_out, -1e30f);
+  if (std::fread(in.data(), 4, in.size(), f) != in.size()) return 1;
+  std::fclose(f);
+  const int J = c.J, Jm1 = J - 1;
+  for (int i = 0; i < n; ++i) {
+    const float* x = in.data() + (size_t)i * width;
+    V3 pos[MAX_J], vel[MAX_J], ang[MAX_J], omega[MAX_J - 1];
+    Q4 rot[MAX_J], jrot[MAX_J - 1];
+    for (int b = 0; b < J; ++b) {
+      pos[b] = V3{x[3 * b], x[3 * b + 1], x[3 * b + 2]};
+      rot[b] = Q4{x[3 * J + 4 * b], x[3 * J + 4 * b + 1], x[3 * J + 4 * b + 2], x[3 * J + 4 * b + 3]};
+      vel[b] = V3{x[7 * J + 3 * b], x[7 * J + 3 * b + 1], x[7 * J + 3 * b + 2]};
+      ang[b] = V3{x[10 * J + 3 * b], x[10 * J + 3 * b + 1], x[10 * J + 3 * b + 2]};
+    }
+    const float* jr = x + 13 * J;
+    const float* om = jr + 4 * Jm1;
+    for (int j = 0; j < Jm1; ++j) {
+      jrot[j] = Q4{jr[4 * j], jr[4 * j + 1], jr[4 * j + 2], jr[4 * j + 3]};
+      omega[j] = V3{om[3 * j], om[3 * j + 1], om[3 * j + 2]};
+    }
+    reward_amp(c, pos, rot, vel, ang, jrot, omega, RowsIn{om + 3 * Jm1, 1}, RowsOut{out.data() + (size_t)i * n_out, 1});
+  }
+  f = std::fopen(argv[2], "wb");
+  std::fwrite(out.data(), 4, out.size(), f);
+  std::fclose(f);
+  return 0;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def epilogue_harness(tmp_path_factory):
+    import shutil
+    import subprocess
+
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ not found")
+    d = tmp_path_factory.mktemp("epilogue")
+    (d / "harness.cc").write_text(_EPILOGUE_HARNESS)
+    subprocess.run([gxx, "-O2", "-std=c++17", "-I", str(ROOT / "pulse_tpu_torch" / "csrc"), str(d / "harness.cc"),
+                    "-o", str(d / "harness")], check=True, timeout=120)
+    return d
+
+
+@pytest.mark.parametrize("amp_v", [1, 2])
+def test_reward_amp_header_matches_plain(port, epilogue_harness, amp_v):
+    """csrc/reward_amp.cuh, the epilogue K1 and RA run, against
+    reward_amp_plain on jittered stepped states: float32 rounding in
+    another order, 1e-5 (acosf and arccos of cosines near 1 in the rotation
+    term are the widest)."""
+    import subprocess
+
+    ph, ref = _stepped_like(port, seed=6)
+    e = dataclasses.replace(port[3].consts, amp_v=amp_v)
+    want = torch.cat([t.reshape(B, -1) for t in cuda_obs.reward_amp_plain(e, ph, ref)], dim=1).numpy()
+    x = torch.cat([t.reshape(B, -1) for t in [ph.body_pos, ph.body_rot, ph.body_vel, ph.body_ang_vel, ph.joint_rot,
+                                               ph.joint_omega, ref["rg_pos"], ref["rb_rot"], ref["body_vel"],
+                                               ref["body_ang_vel"]]], dim=1).numpy()
+    table = e.table()
+    d = epilogue_harness
+    (d / f"in{amp_v}.bin").write_bytes(np.asarray([B, x.shape[1], want.shape[1], len(table)], np.int32).tobytes()
+                                       + table + x.tobytes())
+    subprocess.run([str(d / "harness"), str(d / f"in{amp_v}.bin"), str(d / f"out{amp_v}.bin")], check=True,
+                   timeout=60)
+    got = np.fromfile(d / f"out{amp_v}.bin", np.float32).reshape(B, -1)
+    assert got.shape == (B, cuda_obs.RA_ROWS + cuda_obs.amp_obs_dim(24, 4, amp_v, True))
+    np.testing.assert_allclose(got, want, atol=1e-5)
