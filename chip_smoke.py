@@ -8,11 +8,14 @@ Phases, each printed as one JSON line:
                too)
   build        nvcc of pulse_tpu_torch/csrc/*.cu for sm_90a, one process per
                source: seconds, registers and spill bytes per kernel
-  kernels      K1 (step_reward_amp), K2 (observe), K3 (physics_step) and RA
-               (reward_amp) against their plain PyTorch versions at 3072
-               envs, on states from a reference-state reset of synthetic
-               clips plus a few plain physics steps (feet in contact); and
-               K3 -> RA against K1 on the same inputs
+  kernels      K1 (step_reward_amp), K2 (observe), K3 (physics_step), K3-rows
+               (physics_step_rows) and RA (reward_amp) against their plain
+               PyTorch versions at 3072 envs, on states from a
+               reference-state reset of synthetic clips plus a few plain
+               physics steps (feet in contact); K3 -> RA against K1 on the
+               same inputs; K3-rows on a vary_model_scales(0.9, 1.1) model
+               against physics_step on it, and on the shared model's rows
+               against K3
   slice        HumanoidImEnv (default EnvConfig/PhysicsConfig, 4 synthetic
                clips, 3072 envs) acting for 32 steps under the 2048-1536-1024
                ActorCritic in bf16 autocast; K1 and K2 must launch exactly 32
@@ -36,9 +39,21 @@ Phases, each printed as one JSON line:
                fall states and some terminations were held back by the grace
                window; reward in [0, 1], finite obs; then K3 on the run's own
                model against physics_step on the run's last state
-  Both training phases time rollout, GAE and update (epochs after the first)
-  and the training env steps/s; then K3's and RA's ms and their plain
-  versions'.
+  train_shape  the same with env=im_shape (per-env isotropic scales in
+               [0.9, 1.1], shape/limb channels): 32 of K3-rows, RA and K2 an
+               epoch and none of K1 or K3; the observation 955 wide with
+               columns 358-378 the env's shape rows; then resample_shapes
+               and K3-rows on the env's rows against physics_step on the new
+               batched model (a stale rows cache would fail: the old and
+               new models' steps differ)
+  shape_betas  the env=im_shape env built through run's builders with
+               env.smpl_model_path at a synthetic SMPL pickle (written by
+               smpl/synthetic.py), 3072 SMPL-beta skeletons: 8 policy-acting
+               steps (8 launches each of K3-rows, RA and K2), then K3-rows
+               against physics_step on the env's state
+  The training phases time rollout, GAE and update (epochs after the first)
+  and the training env steps/s; then K3's, K3-rows' and RA's ms and their
+  plain versions'.
 Then the kernels' JSON line, the card's nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed check exits non-zero before the
 last line. Exits non-zero without CUDA or without the package beside it.
@@ -133,6 +148,12 @@ def epilogue_ops_per_env(J: int, n_reset: int, n_key: int, amp_v: int) -> int:
     return reward + dist + amp
 
 
+def rows_ops_per_env(J: int, P: int, n_sub: int) -> int:
+    """K3-rows: K3's operations plus the rebuild of each body's B block from
+    the rows (9 products a body, in every substep's bias-force pass)."""
+    return physics_ops_per_env(J, P, n_sub) + n_sub * J * 9
+
+
 def k1_ops_per_env(J: int, P: int, n_sub: int, n_reset: int, n_key: int, amp_v: int) -> int:
     return physics_ops_per_env(J, P, n_sub) + epilogue_ops_per_env(J, n_reset, n_key, amp_v)
 
@@ -219,6 +240,7 @@ def main() -> int:
     from pulse_tpu_torch.motion.synthetic import make_synthetic_clips
     from pulse_tpu_torch.physics import substep_cuda
     from pulse_tpu_torch.physics.model import PhysicsConfig, build_model
+    from pulse_tpu_torch.physics.shape_variation import vary_model_scales
     from pulse_tpu_torch.physics.step import physics_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -269,6 +291,14 @@ def main() -> int:
         k3 = substep_cuda.physics_step_cuda(model, state.physics, pd)
         ra = cuda_obs.reward_amp(e, k3, ref)
         pra = cuda_obs.reward_amp_plain(e, k3, ref)
+        # K3-rows on a scale-varied model against the batched plain step,
+        # and on the shared model's rows against K3
+        bm = vary_model_scales(model, N_ENVS, (0.9, 1.1), generator=torch.Generator(device=dev).manual_seed(2))
+        bm_rows = substep_cuda.build_model_rows(bm, N_ENVS)
+        k3r = substep_cuda.physics_step_cuda(model, state.physics, pd, model_rows=bm_rows)
+        p3r = physics_step(bm, state.physics, pd)
+        k3r_shared = substep_cuda.physics_step_cuda(model, state.physics, pd,
+                                                    model_rows=substep_cuda.build_model_rows(model, N_ENVS))
     torch.cuda.synchronize()
     kin_phys, kin_pd, kin_ref = state.physics, pd, ref   # K3's and RA's timing inputs
     names = ("reward", "reward_raw", "dist_mean", "dist_max", "amp")
@@ -281,22 +311,32 @@ def main() -> int:
     ra_cmp = {n: compare(a, b, K1_TOL[n], N_ENVS) for n, a, b in zip(names, ra, pra)}
     k3ra_vs_k1 = {f: compare(getattr(k3, f), getattr(k1[0], f), K1_TOL[f], N_ENVS) for f in phys}
     k3ra_vs_k1.update({n: compare(a, b, K1_TOL[n], N_ENVS) for n, a, b in zip(names, ra, k1[1:])})
+    k3r_cmp = {f: compare(getattr(k3r, f), getattr(p3r, f), K1_TOL[f], N_ENVS) for f in phys}
+    k3r_shared_cmp = {f: compare(getattr(k3r_shared, f), getattr(k3, f), K1_TOL[f], N_ENVS) for f in phys}
     in_contact = int((k1[0].contact_force.abs().amax(dim=(1, 2)) > 1.0).sum())
+    in_contact_rows = int((p3r.contact_force.abs().amax(dim=(1, 2)) > 1.0).sum())
     max_err = {"step_reward_amp": max(c["max"] for c in k1_cmp.values()), "observe": k2_cmp["max"],
                "physics_step": max(c["max"] for c in k3_cmp.values()),
+               "physics_step_rows": max(c["max"] for c in k3r_cmp.values()),
                "reward_amp": max(c["max"] for c in ra_cmp.values())}
     emit({"phase": "kernels", "envs": N_ENVS, "envs_in_contact": in_contact, "K1_vs_plain": k1_cmp,
           "K1_epilogue_on_kernel_state": epi_cmp, "K2_vs_plain": k2_cmp, "K3_vs_plain": k3_cmp,
-          "RA_vs_plain_on_K3_state": ra_cmp, "K3_RA_vs_K1": k3ra_vs_k1})
+          "RA_vs_plain_on_K3_state": ra_cmp, "K3_RA_vs_K1": k3ra_vs_k1,
+          "K3rows_vs_plain_scaled_model": k3r_cmp, "envs_in_contact_scaled_model": in_contact_rows,
+          "body_scale_range": [float(bm.total_mass.min() / model.total_mass) ** (1 / 3),
+                               float(bm.total_mass.max() / model.total_mass) ** (1 / 3)],
+          "K3rows_shared_rows_vs_K3": k3r_shared_cmp})
     allowed = int(OUTLIER_FRAC * N_ENVS)
     for label, cmps, limit in (("K1", k1_cmp, allowed), ("K1 epilogue", epi_cmp, 0), ("K3", k3_cmp, allowed),
-                               ("RA", ra_cmp, 0), ("K3 -> RA vs K1", k3ra_vs_k1, 0)):
+                               ("RA", ra_cmp, 0), ("K3 -> RA vs K1", k3ra_vs_k1, 0),
+                               ("K3-rows scaled model", k3r_cmp, allowed),
+                               ("K3-rows shared rows vs K3", k3r_shared_cmp, allowed)):
         for name, c in cmps.items():
             if not c["outlier_envs"] <= limit:
                 fail(f"{label} {name}: {c['outlier_envs']} envs beyond {c['tol']} (max {c['max']})")
     if k2_cmp["outlier_envs"]:
         fail(f"K2: {k2_cmp['outlier_envs']} envs beyond {K2_TOL} (max {k2_cmp['max']})")
-    if in_contact == 0:
+    if in_contact == 0 or in_contact_rows == 0:
         fail("no env in ground contact: the contact path was not exercised")
 
     # ---- the slice: 32 policy-acting steps ------------------------------------ #
@@ -330,7 +370,8 @@ def main() -> int:
                   "obs_finite": bool(torch.isfinite(state.obs).all()),
                   "reward_finite": bool(torch.isfinite(rewards).all())}
     emit(slice_info)
-    want = {"step_reward_amp": HORIZON, "observe": HORIZON, "physics_step": 0, "reward_amp": 0}
+    want = {"step_reward_amp": HORIZON, "observe": HORIZON, "physics_step": 0, "physics_step_rows": 0,
+            "reward_amp": 0}
     if launches != want:
         fail(f"launches {launches} in {HORIZON} env steps, expected {want}")
     if not (slice_info["obs_finite"] and slice_info["reward_finite"]):
@@ -515,7 +556,8 @@ def main() -> int:
         return res, counts, info
 
     res, im_launches, info = train("train_im", ["env=im"], {"step_reward_amp": HORIZON, "observe": HORIZON,
-                                                            "physics_step": 0, "reward_amp": 0})
+                                                            "physics_step": 0, "physics_step_rows": 0,
+                                                            "reward_amp": 0})
     emit(info)
     del res
 
@@ -570,6 +612,7 @@ def main() -> int:
 
     res, getup_launches, info = train("train_getup", ["env=im_getup"], {"step_reward_amp": 0, "observe": HORIZON,
                                                                         "physics_step": HORIZON,
+                                                                        "physics_step_rows": 0,
                                                                         "reward_amp": HORIZON})
     genv = res.agent.env
     settle = getup_launches["physics_step"] - sum(el["physics_step"] for el in info["launches_per_epoch"])
@@ -594,6 +637,85 @@ def main() -> int:
         if not c["outlier_envs"] <= allowed:
             fail(f"train_getup K3 on its model {name}: {c['outlier_envs']} envs beyond {c['tol']} (max {c['max']})")
     del res, genv
+
+    # ---- shape-varied training: env=im_shape ------------------------------- #
+    res, shape_launches, info = train("train_shape", ["env=im_shape"], {"step_reward_amp": 0, "observe": HORIZON,
+                                                                        "physics_step": 0,
+                                                                        "physics_step_rows": HORIZON,
+                                                                        "reward_amp": HORIZON})
+    senv = res.agent.env
+    sobs = res.train_state.env_state.obs
+    s_lo = cuda_obs.self_obs_dim(senv.num_bodies, senv.config.root_height_obs)   # 358
+    s_hi = s_lo + senv.shape_obs_dim
+    scale = (senv.batched_model.total_mass / senv.model.total_mass) ** (1 / 3)
+    info.update(obs_dim=int(sobs.shape[1]), amp_obs_dim=senv.amp_obs_dim,
+                shape_columns_equal_table=bool(torch.equal(sobs[:, s_lo:s_hi], senv._shape_obs_table)),
+                body_scale_min=float(scale.min()), body_scale_max=float(scale.max()))
+    emit(info)
+    if info["obs_dim"] != 955 or not info["shape_columns_equal_table"] or senv.amp_obs_dim_single != 253:
+        fail(f"train_shape: obs {info['obs_dim']} wide, AMP row {senv.amp_obs_dim_single}, shape columns equal "
+             f"the table: {info['shape_columns_equal_table']}")
+    # a resample swaps the batched model; the env's rows must follow it
+    with torch.no_grad():
+        old_bm = senv.batched_model
+        senv.resample_shapes()
+        sphys = res.train_state.env_state.physics
+        spd = senv.action_to_pd_target(0.3 * torch.randn(N_ENVS, senv.action_dim, generator=g, device=dev))
+        got = substep_cuda.physics_step_cuda(senv.model, sphys, spd, model_rows=senv._model_rows(N_ENVS))
+        want = physics_step(senv.batched_model, sphys, spd)
+        stale = physics_step(old_bm, sphys, spd)
+    resample_cmp = {f: compare(getattr(got, f), getattr(want, f), K1_TOL[f], N_ENVS) for f in phys}
+    stale_beyond = envs_beyond(stale, want, N_ENVS)
+    emit({"phase": "train_shape_resample", "K3rows_vs_plain_after_resample": resample_cmp,
+          "old_model_envs_beyond_tol": stale_beyond})
+    for name, c in resample_cmp.items():
+        if not c["outlier_envs"] <= allowed:
+            fail(f"K3-rows after resample_shapes {name}: {c['outlier_envs']} envs beyond {c['tol']} (max {c['max']})")
+    if stale_beyond <= allowed:
+        fail("the old and new shapes' steps agree: the resample check cannot tell them apart")
+    del res, senv, old_bm, got, want, stale
+
+    # ---- SMPL-beta skeletons through env.smpl_model_path ------------------- #
+    from pulse_tpu_torch.smpl.synthetic import write_smpl_pickle
+    from pulse_tpu_torch.utils.config import load_config
+
+    os.makedirs(out_root, exist_ok=True)
+    smpl_path = write_smpl_pickle(os.path.join(out_root, "smpl_synthetic.pkl"), spec.skeleton)
+    bcfg = load_config(["env=im_shape", f"env.smpl_model_path={smpl_path}", f"num_envs={N_ENVS}", "device=cuda"])
+    bspec, bmodel = run.build_model_from_cfg(bcfg, dev)
+    benv = run.build_env_from_cfg(bcfg, bmodel, run.build_motion_from_cfg(bcfg, bspec, dev), dev)
+    bnet = ActorCritic(benv.obs_dim, benv.action_dim, device=dev, seed=0)
+    brms = RunningMeanStd.create(benv.obs_dim, device=dev)
+    with torch.no_grad():
+        bst = benv.reset(N_ENVS)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        brewards = []
+        for _ in range(8):
+            bst = benv.step(bst, torch.clamp(policy_step(bnet, bst.obs, g, obs_rms=brms)[0], -1.0, 1.0))
+            brewards.append(bst.reward)
+        torch.cuda.synchronize()
+        beta_launches = dict(_build.launches)
+        bpd = benv.action_to_pd_target(0.3 * torch.randn(N_ENVS, benv.action_dim, generator=g, device=dev))
+        got = substep_cuda.physics_step_cuda(benv.model, bst.physics, bpd, model_rows=benv._model_rows(N_ENVS))
+        want = physics_step(benv.batched_model, bst.physics, bpd)
+    brewards = torch.stack(brewards)
+    beta_cmp = {f: compare(getattr(got, f), getattr(want, f), K1_TOL[f], N_ENVS) for f in phys}
+    bmass = benv.batched_model.total_mass
+    emit({"phase": "shape_betas", "envs": N_ENVS, "steps": 8, "launches": beta_launches,
+          "total_mass_kg": [float(bmass.min()), float(bmass.median()), float(bmass.max())],
+          "betas_std": float(benv._shape_obs_table[:, 1:11].std()), "reward_mean": float(brewards.mean()),
+          "reward_min": float(brewards.min()), "reward_max": float(brewards.max()),
+          "obs_finite": bool(torch.isfinite(bst.obs).all()), "K3rows_vs_plain": beta_cmp})
+    want_b = {"step_reward_amp": 0, "observe": 8, "physics_step": 0, "physics_step_rows": 8, "reward_amp": 8}
+    if beta_launches != want_b:
+        fail(f"shape_betas: launches {beta_launches}, expected {want_b}")
+    if not (bool(torch.isfinite(bst.obs).all()) and 0.0 <= float(brewards.min()) and float(brewards.max()) <= 1.0):
+        fail("shape_betas: non-finite obs or reward outside [0, 1]")
+    for name, c in beta_cmp.items():
+        if not c["outlier_envs"] <= allowed:
+            fail(f"shape_betas K3-rows {name}: {c['outlier_envs']} envs beyond {c['tol']} (max {c['max']})")
+    del benv, bst, got, want
     shutil.rmtree(out_root, ignore_errors=True)
 
     # ---- K3's and RA's times on the kernel phase's inputs ---------------------- #
@@ -617,17 +739,25 @@ def main() -> int:
             x3_fall.data_ptr(), o3.data_ptr(), n_fall, substep_cuda.K3_BLOCK, stream), "K3"), 20)
         ra_ms = cuda_ms(lambda: _build.check(lib.ra_reward_amp(
             xr.data_ptr(), o_ra.data_ptr(), N_ENVS, cuda_obs.RA_BLOCK, stream), "RA"), 100)
+        m_rows = bm_rows.t().contiguous()
+        k3r_ms = cuda_ms(lambda: _build.check(lib.k3_physics_step_rows(
+            x3.data_ptr(), m_rows.data_ptr(), o3.data_ptr(), N_ENVS, substep_cuda.K3_BLOCK, stream), "K3-rows"), 20)
+        k3r_plain_ms = cuda_ms(lambda: physics_step(bm, kin_phys, kin_pd), 3)
+        k3r_wrap_ms = cuda_ms(lambda: substep_cuda.physics_step_cuda(model, kin_phys, kin_pd, model_rows=bm_rows), 20)
         k3_plain_ms = cuda_ms(lambda: physics_step(model, kin_phys, kin_pd), 3)
         ra_plain_ms = cuda_ms(lambda: cuda_obs.reward_amp_plain(e, k3, kin_ref), 10)
         k3_wrap_ms = cuda_ms(lambda: substep_cuda.physics_step_cuda(model, kin_phys, kin_pd), 20)
         ra_wrap_ms = cuda_ms(lambda: cuda_obs.reward_amp(e, k3, kin_ref), 20)
     k3_bound, k3_by = bound_ms(4.0 * N_ENVS * (x3.shape[0] + o3.shape[0]), N_ENVS * physics_ops_per_env(J, P, n_sub))
+    k3r_bound, k3r_by = bound_ms(4.0 * N_ENVS * (x3.shape[0] + m_rows.shape[0] + o3.shape[0]),
+                                 N_ENVS * rows_ops_per_env(J, P, n_sub))
     ra_bound, ra_by = bound_ms(4.0 * N_ENVS * (xr.shape[0] + o_ra.shape[0]),
                                N_ENVS * epilogue_ops_per_env(J, len(e.reset_ids), len(e.key_ids), e.amp_v))
     emit({"phase": "timing_k3_ra", "card": card, "envs": N_ENVS, "K3_ms": k3_ms, "K3_ms_256_envs": k3_ms_fall,
-          "RA_ms": ra_ms, "K3_plain_ms": k3_plain_ms, "RA_plain_ms": ra_plain_ms, "K3_wrapper_ms": k3_wrap_ms,
-          "RA_wrapper_ms": ra_wrap_ms, "K3_bound_ms": k3_bound, "RA_bound_ms": ra_bound,
-          "physics_ops_per_env": physics_ops_per_env(J, P, n_sub),
+          "K3rows_ms": k3r_ms, "RA_ms": ra_ms, "K3_plain_ms": k3_plain_ms, "K3rows_plain_ms": k3r_plain_ms,
+          "RA_plain_ms": ra_plain_ms, "K3_wrapper_ms": k3_wrap_ms, "K3rows_wrapper_ms": k3r_wrap_ms,
+          "RA_wrapper_ms": ra_wrap_ms, "K3_bound_ms": k3_bound, "K3rows_bound_ms": k3r_bound, "RA_bound_ms": ra_bound,
+          "physics_ops_per_env": physics_ops_per_env(J, P, n_sub), "rows_ops_per_env": rows_ops_per_env(J, P, n_sub),
           "epilogue_ops_per_env": epilogue_ops_per_env(J, len(e.reset_ids), len(e.key_ids), e.amp_v)})
 
     src = "pulse_tpu_torch/csrc/"
@@ -644,6 +774,10 @@ def main() -> int:
          "replaces": "pulse_tpu/physics/substep_pallas.py:847", "launches": getup_launches["physics_step"],
          "max_abs_err": max_err["physics_step"], "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
          "bound_by": k3_by, "library_ms": None},
+        {"name": "physics_step_rows", "route": "cuda", "source": src + "physics_step.cu",
+         "replaces": "pulse_tpu/physics/substep_pallas.py:744", "launches": shape_launches["physics_step_rows"],
+         "max_abs_err": max_err["physics_step_rows"], "ms": k3r_ms, "plain_ms": k3r_plain_ms, "bound_ms": k3r_bound,
+         "bound_by": k3r_by, "library_ms": None},
         {"name": "reward_amp", "route": "cuda", "source": src + "reward_amp.cu",
          "replaces": "pulse_tpu/env/pallas_obs.py:309", "launches": getup_launches["reward_amp"],
          "max_abs_err": max_err["reward_amp"], "ms": ra_ms, "plain_ms": ra_plain_ms, "bound_ms": ra_bound,

@@ -38,7 +38,7 @@ build_report: dict = {}
 
 # kernel launches per wrapper; each wrapper adds one where it launches its
 # kernel and nowhere else
-launches = {"step_reward_amp": 0, "observe": 0, "physics_step": 0, "reward_amp": 0}
+launches = {"step_reward_amp": 0, "observe": 0, "physics_step": 0, "physics_step_rows": 0, "reward_amp": 0}
 
 # translation unit -> (its C upload function, the C size functions of the
 # tables it takes, in order); each unit has its own __constant__ copies
@@ -141,6 +141,7 @@ def load() -> ctypes.CDLL:
             lib.k3_model_consts_bytes.argtypes, lib.k3_model_consts_bytes.restype = [], sz
             lib.k3_set_consts.argtypes, lib.k3_set_consts.restype = [vp, sz, vp], i
             lib.k3_physics_step.argtypes, lib.k3_physics_step.restype = [vp, vp, i, i, vp], i
+            lib.k3_physics_step_rows.argtypes, lib.k3_physics_step_rows.restype = [vp, vp, vp, i, i, vp], i
             lib.ra_env_consts_bytes.argtypes, lib.ra_env_consts_bytes.restype = [], sz
             lib.ra_set_consts.argtypes, lib.ra_set_consts.restype = [vp, sz, vp], i
             lib.ra_reward_amp.argtypes, lib.ra_reward_amp.restype = [vp, vp, i, i, vp], i

@@ -10,10 +10,14 @@
 
 #include <math.h>
 
+// HD: small helpers, always inlined; HDN: the larger per-env stages, left to
+// the compiler (static: each translation unit keeps its own copy).
 #if defined(__CUDACC__)
 #define HD __host__ __device__ __forceinline__
+#define HDN static __host__ __device__
 #else
 #define HD inline
+#define HDN static inline
 #endif
 
 #define MAX_J 24   // bodies: the kernels' per-env arrays are sized by it

@@ -1,8 +1,9 @@
 // K1: the whole pre-merge env step of the imitation env in one launch, one
 // thread per env: steps_per_control physics substeps and the final FK
-// (physics_step.cuh), then the imitation reward with its four raw terms, the
-// mean/max termination distance over the reset bodies, and the AMP
-// discriminator row of the stepped state (reward_amp.cuh).
+// (physics_step.cuh, the model from its table), then the imitation reward
+// with its four raw terms, the mean/max termination distance over the reset
+// bodies, and the AMP discriminator row of the stepped state
+// (reward_amp.cuh).
 //
 // Replaces the TPU kernel pulse_tpu/env/pallas_obs.py:pallas_step_reward_amp
 // (physics body substep_pallas._build_kernel, epilogue _reward_amp_tiles).
@@ -37,15 +38,15 @@ __global__ void __launch_bounds__(64) step_reward_amp_kernel(const float* __rest
   const RowsIn x{in + e, B};
   PhysState s;
   V3 pd[MAX_J - 1];
-  read_step_inputs(x, s, pd);
+  read_step_inputs(J, x, s, pd);
 
   V3 contact[MAX_J];
   WorldBodies wb;
-  control_step(s, pd, contact, wb);
+  control_step(TableView{&c_model}, s, pd, contact, wb);
 
   // output rows: state | contact 3J | bodies 13J | reward/AMP block
   const int n_state = state_rows(J);
-  write_step_outputs(RowsOut{out + e, B}, s, contact, wb);
+  write_step_outputs(J, RowsOut{out + e, B}, s, contact, wb);
   const RowsIn ref{in + e + (size_t)(n_state + 3 * Jm1) * B, B};
   reward_amp(c_env, wb.pos, wb.rot, wb.vel, wb.ang, s.jrot, s.omega, ref,
              RowsOut{out + e + (size_t)(n_state + 16 * J) * B, B});

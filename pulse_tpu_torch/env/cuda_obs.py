@@ -7,11 +7,17 @@ Counterpart of `pulse_tpu/env/pallas_obs.py`:
     the physics control step, the imitation reward and its raw terms, the
     termination distances and the AMP row of the stepped state
     (csrc/step_reward_amp.cu; replaces `pallas_step_reward_amp`).
-  * RA `reward_amp` — K1's epilogue alone, on a state K3 stepped
-    (csrc/reward_amp.cu; replaces `pallas_reward_amp`). The env runs K3 →
-    RA where a subclass overrides termination or reset.
+  * RA `reward_amp` — K1's epilogue alone, on a state K3 or K3-rows
+    stepped (csrc/reward_amp.cu; replaces `pallas_reward_amp`). The env
+    runs K3 → RA where a subclass overrides termination or reset or the
+    observation carries shape channels, and K3-rows → RA with per-env body
+    shapes. The wrapper appends the env's shape columns to the AMP row.
   * K2 `observe` — self obs v1 ++ task obs v6 (T = 1) of the post-merge
-    state (csrc/observe.cu; replaces `pallas_observe`).
+    state (csrc/observe.cu; replaces `pallas_observe`). The wrapper splices
+    the env's shape columns in between.
+
+The shape columns are functions of the env's body shape alone, never of
+the state, so they stay outside the kernels.
 
 A wrapper given CPU tensors runs the plain version. Given CUDA tensors it
 launches the kernel or raises; it never falls back. `_build.launches`
@@ -96,22 +102,30 @@ def env_consts_from(env) -> EnvConsts:
     )
 
 
-def amp_obs_dim(J: int, num_key: int, amp_v: int, root_height: bool) -> int:
+def amp_obs_dim(J: int, num_key: int, amp_v: int, root_height: bool, shape_dim: int = 0) -> int:
+    """AMP row width: RA's, then `shape_dim` shape columns."""
     D = 3 * (J - 1)
-    return (1 if root_height else 0) + 6 + 3 + 3 + 2 * D + D + 3 * num_key + (3 * num_key if amp_v == 2 else 0)
+    return (1 if root_height else 0) + 6 + 3 + 3 + 2 * D + D + 3 * num_key + (3 * num_key if amp_v == 2 else 0) + shape_dim
 
 
-def obs_dim(J: int, root_height: bool) -> int:
-    return (1 if root_height else 0) + 3 * (J - 1) + 12 * J + 24 * J
+def self_obs_dim(J: int, root_height: bool) -> int:
+    return (1 if root_height else 0) + 3 * (J - 1) + 12 * J
+
+
+def obs_dim(J: int, root_height: bool, shape_dim: int = 0) -> int:
+    """Observation width: self obs, `shape_dim` shape columns, task obs."""
+    return self_obs_dim(J, root_height) + shape_dim + 24 * J
 
 
 # --------------------------------------------------------------------------- #
 # plain versions
 # --------------------------------------------------------------------------- #
 
-def reward_amp_plain(e: EnvConsts, physics: PhysicsState, ref: dict):
+def reward_amp_plain(e: EnvConsts, physics: PhysicsState, ref: dict, shape_params=None, limb_weight_params=None):
     """K1's epilogue on an already-stepped state: (reward [B], raw [B, 4],
-    dist_mean [B], dist_max [B], amp row [B, A])."""
+    dist_mean [B], dist_max [B], amp row [B, A]); the AMP row ends with the
+    given per-env shape columns ([B, 11] gender+betas, [B, 10] limb
+    weights)."""
     reward, raw = kernels.compute_imitation_reward(
         physics.body_pos, physics.body_rot, physics.body_vel, physics.body_ang_vel,
         ref["rg_pos"], ref["rb_rot"], ref["body_vel"], ref["body_ang_vel"],
@@ -125,7 +139,8 @@ def reward_amp_plain(e: EnvConsts, physics: PhysicsState, ref: dict):
         physics.root_pos, physics.root_rot, physics.body_vel[:, 0], physics.body_ang_vel[:, 0],
         dof_pos_from_state(physics), dof_vel_from_state(physics), physics.body_pos[:, kid],
     )
-    kw = dict(local_root_obs=e.local_root_obs, root_height_obs=e.root_height_obs)
+    kw = dict(local_root_obs=e.local_root_obs, root_height_obs=e.root_height_obs, shape_params=shape_params,
+              limb_weight_params=limb_weight_params)
     if e.amp_v == 2:
         amp = kernels.build_amp_observations_smpl_v2(*args, physics.body_vel[:, kid], **kw)
     else:
@@ -139,9 +154,10 @@ def step_reward_amp_plain(model: Model, e: EnvConsts, state: PhysicsState, pd_ta
     return (physics,) + reward_amp_plain(e, physics, ref)
 
 
-def observe_plain(e: EnvConsts, physics: PhysicsState, ref: dict) -> torch.Tensor:
+def observe_plain(e: EnvConsts, physics: PhysicsState, ref: dict, shape_obs=None) -> torch.Tensor:
     """K2's plain version: [B, obs_dim] self obs v1 ++ task obs v6 (T = 1),
-    with body 0 as the root."""
+    with body 0 as the root, and the per-env shape columns [B, S] spliced
+    in between where given."""
     self_obs = kernels.compute_humanoid_self_obs_max(
         physics.body_pos, physics.body_rot, physics.body_vel, physics.body_ang_vel,
         local_root_obs=e.local_root_obs, root_height_obs=e.root_height_obs,
@@ -151,7 +167,7 @@ def observe_plain(e: EnvConsts, physics: PhysicsState, ref: dict) -> torch.Tenso
         physics.body_pos, physics.body_rot, physics.body_vel, physics.body_ang_vel,
         ref["rg_pos"][:, None], ref["rb_rot"][:, None], ref["body_vel"][:, None], ref["body_ang_vel"][:, None],
     )
-    return torch.cat([self_obs, task_obs], dim=-1)
+    return torch.cat([self_obs] + ([] if shape_obs is None else [shape_obs]) + [task_obs], dim=-1)
 
 
 # --------------------------------------------------------------------------- #
@@ -200,12 +216,13 @@ def _split_reward_amp(ra: torch.Tensor):
     )
 
 
-def reward_amp(e: EnvConsts, physics: PhysicsState, ref: dict):
+def reward_amp(e: EnvConsts, physics: PhysicsState, ref: dict, shape_params=None, limb_weight_params=None):
     """RA. K1's epilogue on an already-stepped state against the reference
     at the post-step time: (reward [B], raw [B, 4], dist_mean [B],
-    dist_max [B], amp row [B, A])."""
+    dist_max [B], amp row [B, A]); the AMP row ends with the given per-env
+    shape columns."""
     if physics.body_pos.device.type == "cpu":
-        return reward_amp_plain(e, physics, ref)
+        return reward_amp_plain(e, physics, ref, shape_params, limb_weight_params)
     B, J = physics.body_pos.shape[0], e.J
     parts = [physics.body_pos, physics.body_rot, physics.body_vel, physics.body_ang_vel,
              physics.joint_rot, physics.joint_omega] + _bodies(ref)
@@ -219,14 +236,17 @@ def reward_amp(e: EnvConsts, physics: PhysicsState, ref: dict):
         _build.upload_consts("reward_amp", (e,), lambda: (e.table(),), dev, stream)
         _build.check(lib.ra_reward_amp(x.data_ptr(), out.data_ptr(), B, RA_BLOCK, stream), "RA launch")
     _build.launches["reward_amp"] += 1
-    return _split_reward_amp(out.t())
+    reward, raw, dmean, dmax, amp = _split_reward_amp(out.t())
+    tails = [t for t in (shape_params, limb_weight_params) if t is not None]
+    return reward, raw, dmean, dmax, torch.cat([amp] + tails, dim=1) if tails else amp
 
 
-def observe(e: EnvConsts, physics: PhysicsState, ref: dict) -> torch.Tensor:
+def observe(e: EnvConsts, physics: PhysicsState, ref: dict, shape_obs=None) -> torch.Tensor:
     """K2. [B, obs_dim] observation of the (post-merge) state against the
-    reference bodies at the next control time."""
+    reference bodies at the next control time, with the per-env shape
+    columns [B, S] spliced between self and task obs where given."""
     if physics.body_pos.device.type == "cpu":
-        return observe_plain(e, physics, ref)
+        return observe_plain(e, physics, ref, shape_obs)
     B, J = physics.body_pos.shape[0], e.J
     parts = [physics.body_pos, physics.body_rot, physics.body_vel, physics.body_ang_vel] + _bodies(ref)
     dev = check_kernel_inputs(parts, B)
@@ -240,4 +260,7 @@ def observe(e: EnvConsts, physics: PhysicsState, ref: dict) -> torch.Tensor:
                             K2_BLOCK, stream)
         _build.check(rc, "K2 launch")
     _build.launches["observe"] += 1
-    return out.t().contiguous()
+    if shape_obs is None:
+        return out.t().contiguous()
+    n_self = self_obs_dim(J, e.root_height_obs)
+    return torch.cat([out[:n_self].t(), shape_obs, out[n_self:].t()], dim=1)

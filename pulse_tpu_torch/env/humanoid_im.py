@@ -3,21 +3,27 @@ PyTorch.
 
 Counterpart of `pulse_tpu/env/humanoid_im.py` on the surface of its Pallas
 kernels (obs v6 with one future step, self obs v1, AMP obs v1/v2, isaac_pd
-control, no far-goal, cycling, power reward, occlusion, obs noise, domain
-randomization or shape channels). A config off that surface raises
-NotImplementedError.
+control, no far-goal, cycling, power reward, occlusion, obs noise or domain
+randomization), with PHC's per-env body shapes and shape channels. A config
+off that surface raises NotImplementedError.
 
 One `step`: gather the reference at the post-step time, then
 
   * on the fused path (`_fused_step_ok`: no subclass overrides termination
-    or reset) kernel K1: physics, reward, termination distances, AMP row;
-  * else kernel K3 (physics) and kernel RA (reward, distances, AMP row on
-    the stepped state), which together compute what K1 does;
+    or reset, no shape channels, one shared model) kernel K1: physics,
+    reward, termination distances, AMP row;
+  * with per-env body shapes (`enable_shape_variation`) kernel K3-rows (the
+    physics under each env's own model) and kernel RA (reward, distances,
+    AMP row on the stepped state);
+  * else kernel K3 (physics) and kernel RA, which together compute what K1
+    does;
 
 then termination (`_termination`), the AMP history roll, the branch-free
 auto-reset merge with fresh states (`_reset_states`), and kernel K2 (the
-observation of the merged state). Random draws come from the env's
-`torch.Generator`.
+observation of the merged state). With shape channels, each env's shape
+row (gender, betas, limb weights; zeros until shapes are enabled) is
+spliced into the observation after the self obs and appended to every AMP
+row. Random draws come from the env's `torch.Generator`.
 """
 
 from __future__ import annotations
@@ -33,9 +39,11 @@ from pulse_tpu_torch.assets import load_smpl_humanoid
 from pulse_tpu_torch.env import cuda_obs, kernels
 from pulse_tpu_torch.motion.motion_lib import MotionData, get_motion_state, sample_motions, sample_time
 from pulse_tpu_torch.ops import quat as q
-from pulse_tpu_torch.physics import substep_cuda
-from pulse_tpu_torch.physics.model import Model
-from pulse_tpu_torch.physics.state import PhysicsState, physics_state_from_numpy, state_from_motion_ref
+from pulse_tpu_torch.physics import shape_variation, substep_cuda
+from pulse_tpu_torch.physics.model import Model, batched_model_from_numpy
+from pulse_tpu_torch.physics.state import (
+    PhysicsState, physics_state_from_numpy, state_from_kinematics, state_from_motion_ref,
+)
 
 DEFAULT_KEY_BODIES = ("R_Ankle", "L_Ankle", "R_Wrist", "L_Wrist")
 DEFAULT_RESET_BODIES = (
@@ -151,18 +159,29 @@ class HumanoidImEnv:
         self.config = cfg = config or EnvConfig()
         if not self._surface_ok():
             raise NotImplementedError("only the imitation step surface of the kernels (pulse_tpu _fused_step_ok) is ported")
+        if cfg.has_shape_obs_disc and not cfg.has_shape_obs:
+            raise ValueError("has_shape_obs_disc requires has_shape_obs")
         if self.device.type == "cuda" and not substep_cuda.supported(model):
             raise NotImplementedError("model outside the CUDA kernel's surface")
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
 
-        names = load_smpl_humanoid().skeleton.node_names
+        self.body_names = names = load_smpl_humanoid().skeleton.node_names
         self.key_body_ids = np.asarray([names.index(n) for n in cfg.key_bodies], np.int32)
         self.reset_body_ids = np.asarray([names.index(n) for n in cfg.reset_bodies], np.int32)
         J = model.num_bodies
         self.num_bodies = J
-        self.obs_dim = cuda_obs.obs_dim(J, cfg.root_height_obs)
-        self.amp_obs_dim_single = cuda_obs.amp_obs_dim(J, len(self.key_body_ids), cfg.amp_obs_v, cfg.root_height_obs)
+        # shape channels: [gender 1, betas 10]? [limb weights 10]? in the obs,
+        # [gender, betas]? [limb weights]? at the tail of each AMP row
+        self.shape_obs_dim = 11 * cfg.has_shape_obs + 10 * cfg.has_limb_weight_obs
+        self.shape_disc_dim = 11 * cfg.has_shape_obs_disc + 10 * cfg.has_limb_weight_obs
+        self.batched_model: Model | None = None     # per-env body shapes
+        self._shape_obs_table = None                # [N, shape_obs_dim]
+        self._model_rows_cache = None               # (batched model, its K3-rows rows)
+        self._shape_args = None                     # enable_shape_variation's, for resample_shapes
+        self.obs_dim = cuda_obs.obs_dim(J, cfg.root_height_obs, self.shape_obs_dim)
+        self.amp_obs_dim_single = cuda_obs.amp_obs_dim(J, len(self.key_body_ids), cfg.amp_obs_v, cfg.root_height_obs,
+                                                       self.shape_disc_dim)
         self.amp_obs_dim = cfg.num_amp_obs_steps * self.amp_obs_dim_single
         self.action_dim = model.num_dof
         self.consts = cuda_obs.env_consts_from(self)
@@ -183,15 +202,16 @@ class HumanoidImEnv:
             and not cfg.power_reward
             and cfg.occlusion_prob == 0
             and cfg.obs_noise_std == 0
-            and not (cfg.has_shape_obs or cfg.has_shape_obs_disc or cfg.has_limb_weight_obs)
             and cfg.track_bodies is None
         )
 
     def _fused_step_ok(self) -> bool:
-        """K1 may run the step: no subclass replaces a stage it fuses."""
+        """K1 may run the step (of a shared model): no shape channels, and no
+        subclass replaces a stage it fuses."""
         t = type(self)
         return (
             self._surface_ok()
+            and self.shape_obs_dim == 0
             and t._termination is HumanoidImEnv._termination
             and t._reset_states is HumanoidImEnv._reset_states
         )
@@ -221,7 +241,8 @@ class HumanoidImEnv:
         return motion_ids, sample_time(self.generator, self.motion, motion_ids)
 
     def _init_amp_hist(self, motion_ids: torch.Tensor, start_times: torch.Tensor) -> torch.Tensor:
-        """Discriminator window from the clip's past frames: [B, S, A]."""
+        """Discriminator window from the clip's past frames, each row ending
+        with the env's shape columns: [B, S, A]."""
         m = self.motion
         S = self.config.num_amp_obs_steps
         steps = torch.arange(S, dtype=torch.float32, device=self.device) * self.model.config.control_dt
@@ -229,15 +250,27 @@ class HumanoidImEnv:
         ids = motion_ids[:, None].expand(-1, S)
         f = torch.round(times / m.motion_dt[ids]).to(torch.long)
         f = torch.minimum(torch.clamp(f, min=0), m.motion_num_frames[ids] - 1)
-        return self.amp_frame_table[m.length_starts[ids] + f]
+        rows = self.amp_frame_table[m.length_starts[ids] + f]
+        tails = [t for t in self._disc_parts(motion_ids.shape[0]) if t is not None]
+        if not tails:
+            return rows
+        tail = torch.cat(tails, dim=-1)
+        return torch.cat([rows, tail[:, None].expand(-1, S, -1)], dim=-1)
 
     def _fresh(self, motion_ids: torch.Tensor, start_times: torch.Tensor) -> EnvState:
-        """Reference-state init onto (clip, time) pairs; obs left at zero."""
+        """Reference-state init onto (clip, time) pairs; obs left at zero.
+        With per-env shapes the motion tables' bodies (the base skeleton's)
+        do not fit, so each env's pose is FK'd through its own model."""
         B = motion_ids.shape[0]
         ref = get_motion_state(self.motion, motion_ids, start_times)
         z = torch.zeros(B, device=self.device)
+        if self.batched_model is None:
+            physics = state_from_motion_ref(self.model, ref)
+        else:
+            physics = state_from_kinematics(self.batched_model, ref["root_pos"], ref["root_rot"], ref["dof_pos"],
+                                            ref["root_vel"], ref["root_ang_vel"], ref["dof_vel"])
         return EnvState(
-            physics=state_from_motion_ref(self.model, ref),
+            physics=physics,
             motion_id=motion_ids,
             start_time=start_times,
             progress=torch.zeros(B, dtype=torch.int32, device=self.device),
@@ -268,14 +301,15 @@ class HumanoidImEnv:
         """K2 against the reference at the next control step's time."""
         t_next = self._motion_time(state.start_time, state.progress) + self.model.config.control_dt
         ref = get_motion_state(self.motion, state.motion_id, t_next)
-        return cuda_obs.observe(self.consts, state.physics, ref)
+        return cuda_obs.observe(self.consts, state.physics, ref, self._shape_obs(state.motion_id.shape[0]))
 
     # ------------------------------------------------------------------ #
     # step
     # ------------------------------------------------------------------ #
 
     def action_to_pd_target(self, actions: torch.Tensor) -> torch.Tensor:
-        return self.model.pd_action_offset + self.model.pd_action_scale * actions
+        m = self.model if self.batched_model is None else self.batched_model
+        return m.pd_action_offset + m.pd_action_scale * actions
 
     def _termination(self, state: EnvState, dist_mean: torch.Tensor, dist_max: torch.Tensor,
                      pass_time: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -296,13 +330,16 @@ class HumanoidImEnv:
         t = self._motion_time(state.start_time, progress)
         ref = get_motion_state(self.motion, state.motion_id, t)
         pd_target = self.action_to_pd_target(actions)
-        if self._fused_step_ok():
+        if self.batched_model is None and self._fused_step_ok():
             physics, reward, reward_raw, dmean, dmax, amp_row = cuda_obs.step_reward_amp(
                 self.model, self.consts, state.physics, pd_target, ref
             )
         else:
-            physics = substep_cuda.physics_step_cuda(self.model, state.physics, pd_target)
-            reward, reward_raw, dmean, dmax, amp_row = cuda_obs.reward_amp(self.consts, physics, ref)
+            B = actions.shape[0]
+            rows = None if self.batched_model is None else self._model_rows(B)
+            physics = substep_cuda.physics_step_cuda(self.model, state.physics, pd_target, model_rows=rows)
+            reward, reward_raw, dmean, dmax, amp_row = cuda_obs.reward_amp(self.consts, physics, ref,
+                                                                           *self._disc_parts(B))
 
         stepped = state.replace(
             physics=physics,
@@ -315,3 +352,74 @@ class HumanoidImEnv:
         return merged.replace(
             obs=self._observe(merged), reward=reward, reward_raw=reward_raw, done=reset, terminate=terminate
         )
+
+    # ------------------------------------------------------------------ #
+    # per-env body shapes
+    # ------------------------------------------------------------------ #
+
+    def enable_shape_variation(self, num_envs: int, scale_range=(0.9, 1.1), smpl_model=None, beta_std: float = 1.0,
+                               generator: torch.Generator | None = None) -> None:
+        """Give every env its own body shape (PHC's has_shape_variation):
+        with `smpl_model` (an `smpl.body_model.SMPLModel`) skeletons from
+        betas drawn with std `beta_std`, else isotropic scales in
+        `scale_range`, drawn from `generator` (default: the env's). Fills
+        the per-env shape rows the shape channels read: gender 0, the betas
+        (zeros for scales), the limb weights."""
+        g = self.generator if generator is None else generator
+        self._shape_args = dict(num_envs=num_envs, scale_range=scale_range, smpl_model=smpl_model, beta_std=beta_std,
+                                generator=g)
+        if smpl_model is None:
+            bm = shape_variation.vary_model_scales(self.model, num_envs, scale_range, generator=g)
+            betas = torch.zeros(num_envs, 10, device=self.device)
+        else:
+            betas = beta_std * torch.randn(num_envs, 10, generator=g, device=self.device)
+            bm = shape_variation.models_from_betas(self.model, smpl_model, betas, self.body_names)
+        parts = []
+        if self.config.has_shape_obs:
+            parts += [torch.zeros(num_envs, 1, device=self.device), betas]
+        if self.config.has_limb_weight_obs:
+            parts.append(shape_variation.limb_weight_params(bm.local_translation, bm.body_mass, self.body_names))
+        self.batched_model = bm
+        self._shape_obs_table = torch.cat(parts, dim=-1) if parts else None
+
+    def resample_shapes(self) -> None:
+        """Redraw every env's body shape in the mode enable_shape_variation
+        was called with, from the generator it drew from."""
+        if self._shape_args is None:
+            raise RuntimeError("resample_shapes before enable_shape_variation")
+        self.enable_shape_variation(**self._shape_args)
+
+    def set_shapes_from_numpy(self, leaves: dict, shape_table=None) -> None:
+        """Per-env body shapes from numpy arrays: a batched model's leaves
+        keyed by field name and the [N, shape_obs_dim] shape rows (e.g. a
+        JAX env's batched model and shape table, converted leaf by leaf)."""
+        self.batched_model = batched_model_from_numpy(self.model, leaves)
+        self._shape_obs_table = None if shape_table is None else torch.as_tensor(
+            np.array(shape_table, np.float32), device=self.device)
+
+    def _model_rows(self, B: int) -> torch.Tensor:
+        """The batched model's K3-rows rows [B, n_model], built once per
+        batched model (compared by identity: resample_shapes swaps it) and
+        kept in the kernel's [n_model, B] layout, so that the wrapper reads
+        them in place."""
+        bm = self.batched_model
+        if self._model_rows_cache is None or self._model_rows_cache[0] is not bm:
+            self._model_rows_cache = (bm, substep_cuda.build_model_rows(bm, B).t().contiguous().t())
+        return self._model_rows_cache[1]
+
+    def _shape_obs(self, B: int) -> torch.Tensor | None:
+        """[B, shape_obs_dim] shape rows (zeros before shapes are enabled),
+        or None without shape channels."""
+        if not self.shape_obs_dim:
+            return None
+        if self._shape_obs_table is None:
+            return torch.zeros(B, self.shape_obs_dim, device=self.device)
+        return self._shape_obs_table
+
+    def _disc_parts(self, B: int) -> tuple:
+        """The AMP row's shape tails: ([B, 11] gender+betas or None, [B, 10]
+        limb weights or None)."""
+        rows = self._shape_obs(B)
+        cfg = self.config
+        return (rows[:, :11] if cfg.has_shape_obs_disc else None,
+                rows[:, -10:] if cfg.has_limb_weight_obs else None)

@@ -91,6 +91,9 @@ class HumanoidImGetupEnv(HumanoidImEnv):
         st = st.replace(root_vel6=torch.zeros_like(st.root_vel6), joint_omega=torch.zeros_like(st.joint_omega))
         return refresh_kinematics(m, st)
 
+    def enable_shape_variation(self, *args, **kwargs) -> None:
+        raise NotImplementedError("shape variation with HumanoidImGetup is not ported yet (ROADMAP queue 1, item 12)")
+
     def set_getup_phase(self, past_schedule: bool) -> bool:
         """Before the schedule epoch every episode starts from a fall state
         with no recovery-episode grace; after it the configured

@@ -146,23 +146,32 @@ def _amp_parts(root_pos, root_rot, root_vel, root_ang_vel, dof_pos, dof_vel, key
     return parts, heading_inv
 
 
+def _shape_tails(shape_params, limb_weight_params) -> list:
+    return [t for t in (shape_params, limb_weight_params) if t is not None]
+
+
 def build_amp_observations_smpl(
     root_pos, root_rot, root_vel, root_ang_vel, dof_pos, dof_vel, key_body_pos,
     local_root_obs: bool = True, root_height_obs: bool = True,
+    shape_params=None, limb_weight_params=None,
 ) -> torch.Tensor:
     """AMP discriminator obs v1: [root_h?, root rot 6, local vel 3+3, dof
-    tan-norm 2D, dof vel D, local key pos 3K]."""
+    tan-norm 2D, dof vel D, local key pos 3K, shape 11?, limb 10?], the
+    tails being the given per-env [B, 11] gender+betas and [B, 10] limb
+    weights (has_shape_obs_disc / has_limb_weight_obs)."""
     parts, _ = _amp_parts(root_pos, root_rot, root_vel, root_ang_vel, dof_pos, dof_vel,
                           key_body_pos, local_root_obs, root_height_obs)
-    return torch.cat(parts, dim=-1)
+    return torch.cat(parts + _shape_tails(shape_params, limb_weight_params), dim=-1)
 
 
 def build_amp_observations_smpl_v2(
     root_pos, root_rot, root_vel, root_ang_vel, dof_pos, dof_vel, key_body_pos, key_body_vel,
     local_root_obs: bool = True, root_height_obs: bool = True,
+    shape_params=None, limb_weight_params=None,
 ) -> torch.Tensor:
-    """AMP obs v2: v1 plus heading-local key-body velocities."""
+    """AMP obs v2: v1's channels plus heading-local key-body velocities,
+    then the same shape tails."""
     parts, heading_inv = _amp_parts(root_pos, root_rot, root_vel, root_ang_vel, dof_pos, dof_vel,
                                     key_body_pos, local_root_obs, root_height_obs)
     key_vel = q.quat_rotate(heading_inv[:, None, :], key_body_vel).reshape(root_pos.shape[0], -1)
-    return torch.cat(parts + [key_vel], dim=-1)
+    return torch.cat(parts + [key_vel] + _shape_tails(shape_params, limb_weight_params), dim=-1)

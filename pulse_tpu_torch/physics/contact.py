@@ -2,7 +2,9 @@
 friction over the model's proxy points (sphere centres, capsule ends, box
 corners), batched over envs.
 
-Counterpart of `pulse_tpu/physics/contact.py` (flat plane z = 0).
+Counterpart of `pulse_tpu/physics/contact.py` (flat plane z = 0). The
+per-point leaves ([P] shared or [B, P] per-env) broadcast over the batch;
+`cp_body` is shared.
 """
 
 from __future__ import annotations

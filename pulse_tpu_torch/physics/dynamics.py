@@ -24,8 +24,8 @@ def spd_joint_torques(
     cfg = model.config
     target_rot = q.exp_map_to_quat(pd_target_dof.reshape(B, Jm1, 3))
     err = q.quat_to_exp_map(q.quat_mul_norm(q.quat_inverse(state.joint_rot), target_rot))
-    kp = model.joint_kp[:, None]
-    kd = model.joint_kd[:, None]
+    kp = model.joint_kp[..., None]     # [J-1, 1], or [B, J-1, 1] per-env
+    kd = model.joint_kd[..., None]
     tau = kp * err - (kp * h + kd) * state.joint_omega
 
     dof = q.quat_to_exp_map(state.joint_rot).reshape(B, -1)

@@ -1,7 +1,11 @@
 """Static physics model: device constants derived from a RobotSpec.
 
-Counterpart of `pulse_tpu/physics/model.py` for the flat-ground,
-shared-model case (no terrain, no self collision, no per-env shapes).
+Counterpart of `pulse_tpu/physics/model.py` for flat ground without self
+collision (no terrain, no `cap_*` capsule leaves). A model is shared by all
+envs, or batched for per-env body shapes (`physics/shape_variation.py`):
+then every array leaf except `cp_body` carries a leading env axis [B, ...],
+while the topology (`parents`, `levels`, `level_index`, `cp_body`) stays
+shared, as the JAX package's batched Model keeps it static.
 """
 
 from __future__ import annotations
@@ -53,7 +57,8 @@ class PhysicsConfig:
 
 @dataclasses.dataclass
 class Model:
-    """Tensors live on `device`; `parents`/`levels` are static python."""
+    """Tensors live on `device`; `parents`/`levels` are static python.
+    Shapes below are the shared model's; a batched model prefixes [B]."""
 
     parents: tuple
     num_bodies: int
@@ -64,6 +69,7 @@ class Model:
     body_mass: torch.Tensor            # [J]
     body_com: torch.Tensor             # [J, 3]
     spatial_inertia: torch.Tensor      # [J, 6, 6] about the body origin
+    total_mass: torch.Tensor           # [] sum of body_mass
     joint_kp: torch.Tensor             # [J-1]
     joint_kd: torch.Tensor             # [J-1]
     joint_armature: torch.Tensor       # [J-1]
@@ -71,7 +77,7 @@ class Model:
     dof_upper: torch.Tensor            # [D]
     pd_action_offset: torch.Tensor     # [D]
     pd_action_scale: torch.Tensor      # [D]
-    cp_body: torch.Tensor              # [P] long
+    cp_body: torch.Tensor              # [P] long, shared
     cp_offset: torch.Tensor            # [P, 3]
     cp_radius: torch.Tensor            # [P]
     cp_friction: torch.Tensor          # [P]
@@ -84,6 +90,38 @@ class Model:
     @property
     def num_dof(self) -> int:
         return 3 * self.num_joints
+
+    @property
+    def batched(self) -> bool:
+        """Per-env shapes: the array leaves carry a leading env axis."""
+        return self.body_mass.dim() == 2
+
+    def env_axis(self, x: torch.Tensor) -> torch.Tensor:
+        """A leaf of this model with a leading env axis: [B, ...] as stored
+        when batched, [1, ...] when shared."""
+        return x if self.batched else x[None]
+
+
+# the array leaves a batched model carries per env
+BATCHED_LEAVES = (
+    "local_translation", "body_mass", "body_com", "spatial_inertia", "total_mass", "joint_kp", "joint_kd",
+    "joint_armature", "dof_lower", "dof_upper", "pd_action_offset", "pd_action_scale", "cp_offset", "cp_radius",
+    "cp_friction",
+)
+
+
+def batched_model_from_numpy(base: Model, leaves: dict) -> Model:
+    """The batched model whose leaves are `leaves`, numpy arrays [B, ...]
+    keyed by field name (e.g. a JAX batched Model converted leaf by leaf),
+    over the topology of the shared `base`. A `cp_body` leaf, where given,
+    must repeat base's in every env."""
+    if "cp_body" in leaves:
+        cp = np.asarray(leaves["cp_body"]).reshape(-1, base.cp_body.shape[0])
+        if not (cp == base.cp_body.cpu().numpy()[None]).all():
+            raise ValueError("per-env contact-point bodies differ from the base model's")
+    return dataclasses.replace(base, **{
+        k: torch.as_tensor(np.array(leaves[k], np.float32), device=base.device) for k in BATCHED_LEAVES
+    })
 
 
 def _contact_points(spec: RobotSpec):
@@ -180,6 +218,7 @@ def build_model(spec: RobotSpec, config: PhysicsConfig | None = None, device=Non
         body_mass=up(spec.body_mass),
         body_com=up(spec.body_com),
         spatial_inertia=I_spatial.to(device),
+        total_mass=up(spec.body_mass.sum()),
         joint_kp=up(spec.joint_stiffness * config.kp_scale),
         joint_kd=up(spec.joint_damping * config.kd_scale),
         joint_armature=up(spec.joint_armature),

@@ -80,7 +80,7 @@ def refresh_kinematics(model: Model, state: PhysicsState) -> PhysicsState:
     perm_j = torch.as_tensor(meta["perm_j"], dtype=torch.long, device=dev)
     jr = state.joint_rot[:, perm_j]
     om = state.joint_omega[:, perm_j]
-    lt = model.local_translation[perm_j + 1]
+    lt = model.env_axis(model.local_translation)[:, perm_j + 1]   # [1 or B, J-1, 3]
     starts = meta["starts"]
 
     rot_lv = [state.root_rot[:, None]]
@@ -94,7 +94,7 @@ def refresh_kinematics(model: Model, state: PhysicsState) -> PhysicsState:
         p_rot = rot_lv[l - 1][:, pl]
         p_pos = pos_lv[l - 1][:, pl]
         rot_l = q.quat_mul_norm(p_rot, jr[:, s:e])
-        pos_l = p_pos + q.quat_rotate(p_rot, lt[s:e])
+        pos_l = p_pos + q.quat_rotate(p_rot, lt[:, s:e])
         r = pos_l - p_pos
         v_lv.append(v_lv[l - 1][:, pl] + q.cross(w_lv[l - 1][:, pl], r))
         w_lv.append(w_lv[l - 1][:, pl] + q.quat_rotate(rot_l, om[:, s:e]))

@@ -1,4 +1,5 @@
-"""Kernel K3, the physics control step, and what the physics kernels share.
+"""Kernels K3 and K3-rows, the physics control step, and what the physics
+kernels share.
 
 Counterpart of `pulse_tpu/physics/substep_pallas.py`:
 
@@ -6,10 +7,16 @@ Counterpart of `pulse_tpu/physics/substep_pallas.py`:
     one shared model, with no epilogue (csrc/physics_step.cu; replaces
     `pallas_physics_step` without its `model_rows`). Its plain version is
     `physics/step.py:physics_step`.
+  * K3-rows, `physics_step_cuda(..., model_rows=...)` — the same step with
+    each env's own model, read from per-env model rows
+    (`build_model_rows`, in `_model_rows_layout`'s order; replaces
+    `pallas_physics_step` with `model_rows`). Its plain version is
+    `physics_step` on the batched model the rows hold (`model_from_rows`).
   * the model as the constant table K1 and K3 read from `__constant__`
     memory (`_extract_consts`): the TPU kernel baked the model into its
     trace. The table's layout is `ModelConsts` in `csrc/physics_step.cuh`:
-    4-byte fields in declaration order, no padding.
+    4-byte fields in declaration order, no padding. K3-rows reads only the
+    topology and the config scalars from it, uploaded from the base model.
   * the `[rows, B]` layout of the kernels' inputs and outputs, and
     `physics_state_from_rows`, which K1 and K3 share.
 
@@ -19,10 +26,13 @@ launches the kernel or raises; it never falls back.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from pulse_tpu_torch import _build
+from pulse_tpu_torch.physics import spatial
 from pulse_tpu_torch.physics.model import Model
 from pulse_tpu_torch.physics.state import PhysicsState
 from pulse_tpu_torch.physics.step import physics_step
@@ -52,8 +62,8 @@ def _padded(x, shape, dtype) -> np.ndarray:
 
 
 def model_const_table(model: Model) -> bytes:
-    """Pack the model into the bytes of csrc ModelConsts."""
-    if not supported(model):
+    """Pack a shared model into the bytes of csrc ModelConsts."""
+    if not supported(model) or model.batched:
         raise NotImplementedError("model outside the CUDA kernel's surface")
     cfg = model.config
     J = model.num_bodies
@@ -141,17 +151,99 @@ def physics_state_from_rows(rows: torch.Tensor, J: int) -> PhysicsState:
     )
 
 
-def physics_step_cuda(model: Model, state: PhysicsState, pd_target: torch.Tensor) -> PhysicsState:
-    """K3. One control period of [B] humanoids under stable-PD position
-    control: the stepped state with refreshed world bodies and the
-    substep-mean contact force, as `physics_step` computes it."""
+# --------------------------------------------------------------------------- #
+# per-env model rows (K3-rows)
+# --------------------------------------------------------------------------- #
+
+def model_rows_layout(J: int, P: int) -> tuple[dict, int]:
+    """{field: (first row, end row)} and the row count of the per-env model
+    rows, in the TPU kernel's `_model_rows_layout` order. Per body, joint or
+    contact point its values are consecutive (vec3 x, y, z); `Isym` holds
+    the 6 unique entries (00, 01, 02, 11, 12, 22) of each body's A block."""
+    Jm1 = J - 1
+    rows, n = {}, 0
+    for name, k in [("lt", 3 * J), ("mass", J), ("com", 3 * J), ("Isym", 6 * J), ("kp", Jm1), ("kd", Jm1),
+                    ("armature", Jm1), ("dof_lower", 3 * Jm1), ("dof_upper", 3 * Jm1), ("cp_offset", 3 * P),
+                    ("cp_radius", P), ("cp_friction", P)]:
+        rows[name] = (n, n + k)
+        n += k
+    return rows, n
+
+
+_ISYM_IDX = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
+
+
+def build_model_rows(model: Model, B: int) -> torch.Tensor:
+    """[B, n_model] float32 per-env model rows of a batched model (a shared
+    one is broadcast to B envs)."""
+    J, P = model.num_bodies, int(model.cp_body.shape[0])
+
+    def flat(x):
+        x = model.env_axis(x).to(torch.float32)
+        return x.expand(B, *x.shape[1:]).reshape(B, -1)
+
+    A = model.spatial_inertia[..., :3, :3]
+    Isym = torch.stack([A[..., i, k] for i, k in _ISYM_IDX], dim=-1)
+    rows = torch.cat([flat(x) for x in (
+        model.local_translation, model.body_mass, model.body_com, Isym, model.joint_kp, model.joint_kd,
+        model.joint_armature, model.dof_lower, model.dof_upper, model.cp_offset, model.cp_radius,
+        model.cp_friction)], dim=1)
+    if rows.shape[1] != model_rows_layout(J, P)[1]:
+        raise ValueError(f"model rows {rows.shape[1]}, layout {model_rows_layout(J, P)[1]}")
+    return rows
+
+
+def model_from_rows(base: Model, model_rows: torch.Tensor) -> Model:
+    """The batched model that per-env model rows [B, n_model] describe, over
+    the topology, config and PD maps of `base`. As the kernel does, each
+    body's spatial inertia is rebuilt from its A block and, as
+    `spatial.spatial_inertia` builds it, B = m [c]x and C = m 1."""
+    B, J, P = model_rows.shape[0], base.num_bodies, int(base.cp_body.shape[0])
+    lay, n = model_rows_layout(J, P)
+    if model_rows.shape[1] != n:
+        raise ValueError(f"model rows {model_rows.shape[1]}, layout {n}")
+
+    def f(name, *shape):
+        a, b = lay[name]
+        return model_rows[:, a:b].reshape(B, *shape)
+
+    mass, com, s = f("mass", J), f("com", J, 3), f("Isym", J, 6)
+    A = torch.stack([s[..., [0, 1, 2]], s[..., [1, 3, 4]], s[..., [2, 4, 5]]], dim=-2)
+    Bb = mass[..., None, None] * spatial.skew(com)
+    C = mass[..., None, None] * torch.eye(3, dtype=mass.dtype, device=mass.device)
+    I6 = torch.cat([torch.cat([A, Bb], -1), torch.cat([Bb.transpose(-1, -2), C], -1)], -2)
+    return dataclasses.replace(
+        base, local_translation=f("lt", J, 3), body_mass=mass, body_com=com, spatial_inertia=I6,
+        total_mass=mass.sum(-1), joint_kp=f("kp", J - 1), joint_kd=f("kd", J - 1),
+        joint_armature=f("armature", J - 1), dof_lower=f("dof_lower", 3 * (J - 1)),
+        dof_upper=f("dof_upper", 3 * (J - 1)), pd_action_offset=base.pd_action_offset.expand(B, -1),
+        pd_action_scale=base.pd_action_scale.expand(B, -1), cp_offset=f("cp_offset", P, 3),
+        cp_radius=f("cp_radius", P), cp_friction=f("cp_friction", P),
+    )
+
+
+# --------------------------------------------------------------------------- #
+# the wrapper
+# --------------------------------------------------------------------------- #
+
+def physics_step_cuda(model: Model, state: PhysicsState, pd_target: torch.Tensor,
+                      model_rows: torch.Tensor | None = None) -> PhysicsState:
+    """K3, or K3-rows with `model_rows`. One control period of [B] humanoids
+    under stable-PD position control: the stepped state with refreshed world
+    bodies and the substep-mean contact force, as `physics_step` computes
+    it. `model` is shared; with `model_rows` ([B, n_model] from
+    `build_model_rows`) each env steps under its own model, and `model`
+    gives only the topology and the config. Rows stored as a contiguous
+    [n_model, B] block and handed over as its transpose are read in place."""
     if state.root_pos.device.type == "cpu":
+        if model_rows is not None:
+            model = model_from_rows(model, model_rows)
         return physics_step(model, state, pd_target)
     if not supported(model):
         raise NotImplementedError("model outside the CUDA kernel's surface")
     B, J = state.root_pos.shape[0], model.num_bodies
     parts = [state.root_pos, state.root_rot, state.joint_rot, state.root_vel6, state.joint_omega, pd_target]
-    dev = check_kernel_inputs(parts, B)
+    dev = check_kernel_inputs(parts + ([] if model_rows is None else [model_rows]), B)
     n_state = state_rows(J)
     lib = _build.load()
     with torch.cuda.device(dev):
@@ -159,6 +251,14 @@ def physics_step_cuda(model: Model, state: PhysicsState, pd_target: torch.Tensor
         out = torch.empty(n_state + 16 * J, B, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         _build.upload_consts("physics_step", (model,), lambda: (model_const_table(model),), dev, stream)
-        _build.check(lib.k3_physics_step(x.data_ptr(), out.data_ptr(), B, K3_BLOCK, stream), "K3 launch")
-    _build.launches["physics_step"] += 1
+        if model_rows is None:
+            _build.check(lib.k3_physics_step(x.data_ptr(), out.data_ptr(), B, K3_BLOCK, stream), "K3 launch")
+        else:
+            n_model = model_rows_layout(J, int(model.cp_body.shape[0]))[1]
+            if model_rows.shape != (B, n_model):
+                raise ValueError(f"model rows {tuple(model_rows.shape)}, expected ({B}, {n_model})")
+            m = model_rows.t().contiguous()
+            _build.check(lib.k3_physics_step_rows(x.data_ptr(), m.data_ptr(), out.data_ptr(), B, K3_BLOCK, stream),
+                         "K3-rows launch")
+    _build.launches["physics_step_rows" if model_rows is not None else "physics_step"] += 1
     return physics_state_from_rows(out.t(), J)

@@ -4,7 +4,9 @@ articulated-body algorithm's passes 2 and 3, and semi-implicit integration.
 
 Counterpart of `pulse_tpu/physics/substep_fused.py` (flat plane, stable PD).
 This plain version is the oracle of the CUDA kernel in
-`pulse_tpu_torch/csrc/physics_step.cuh`.
+`pulse_tpu_torch/csrc/physics_step.cuh`. The model may be shared or batched
+(per-env shapes): its per-body leaves are read with a leading env axis,
+[1, ...] or [B, ...], and broadcast against the [B, ...] state.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ def fused_substep(model: Model, state: PhysicsState, pd_target_dof: torch.Tensor
     ident = torch.zeros_like(state.root_rot[:, None])
     ident[..., 3] = 1.0
     q_pc = torch.cat([ident, state.joint_rot], dim=1)
-    r_off = model.local_translation
+    r_off = model.env_axis(model.local_translation)    # [1 or B, J, 3]
     omega = torch.cat([torch.zeros_like(state.joint_omega[:, :1]), state.joint_omega], dim=1)
     zeros3 = torch.zeros_like(omega)
 
@@ -43,9 +45,9 @@ def fused_substep(model: Model, state: PhysicsState, pd_target_dof: torch.Tensor
     for b, p in levels:
         p_rot = rots[:, p]
         rots[:, b] = q.quat_mul_norm(p_rot, state.joint_rot[:, b - 1])
-        poss[:, b] = poss[:, p] + q.quat_rotate(p_rot, r_off[b])
+        poss[:, b] = poss[:, p] + q.quat_rotate(p_rot, r_off[:, b])
         vJ = torch.cat([omega[:, b], zeros3[:, b]], dim=-1)
-        v[:, b] = sp.motion_to_child(q_pc[:, b], r_off[b], v[:, p]) + vJ
+        v[:, b] = sp.motion_to_child(q_pc[:, b], r_off[:, b], v[:, p]) + vJ
     c_bias = sp.cross_motion(v, torch.cat([omega, zeros3], dim=-1))
     w_world = q.quat_rotate(rots, v[..., 0:3])
     vl_world = q.quat_rotate(rots, v[..., 3:6])
@@ -54,7 +56,7 @@ def fused_substep(model: Model, state: PhysicsState, pd_target_dof: torch.Tensor
     tau, d_extra = spd_joint_torques(model, state, pd_target_dof, h)
 
     # ---- bias forces ------------------------------------------------------ #
-    f_grav_w = model.body_mass[:, None] * g
+    f_grav_w = model.body_mass[..., None] * g
     com_w = q.quat_rotate(rots, model.body_com)
     n_tot = f_ext[..., 0:3] + q.cross(com_w, f_grav_w)
     f_tot = f_ext[..., 3:6] + f_grav_w
@@ -67,16 +69,17 @@ def fused_substep(model: Model, state: PhysicsState, pd_target_dof: torch.Tensor
     Dinv_all = state.root_pos.new_zeros(B, J, 3, 3)
     u_all = state.root_pos.new_zeros(B, J, 3)
     eye3 = torch.eye(3, device=state.root_pos.device)
+    armature = model.env_axis(model.joint_armature)
     for b, p in reversed(levels):
         IA_b = IA[:, b]
         U = IA_b[..., 0:3]
-        diag = model.joint_armature[b - 1][:, None, None] * eye3 + torch.diag_embed(d_extra[:, b - 1])
+        diag = armature[:, b - 1][..., None, None] * eye3 + torch.diag_embed(d_extra[:, b - 1])
         Dinv = sp.inv3(IA_b[..., 0:3, 0:3] + diag)
         u = tau[:, b - 1] - pA[:, b, 0:3]
         Ia = IA_b - U @ Dinv @ U.transpose(-1, -2)
         pa = pA[:, b] + sp.mul_inertia(Ia, c_bias[:, b]) + (U @ (Dinv @ u[..., None]))[..., 0]
-        Ia_p = sp.inertia_to_parent(q_pc[:, b], r_off[b], Ia)
-        pa_p = sp.force_to_parent(q_pc[:, b], r_off[b], pa)
+        Ia_p = sp.inertia_to_parent(q_pc[:, b], r_off[:, b], Ia)
+        pa_p = sp.force_to_parent(q_pc[:, b], r_off[:, b], pa)
         # children summed per parent first, then added (segment_sum order)
         IA = IA + torch.zeros_like(IA).index_add_(1, p, Ia_p)
         pA = pA + torch.zeros_like(pA).index_add_(1, p, pa_p)
@@ -89,7 +92,7 @@ def fused_substep(model: Model, state: PhysicsState, pd_target_dof: torch.Tensor
     a[:, 0] = -sp.solve6_sym(IA[:, 0], pA[:, 0])
     qdd = state.root_pos.new_zeros(B, J, 3)
     for b, p in levels:
-        a_p = sp.motion_to_child(q_pc[:, b], r_off[b], a[:, p]) + c_bias[:, b]
+        a_p = sp.motion_to_child(q_pc[:, b], r_off[:, b], a[:, p]) + c_bias[:, b]
         Dinv_b = Dinv_all[:, b]
         Ut_ap = (U_all[:, b].transpose(-1, -2) @ a_p[..., None])[..., 0]
         qdd_b = (Dinv_b @ u_all[:, b, :, None])[..., 0] - (Dinv_b @ Ut_ap[..., None])[..., 0]

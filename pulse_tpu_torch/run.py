@@ -11,9 +11,10 @@ checkpoints of the train state every `save_frequency` epochs and at the end.
 With `epoch` not 0 the latest checkpoint of the experiment is restored.
 `device=cpu` runs the kernels' plain PyTorch versions on the CPU.
 
-Ported: the HumanoidIm and HumanoidImGetup tasks with `agent: ppo`. Other
-tasks, agents and options raise NotImplementedError naming the ROADMAP item
-that ports them.
+Ported: the HumanoidIm and HumanoidImGetup tasks with `agent: ppo`, and
+HumanoidIm with per-env body shapes (`env=im_shape`: isotropic scales, or
+SMPL-beta skeletons with `env.smpl_model_path`). Other tasks, agents and
+options raise NotImplementedError naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -86,8 +87,9 @@ def build_env_from_cfg(cfg, model, motion, device):
         raise ValueError(f"unknown task {task!r}")
     if bool(e.get("randomize", False)):
         raise _unported("domain randomization (env.randomize, env/domain_rand.py)", 10)
-    if bool(e.get("shape_variation", False)):
-        raise _unported("shape variation (env.shape_variation)", 12)
+    shape_variation = bool(e.get("shape_variation", False))
+    if shape_variation and task == "HumanoidImGetup":
+        raise _unported("shape variation with HumanoidImGetup", 12)
     if str(e.get("control_mode", "isaac_pd")) != "isaac_pd":
         raise _unported(f"control_mode {e['control_mode']}", 12)
     common = dict(
@@ -117,7 +119,19 @@ def build_env_from_cfg(cfg, model, motion, device):
     )
     seed = int(cfg["seed"])
     if task == "HumanoidIm":
-        return HumanoidImEnv(model, motion, EnvConfig(**common), device=device, seed=seed)
+        env = HumanoidImEnv(model, motion, EnvConfig(**common), device=device, seed=seed)
+        if shape_variation:
+            # per-env body shapes (PHC's has_shape_variation), drawn from a
+            # stream of their own as the JAX package's seed + 7 key
+            smpl = None
+            if str(e.get("smpl_model_path", "") or ""):
+                from pulse_tpu_torch.smpl.body_model import load_smpl_model
+
+                smpl = load_smpl_model(str(e["smpl_model_path"]))
+            env.enable_shape_variation(int(cfg["num_envs"]), smpl_model=smpl,
+                                       beta_std=float(e.get("shape_beta_std", 1.0)),
+                                       generator=torch.Generator(device=env.device).manual_seed(seed + 7))
+        return env
     gc = GetupConfig(
         recovery_steps=int(e.get("recovery_steps", 90)),
         recovery_episode_prob=float(e.get("recovery_episode_prob", 0.3)),

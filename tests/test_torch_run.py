@@ -62,7 +62,8 @@ def test_main_runs_env_im_in_process(tmp_path):
 @pytest.mark.parametrize("args", [
     ["test=true"], ["eval_frequency=5"], ["env.task=HumanoidImDistillGetup"], ["env.task=HumanoidImMCP"],
     ["env.task=HumanoidSpeedZ"], ["learning.agent=amp"], ["learning.agent=distill"],
-    ["env.randomize=true"], ["env.shape_variation=true"], ["env.control_mode=pd"], ["env.motion_file=x.pkl"],
+    ["env.randomize=true"], ["env=im_getup", "env.shape_variation=true"], ["env.control_mode=pd"],
+    ["env.motion_file=x.pkl"],
 ])
 def test_unported_options_raise(args, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
