@@ -7,7 +7,10 @@ Phases, each printed as one JSON line:
   device       the card, its power limit (the raw nvidia-smi line is printed
                too)
   build        nvcc of pulse_tpu_torch/csrc/*.cu for sm_90a, one process per
-               source: seconds, registers and spill bytes per kernel
+               source: seconds, registers, stack and spill bytes per kernel
+               instantiation; the physics kernels' launch geometry per
+               group size G (lanes an env): shared bytes an env and a
+               block, envs a block, resident blocks an SM
   kernels      K1 (step_reward_amp), K2 (observe), K3 (physics_step), K3-rows
                (physics_step_rows) and RA (reward_amp) against their plain
                PyTorch versions at 3072 envs, on states from a
@@ -15,13 +18,17 @@ Phases, each printed as one JSON line:
                physics steps (feet in contact); K3 -> RA against K1 on the
                same inputs; K3-rows on a vary_model_scales(0.9, 1.1) model
                against physics_step on it, and on the shared model's rows
-               against K3
-  slice        HumanoidImEnv (default EnvConfig/PhysicsConfig, 4 synthetic
+               against K3; K1, K3 and K3-rows on a ragged batch of 13 envs
+               against the full batch's first 13, bit for bit, and K1 and
+               K3 writing nothing past the batch
+  slice       HumanoidImEnv (default EnvConfig/PhysicsConfig, 4 synthetic
                clips, 3072 envs) acting for 32 steps under the 2048-1536-1024
                ActorCritic in bf16 autocast; K1 and K2 must launch exactly 32
                times, obs/reward finite, reward in [0, 1], some auto-reset
   timing       env steps/s with the policy acting and with random actions;
-               K1's and K2's ms and their plain versions' (CUDA events)
+               K1's and K2's ms and their plain versions' (CUDA events); K1
+               at the chosen G and at G = 1 in turns (1, G, G, 1), and the
+               max abs difference of their outputs
   train_im     `python -m pulse_tpu_torch.run env=im learning=im_ppo
                num_envs=3072` for 2 epochs through run.main: finite losses,
                changed parameters, obs_rms.count grown by 32 * 3072 an epoch,
@@ -52,13 +59,16 @@ Phases, each printed as one JSON line:
                steps (8 launches each of K3-rows, RA and K2), then K3-rows
                against physics_step on the env's state
   The training phases time rollout, GAE and update (epochs after the first)
-  and the training env steps/s; then K3's, K3-rows' and RA's ms and their
-  plain versions'.
+  and the training env steps/s; then K3's (3072 and 256 envs), K3-rows' and
+  RA's ms and their plain versions', K3 and K3-rows at the chosen G and at
+  G = 1 in turns with the max abs difference of their outputs, and every
+  built G's time for K1, K3 and K3-rows (group_sweep).
 Then the kernels' JSON line, the card's nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed check exits non-zero before the
 last line. Exits non-zero without CUDA or without the package beside it.
 """
 
+import ctypes
 import dataclasses
 import json
 import math
@@ -87,6 +97,7 @@ K2_TOL = 1e-3
 PHYS_FIELDS = ("root_pos", "root_rot", "joint_rot", "root_vel6", "joint_omega", "body_pos", "body_rot", "body_vel",
                "body_ang_vel", "contact_force")
 OUTLIER_FRAC = 0.01
+RAGGED = 13                     # a batch whose last block of 8 envs holds 5
 SETTLE_CHECK_STEP = 8           # the mid-settle step (in contact) where K3 is measured
 
 
@@ -189,6 +200,13 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def in_turns(time_a, time_b) -> tuple[list, list]:
+    """Two timings compared in one call, in turns a, b, b, a: ([a, a], [b, b])."""
+    a1, b1 = time_a(), time_b()
+    b2, a2 = time_b(), time_a()
+    return [a1, a2], [b1, b2]
+
+
 def compare(got, want, tol: float, n_envs: int) -> dict:
     """Max / median abs error over [B, ...] tensors and the count of envs
     whose error exceeds tol anywhere."""
@@ -243,6 +261,7 @@ def main() -> int:
     from pulse_tpu_torch.physics.shape_variation import vary_model_scales
     from pulse_tpu_torch.physics.step import physics_step
 
+    GROUP = substep_cuda.GROUP
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -258,8 +277,20 @@ def main() -> int:
 
     # ---- build ---------------------------------------------------------------- #
     t0 = time.perf_counter()
-    _build.load()
-    emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 2), **_build.build_report})
+    lib = _build.load()
+    build_s = time.perf_counter() - t0
+
+    def geometry(info_fn, *args) -> dict:
+        info = (ctypes.c_int * 4)()
+        _build.check(info_fn(*args, info), "kernel info")
+        return {"threads_per_block": info[0], "envs_per_block": info[1], "shared_bytes_per_block": info[2],
+                "blocks_per_sm": info[3]}
+
+    work = int(lib.k3_work_bytes())
+    emit({"phase": "build", "seconds": round(build_s, 2), **_build.build_report, "group": GROUP,
+          "shared_bytes_per_env": {"K1": work, "K3": work, "K3rows": work + 4 * 13 * substep_cuda.MAX_J},
+          "geometry": {g_: {"K1": geometry(lib.k1_kernel_info, g_), "K3": geometry(lib.k3_kernel_info, g_, 0),
+                            "K3rows": geometry(lib.k3_kernel_info, g_, 1)} for g_ in substep_cuda.BUILT_GROUPS}})
 
     # ---- set-up: model, motion, env, states ---------------------------------- #
     spec = load_smpl_humanoid()
@@ -299,7 +330,31 @@ def main() -> int:
         p3r = physics_step(bm, state.physics, pd)
         k3r_shared = substep_cuda.physics_step_cuda(model, state.physics, pd,
                                                     model_rows=substep_cuda.build_model_rows(model, N_ENVS))
+        # a ragged batch of RAGGED envs (the last block part-filled) against
+        # the full batch's first RAGGED, bit for bit; then K1 and K3 raw into
+        # buffers one block longer, whose rows past the batch must stay NaN
+        st_r = dataclasses.replace(state.physics, **{f.name: getattr(state.physics, f.name)[:RAGGED]
+                                                     for f in dataclasses.fields(state.physics)})
+        ref_r = {k: v[:RAGGED] for k, v in ref.items()}
+        rag1 = cuda_obs.step_reward_amp(model, e, st_r, pd[:RAGGED], ref_r)
+        rag3 = substep_cuda.physics_step_cuda(model, st_r, pd[:RAGGED])
+        rag3r = substep_cuda.physics_step_cuda(model, st_r, pd[:RAGGED], model_rows=bm_rows[:RAGGED])
+        k3_parts = [st_r.root_pos, st_r.root_rot, st_r.joint_rot, st_r.root_vel6, st_r.joint_omega, pd[:RAGGED]]
+        n_k1_out = 174 + 16 * model.num_bodies + cuda_obs.RA_ROWS + env.amp_obs_dim_single
+        pad1 = torch.full((RAGGED + 8, n_k1_out), float("nan"), device=dev)
+        pad3 = torch.full((RAGGED + 8, 174 + 16 * model.num_bodies), float("nan"), device=dev)
+        stream0 = torch.cuda.current_stream().cuda_stream
+        _build.check(lib.k1_step_reward_amp(substep_cuda.env_block(k3_parts + cuda_obs._bodies(ref_r), RAGGED, 555)
+                                            .data_ptr(), pad1.data_ptr(), RAGGED, n_k1_out, GROUP, stream0), "K1")
+        _build.check(lib.k3_physics_step(substep_cuda.env_block(k3_parts, RAGGED, 243).data_ptr(), pad3.data_ptr(),
+                                         RAGGED, GROUP, stream0), "K3")
     torch.cuda.synchronize()
+    ragged = {"K1": max(float((getattr(rag1[0], f) - getattr(k1[0], f)[:RAGGED]).abs().max()) for f in PHYS_FIELDS),
+              "K1_epilogue": max(float((a - b[:RAGGED]).abs().max()) for a, b in zip(rag1[1:], k1[1:])),
+              "K3": max(float((getattr(rag3, f) - getattr(k3, f)[:RAGGED]).abs().max()) for f in PHYS_FIELDS),
+              "K3rows": max(float((getattr(rag3r, f) - getattr(k3r, f)[:RAGGED]).abs().max()) for f in PHYS_FIELDS),
+              "K1_rows_past_batch_untouched": bool(torch.isnan(pad1[RAGGED:]).all()),
+              "K3_rows_past_batch_untouched": bool(torch.isnan(pad3[RAGGED:]).all())}
     kin_phys, kin_pd, kin_ref = state.physics, pd, ref   # K3's and RA's timing inputs
     names = ("reward", "reward_raw", "dist_mean", "dist_max", "amp")
     phys = PHYS_FIELDS
@@ -325,7 +380,7 @@ def main() -> int:
           "K3rows_vs_plain_scaled_model": k3r_cmp, "envs_in_contact_scaled_model": in_contact_rows,
           "body_scale_range": [float(bm.total_mass.min() / model.total_mass) ** (1 / 3),
                                float(bm.total_mass.max() / model.total_mass) ** (1 / 3)],
-          "K3rows_shared_rows_vs_K3": k3r_shared_cmp})
+          "K3rows_shared_rows_vs_K3": k3r_shared_cmp, f"ragged_{RAGGED}_envs_vs_full_batch": ragged})
     allowed = int(OUTLIER_FRAC * N_ENVS)
     for label, cmps, limit in (("K1", k1_cmp, allowed), ("K1 epilogue", epi_cmp, 0), ("K3", k3_cmp, allowed),
                                ("RA", ra_cmp, 0), ("K3 -> RA vs K1", k3ra_vs_k1, 0),
@@ -338,6 +393,9 @@ def main() -> int:
         fail(f"K2: {k2_cmp['outlier_envs']} envs beyond {K2_TOL} (max {k2_cmp['max']})")
     if in_contact == 0 or in_contact_rows == 0:
         fail("no env in ground contact: the contact path was not exercised")
+    untouched = ragged["K1_rows_past_batch_untouched"] and ragged["K3_rows_past_batch_untouched"]
+    if not untouched or any(v != 0.0 for k, v in ragged.items() if not k.endswith("untouched")):
+        fail(f"a ragged batch differs from the full one or writes past its end: {ragged}")
 
     # ---- the slice: 32 policy-acting steps ------------------------------------ #
     net = ActorCritic(env.obs_dim, env.action_dim, device=dev, seed=0)
@@ -407,27 +465,33 @@ def main() -> int:
             st_p, s = window(act, st_p)
             policy_windows.append(s)
 
-        # raw kernel launches on prepared [rows, B] buffers (the wrappers'
-        # counts are untouched: these are measurement launches)
-        lib = _build.load()
+        # raw kernel launches on prepared buffers, K1's env-major, K2's
+        # [rows, B] (the wrappers' counts are untouched: these are
+        # measurement launches)
         stream = torch.cuda.current_stream().cuda_stream
         ph = state.physics
         J, Jm1 = model.num_bodies, model.num_joints
-        x1 = substep_cuda.rows_block([ph.root_pos, ph.root_rot, ph.joint_rot, ph.root_vel6, ph.joint_omega, pd]
-                                     + cuda_obs._bodies(ref), N_ENVS, 174 + 69 + 13 * J)
+        x1 = substep_cuda.env_block([ph.root_pos, ph.root_rot, ph.joint_rot, ph.root_vel6, ph.joint_omega, pd]
+                                    + cuda_obs._bodies(ref), N_ENVS, 174 + 69 + 13 * J)
         n_amp = cuda_obs.amp_obs_dim(J, len(e.key_ids), e.amp_v, e.root_height_obs)
-        o1 = torch.empty(174 + 16 * J + 7 + n_amp, N_ENVS, device=dev)
+        n_out1 = 174 + 16 * J + 7 + n_amp
+        o1, o1_one = torch.empty(N_ENVS, n_out1, device=dev), torch.empty(N_ENVS, n_out1, device=dev)
         x2 = substep_cuda.rows_block([ph.body_pos, ph.body_rot, ph.body_vel, ph.body_ang_vel]
                                      + cuda_obs._bodies(ref), N_ENVS, 26 * J)
         o2 = torch.empty(env.obs_dim, N_ENVS, device=dev)
-        k1_ms = cuda_ms(lambda: _build.check(lib.k1_step_reward_amp(
-            x1.data_ptr(), o1.data_ptr(), N_ENVS, cuda_obs.K1_BLOCK, stream), "K1"), 20)
+
+        def k1_launch(group, out=o1, x=x1, n=N_ENVS):
+            return lambda: _build.check(lib.k1_step_reward_amp(x.data_ptr(), out.data_ptr(), n, n_out1, group,
+                                                               stream), "K1")
+
+        k1_launch(1, o1_one)()
+        k1_launch(GROUP)()
+        k1_one_vs_group = float((o1 - o1_one).abs().max())
+        k1_ms_one, k1_ms_group = in_turns(lambda: cuda_ms(k1_launch(1), 20), lambda: cuda_ms(k1_launch(GROUP), 20))
+        k1_ms = sum(k1_ms_group) / 2
         k2_ms = cuda_ms(lambda: _build.check(lib.k2_observe(
             x2.data_ptr(), o2.data_ptr(), N_ENVS, J, int(e.local_root_obs), int(e.root_height_obs),
             cuda_obs.K2_BLOCK, stream), "K2"), 100)
-        # two warps a block put 3072 envs on 48 SMs instead of 96
-        k1_ms_block64 = cuda_ms(lambda: _build.check(lib.k1_step_reward_amp(
-            x1.data_ptr(), o1.data_ptr(), N_ENVS, 64, stream), "K1"), 20)
         k1_plain_ms = cuda_ms(lambda: cuda_obs.step_reward_amp_plain(model, e, ph, pd, ref), 3)
         k2_plain_ms = cuda_ms(lambda: cuda_obs.observe_plain(e, ph, ref), 10)
         k1_wrap_ms = cuda_ms(lambda: cuda_obs.step_reward_amp(model, e, ph, pd, ref), 20)
@@ -452,7 +516,7 @@ def main() -> int:
 
     step_ms_policy = 1e3 * median(policy_windows) / HORIZON
     k1_bound, k1_by = bound_ms(
-        4.0 * N_ENVS * (x1.shape[0] + o1.shape[0]),
+        4.0 * N_ENVS * (x1.shape[1] + o1.shape[1]),
         N_ENVS * k1_ops_per_env(J, int(model.cp_body.shape[0]), model.config.steps_per_control,
                                 len(e.reset_ids), len(e.key_ids), e.amp_v))
     k2_bound, k2_by = bound_ms(4.0 * N_ENVS * (x2.shape[0] + o2.shape[0]), N_ENVS * k2_ops_per_env(J))
@@ -462,7 +526,8 @@ def main() -> int:
           "env_steps_per_s_policy_windows": steps_per_s(policy_windows),
           "env_steps_per_s_random_windows": steps_per_s(random_windows),
           "step_ms_policy": step_ms_policy, "step_ms_random_actions": 1e3 * median(random_windows) / HORIZON,
-          "K1_ms": k1_ms, "K1_ms_block64": k1_ms_block64, "K2_ms": k2_ms,
+          "K1_ms": k1_ms, f"K1_ms_G{GROUP}_turns": k1_ms_group, "K1_ms_G1_turns": k1_ms_one,
+          f"K1_max_abs_diff_G{GROUP}_vs_G1": k1_one_vs_group, "K2_ms": k2_ms,
           "K1_wrapper_ms": k1_wrap_ms, "K2_wrapper_ms": k2_wrap_ms,
           "device_kernels_per_step": kernels_per_step, "device_busy_ms_per_step": device_ms_per_step,
           "device_idle_share": (1.0 - device_ms_per_step / step_ms_policy) if device_ms_per_step else None,
@@ -724,41 +789,67 @@ def main() -> int:
         n_amp = cuda_obs.amp_obs_dim(J, len(e.key_ids), e.amp_v, e.root_height_obs)
         k3_in = [kin_phys.root_pos, kin_phys.root_rot, kin_phys.joint_rot, kin_phys.root_vel6, kin_phys.joint_omega,
                  kin_pd]
-        x3 = substep_cuda.rows_block(k3_in, N_ENVS, 174 + 69)
-        o3 = torch.empty(174 + 16 * J, N_ENVS, device=dev)
-        x3_fall = substep_cuda.rows_block([t_[:n_fall] for t_ in k3_in], n_fall, 174 + 69)
+        x3 = substep_cuda.env_block(k3_in, N_ENVS, 174 + 69)
+        o3, o3_one = torch.empty(N_ENVS, 174 + 16 * J, device=dev), torch.empty(N_ENVS, 174 + 16 * J, device=dev)
+        x3_fall = substep_cuda.env_block([t_[:n_fall] for t_ in k3_in], n_fall, 174 + 69)
         xr = substep_cuda.rows_block([k3.body_pos, k3.body_rot, k3.body_vel, k3.body_ang_vel, k3.joint_rot,
                                       k3.joint_omega] + cuda_obs._bodies(kin_ref), N_ENVS, 785)
         o_ra = torch.empty(cuda_obs.RA_ROWS + n_amp, N_ENVS, device=dev)
         # the wrappers upload this model's and env's tables to K3's and RA's units
         substep_cuda.physics_step_cuda(model, kin_phys, kin_pd)
         cuda_obs.reward_amp(e, k3, kin_ref)
-        k3_ms = cuda_ms(lambda: _build.check(lib.k3_physics_step(
-            x3.data_ptr(), o3.data_ptr(), N_ENVS, substep_cuda.K3_BLOCK, stream), "K3"), 20)
-        k3_ms_fall = cuda_ms(lambda: _build.check(lib.k3_physics_step(
-            x3_fall.data_ptr(), o3.data_ptr(), n_fall, substep_cuda.K3_BLOCK, stream), "K3"), 20)
+        m_rows = bm_rows.contiguous()
+
+        def k3_launch(group, out=o3, x=x3, n=N_ENVS):
+            return lambda: _build.check(lib.k3_physics_step(x.data_ptr(), out.data_ptr(), n, group, stream), "K3")
+
+        def k3r_launch(group, out=o3):
+            return lambda: _build.check(lib.k3_physics_step_rows(x3.data_ptr(), m_rows.data_ptr(), out.data_ptr(),
+                                                                 N_ENVS, group, stream), "K3-rows")
+
+        # the chosen G against one lane an env: outputs, then times in turns
+        one_vs_group = {}
+        for name, launch in (("K3", k3_launch), ("K3rows", k3r_launch)):
+            launch(1, o3_one)()
+            launch(GROUP)()
+            one_vs_group[name] = float((o3 - o3_one).abs().max())
+        k3_launch(1, o3_one, x3_fall, n_fall)()
+        k3_launch(GROUP, o3, x3_fall, n_fall)()
+        one_vs_group["K3_256_envs"] = float((o3[:n_fall] - o3_one[:n_fall]).abs().max())
+        k3_ms_one, k3_ms_group = in_turns(lambda: cuda_ms(k3_launch(1), 20), lambda: cuda_ms(k3_launch(GROUP), 20))
+        k3f_ms_one, k3f_ms_group = in_turns(lambda: cuda_ms(k3_launch(1, o3, x3_fall, n_fall), 20),
+                                            lambda: cuda_ms(k3_launch(GROUP, o3, x3_fall, n_fall), 20))
+        k3r_ms_one, k3r_ms_group = in_turns(lambda: cuda_ms(k3r_launch(1), 20), lambda: cuda_ms(k3r_launch(GROUP), 20))
+        k3_ms, k3_ms_fall, k3r_ms = (sum(t_) / 2 for t_ in (k3_ms_group, k3f_ms_group, k3r_ms_group))
         ra_ms = cuda_ms(lambda: _build.check(lib.ra_reward_amp(
             xr.data_ptr(), o_ra.data_ptr(), N_ENVS, cuda_obs.RA_BLOCK, stream), "RA"), 100)
-        m_rows = bm_rows.t().contiguous()
-        k3r_ms = cuda_ms(lambda: _build.check(lib.k3_physics_step_rows(
-            x3.data_ptr(), m_rows.data_ptr(), o3.data_ptr(), N_ENVS, substep_cuda.K3_BLOCK, stream), "K3-rows"), 20)
+        # every built G, once each (the choice of GROUP)
+        sweep = {g_: {"K1_ms": cuda_ms(k1_launch(g_), 10), "K3_ms": cuda_ms(k3_launch(g_), 10),
+                      "K3_ms_256_envs": cuda_ms(k3_launch(g_, o3, x3_fall, n_fall), 10),
+                      "K3rows_ms": cuda_ms(k3r_launch(g_), 10)} for g_ in substep_cuda.BUILT_GROUPS}
         k3r_plain_ms = cuda_ms(lambda: physics_step(bm, kin_phys, kin_pd), 3)
         k3r_wrap_ms = cuda_ms(lambda: substep_cuda.physics_step_cuda(model, kin_phys, kin_pd, model_rows=bm_rows), 20)
         k3_plain_ms = cuda_ms(lambda: physics_step(model, kin_phys, kin_pd), 3)
         ra_plain_ms = cuda_ms(lambda: cuda_obs.reward_amp_plain(e, k3, kin_ref), 10)
         k3_wrap_ms = cuda_ms(lambda: substep_cuda.physics_step_cuda(model, kin_phys, kin_pd), 20)
         ra_wrap_ms = cuda_ms(lambda: cuda_obs.reward_amp(e, k3, kin_ref), 20)
-    k3_bound, k3_by = bound_ms(4.0 * N_ENVS * (x3.shape[0] + o3.shape[0]), N_ENVS * physics_ops_per_env(J, P, n_sub))
-    k3r_bound, k3r_by = bound_ms(4.0 * N_ENVS * (x3.shape[0] + m_rows.shape[0] + o3.shape[0]),
+    k3_bound, k3_by = bound_ms(4.0 * N_ENVS * (x3.shape[1] + o3.shape[1]), N_ENVS * physics_ops_per_env(J, P, n_sub))
+    k3r_bound, k3r_by = bound_ms(4.0 * N_ENVS * (x3.shape[1] + m_rows.shape[1] + o3.shape[1]),
                                  N_ENVS * rows_ops_per_env(J, P, n_sub))
     ra_bound, ra_by = bound_ms(4.0 * N_ENVS * (xr.shape[0] + o_ra.shape[0]),
                                N_ENVS * epilogue_ops_per_env(J, len(e.reset_ids), len(e.key_ids), e.amp_v))
     emit({"phase": "timing_k3_ra", "card": card, "envs": N_ENVS, "K3_ms": k3_ms, "K3_ms_256_envs": k3_ms_fall,
-          "K3rows_ms": k3r_ms, "RA_ms": ra_ms, "K3_plain_ms": k3_plain_ms, "K3rows_plain_ms": k3r_plain_ms,
+          "K3rows_ms": k3r_ms, "RA_ms": ra_ms, "group": GROUP,
+          f"K3_ms_G{GROUP}_turns": k3_ms_group, "K3_ms_G1_turns": k3_ms_one,
+          f"K3_ms_256_envs_G{GROUP}_turns": k3f_ms_group, "K3_ms_256_envs_G1_turns": k3f_ms_one,
+          f"K3rows_ms_G{GROUP}_turns": k3r_ms_group, "K3rows_ms_G1_turns": k3r_ms_one,
+          f"max_abs_diff_G{GROUP}_vs_G1": one_vs_group,
+          "K3_plain_ms": k3_plain_ms, "K3rows_plain_ms": k3r_plain_ms,
           "RA_plain_ms": ra_plain_ms, "K3_wrapper_ms": k3_wrap_ms, "K3rows_wrapper_ms": k3r_wrap_ms,
           "RA_wrapper_ms": ra_wrap_ms, "K3_bound_ms": k3_bound, "K3rows_bound_ms": k3r_bound, "RA_bound_ms": ra_bound,
           "physics_ops_per_env": physics_ops_per_env(J, P, n_sub), "rows_ops_per_env": rows_ops_per_env(J, P, n_sub),
           "epilogue_ops_per_env": epilogue_ops_per_env(J, len(e.reset_ids), len(e.key_ids), e.amp_v)})
+    emit({"phase": "group_sweep", "card": card, "envs": N_ENVS, "group": GROUP, "ms": sweep})
 
     src = "pulse_tpu_torch/csrc/"
     emit({"kernels": [

@@ -74,14 +74,26 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def kernel_label(mangled: str) -> str:
+    """A template kernel's mangled name as `name<G,View>`, e.g.
+    `_Z19physics_step_kernelILi8ELb1EEvPKfS1_Pfi` -> `physics_step_kernel<8,1>`."""
+    m = re.match(r"_Z(\d+)(\w+)", mangled)
+    if not m:
+        return mangled
+    n = int(m.group(1))
+    name, rest = m.group(2)[:n], m.group(2)[n:]
+    args = re.findall(r"L[ib](\d+)E", rest) if rest.startswith("I") else []
+    return f"{name}<{','.join(args)}>" if args else name
+
+
 def _parse_ptxas(text: str) -> dict:
     """Registers, spill stores/loads and stack frame per kernel from
-    `-Xptxas -v` output."""
+    `-Xptxas -v` output, keyed by `kernel_label`."""
     out, name = {}, None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name = m.group(1)
+            name = kernel_label(m.group(1))
             out[name] = {}
         elif name and "stack frame" in line:
             m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -97,7 +109,8 @@ def _parse_ptxas(text: str) -> dict:
 
 def build() -> Path:
     """Compile and link the kernels if this checkout has not yet; return
-    the library's path. Raises with nvcc's output if a compile fails."""
+    the library's path. Raises with nvcc's output of every source that
+    fails to compile."""
     lib_path = BUILD_DIR / f"libpulse_kernels_{_digest()}.so"
     if lib_path.exists():
         return lib_path
@@ -109,13 +122,15 @@ def build() -> Path:
         obj = BUILD_DIR / f"{src.stem}_{_digest()}.o"
         cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
         procs.append((src, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    objs, logs = [], []
+    objs, logs, failed = [], [], []
     for src, obj, proc in procs:
         log, _ = proc.communicate()
         logs.append(log)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src.name}:\n{log}")
+            failed.append(f"nvcc failed on {src.name}:\n{log}")
         objs.append(str(obj))
+    if failed:
+        raise RuntimeError("\n".join(failed))
     tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
     link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *objs], capture_output=True, text=True)
     if link.returncode != 0:
@@ -136,12 +151,15 @@ def load() -> ctypes.CDLL:
             lib.k1_model_consts_bytes.argtypes, lib.k1_model_consts_bytes.restype = [], sz
             lib.k1_env_consts_bytes.argtypes, lib.k1_env_consts_bytes.restype = [], sz
             lib.k1_set_consts.argtypes, lib.k1_set_consts.restype = [vp, sz, vp, sz, vp], i
-            lib.k1_step_reward_amp.argtypes, lib.k1_step_reward_amp.restype = [vp, vp, i, i, vp], i
+            lib.k1_step_reward_amp.argtypes, lib.k1_step_reward_amp.restype = [vp, vp, i, i, i, vp], i
+            lib.k1_kernel_info.argtypes, lib.k1_kernel_info.restype = [i, ctypes.POINTER(i)], i
             lib.k2_observe.argtypes, lib.k2_observe.restype = [vp, vp, i, i, i, i, i, vp], i
             lib.k3_model_consts_bytes.argtypes, lib.k3_model_consts_bytes.restype = [], sz
             lib.k3_set_consts.argtypes, lib.k3_set_consts.restype = [vp, sz, vp], i
+            lib.k3_work_bytes.argtypes, lib.k3_work_bytes.restype = [], sz
             lib.k3_physics_step.argtypes, lib.k3_physics_step.restype = [vp, vp, i, i, vp], i
             lib.k3_physics_step_rows.argtypes, lib.k3_physics_step_rows.restype = [vp, vp, vp, i, i, vp], i
+            lib.k3_kernel_info.argtypes, lib.k3_kernel_info.restype = [i, i, ctypes.POINTER(i)], i
             lib.ra_env_consts_bytes.argtypes, lib.ra_env_consts_bytes.restype = [], sz
             lib.ra_set_consts.argtypes, lib.ra_set_consts.restype = [vp, sz, vp], i
             lib.ra_reward_amp.argtypes, lib.ra_reward_amp.restype = [vp, vp, i, i, vp], i

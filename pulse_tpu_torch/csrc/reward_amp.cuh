@@ -32,11 +32,23 @@ constexpr int kRaRows = 7;
 
 // Stepped world bodies pos/rot/vel/ang [J] and joint rotations / angular
 // velocities [J-1]; `ref` holds the reference bodies (pos 3J | rot 4J | vel
-// 3J | ang 3J, body-minor). Writes the output rows through `out`.
+// 3J | ang 3J, body-minor). Writes the output rows through `out`. Lane
+// `lane` of `lanes` (K1's group; RA runs one lane) writes the AMP row's dof
+// tan-norms of its joints j = lane, lane + lanes, ...; lane 0 writes all
+// other rows. Every row is computed the same way whatever the split.
 HD void reward_amp(const EnvConsts& c, const V3* pos, const Q4* rot, const V3* vel, const V3* ang,
-                   const Q4* jrot, const V3* omega, RowsIn ref, RowsOut out) {
+                   const Q4* jrot, const V3* omega, RowsIn ref, RowsOut out, int lane = 0, int lanes = 1) {
   const int J = c.J, Jm1 = J - 1;
   const int rp = 0, rr = 3 * J, rv = 7 * J, ra = 10 * J;
+  // AMP row: [root height] | root tan-norm 6 | root vel 3 | root ang 3 | dof
+  // tan-norms 6(J-1) | dof velocities 3(J-1) | key positions | [key vels]
+  const int o_dof = kRaRows + (c.root_height_obs ? 1 : 0) + 12;
+  float tn[6];
+  for (int j = lane; j < Jm1; j += lanes) {  // dof_to_obs_smpl of the exp-map dof
+    tan_norm(expmap_to_quat(quat_to_expmap(jrot[j])), tn);
+    for (int k = 0; k < 6; ++k) out(o_dof + 6 * j + k, tn[k]);
+  }
+  if (lane != 0) return;
 
   // ---- imitation reward (env/kernels.py compute_imitation_reward) -------- //
   float pos_sq = 0.0f, rot_sq = 0.0f, vel_sq = 0.0f, ang_sq = 0.0f;
@@ -72,7 +84,6 @@ HD void reward_amp(const EnvConsts& c, const V3* pos, const Q4* rot, const V3* v
 
   // ---- AMP row (build_amp_observations_smpl / _v2) ------------------------ //
   int o = kRaRows;
-  float tn[6];
   const V3 root_pos = pos[0];
   const Q4 root_rot = rot[0];
   const Q4 hinv = zrot(-heading(root_rot));
@@ -82,10 +93,7 @@ HD void reward_amp(const EnvConsts& c, const V3* pos, const Q4* rot, const V3* v
   const V3 lv = qrot(hinv, vel[0]), la = qrot(hinv, ang[0]);
   out(o++, lv.x); out(o++, lv.y); out(o++, lv.z);
   out(o++, la.x); out(o++, la.y); out(o++, la.z);
-  for (int j = 0; j < Jm1; ++j) {  // dof_to_obs_smpl of the exp-map dof
-    tan_norm(expmap_to_quat(quat_to_expmap(jrot[j])), tn);
-    for (int k = 0; k < 6; ++k) out(o++, tn[k]);
-  }
+  o = o_dof + 6 * Jm1;
   for (int j = 0; j < Jm1; ++j) {
     out(o++, omega[j].x); out(o++, omega[j].y); out(o++, omega[j].z);
   }

@@ -23,9 +23,11 @@ A wrapper given CPU tensors runs the plain version. Given CUDA tensors it
 launches the kernel or raises; it never falls back. `_build.launches`
 counts the kernel launches of each wrapper.
 
-Kernel layout: inputs and outputs are [rows, B] float32 (one row per
-scalar of the per-env record), so neighbouring threads read neighbouring
-addresses. The wrapper builds that layout from the [B, ...] tensors.
+Kernel layouts, built by the wrappers from the [B, ...] tensors: K1's
+records are env-major [B, rows] float32, as K3's (a group of lanes steps
+one env and reads and writes its record contiguously); RA and K2, one
+thread per env, take [rows, B] (one row per scalar of the per-env record),
+so neighbouring threads read neighbouring addresses.
 """
 
 from __future__ import annotations
@@ -41,13 +43,10 @@ from pulse_tpu_torch.physics import substep_cuda
 from pulse_tpu_torch.physics.model import Model
 from pulse_tpu_torch.physics.state import PhysicsState, dof_pos_from_state, dof_vel_from_state
 from pulse_tpu_torch.physics.step import physics_step
-from pulse_tpu_torch.physics.substep_cuda import check_kernel_inputs, physics_state_from_rows, rows_block
+from pulse_tpu_torch.physics.substep_cuda import check_kernel_inputs, env_block, physics_state_from_rows, rows_block
 
 MAX_KEY = 8           # csrc/reward_amp.cuh MAX_KEY
 RA_ROWS = 7           # csrc/reward_amp.cuh kRaRows: reward, 4 raws, dist mean, dist max
-# K1 threads per block (at most its __launch_bounds__(64)): one warp a block
-# spreads 3072 envs over 96 SMs; 8% faster than 64 on the H100 (PERF.md)
-K1_BLOCK = 32
 K2_BLOCK = 128        # matches __launch_bounds__(128)
 RA_BLOCK = 128        # matches __launch_bounds__(128)
 
@@ -194,15 +193,16 @@ def step_reward_amp(model: Model, e: EnvConsts, state: PhysicsState, pd_target: 
     n_out = n_state + 16 * J + RA_ROWS + amp_obs_dim(J, len(e.key_ids), e.amp_v, e.root_height_obs)
     lib = _build.load()
     with torch.cuda.device(dev):
-        x = rows_block(parts + _bodies(ref), B, n_in)
-        out = torch.empty(n_out, B, device=dev)
+        x = env_block(parts + _bodies(ref), B, n_in)
+        out = torch.empty(B, n_out, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         _build.upload_consts("step_reward_amp", (model, e),
                              lambda: (substep_cuda.model_const_table(model), e.table()), dev, stream)
-        _build.check(lib.k1_step_reward_amp(x.data_ptr(), out.data_ptr(), B, K1_BLOCK, stream), "K1 launch")
+        # K3's G, so that K3 -> RA gives K1's bits
+        _build.check(lib.k1_step_reward_amp(x.data_ptr(), out.data_ptr(), B, n_out, substep_cuda.GROUP, stream),
+                     "K1 launch")
     _build.launches["step_reward_amp"] += 1
-    rows = out.t()
-    return (physics_state_from_rows(rows, J),) + _split_reward_amp(rows[:, n_state + 16 * J :])
+    return (physics_state_from_rows(out, J),) + _split_reward_amp(out[:, n_state + 16 * J :])
 
 
 def _split_reward_amp(ra: torch.Tensor):

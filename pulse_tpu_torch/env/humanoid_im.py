@@ -399,12 +399,11 @@ class HumanoidImEnv:
 
     def _model_rows(self, B: int) -> torch.Tensor:
         """The batched model's K3-rows rows [B, n_model], built once per
-        batched model (compared by identity: resample_shapes swaps it) and
-        kept in the kernel's [n_model, B] layout, so that the wrapper reads
-        them in place."""
+        batched model (compared by identity: resample_shapes swaps it),
+        contiguous as the kernel reads them."""
         bm = self.batched_model
         if self._model_rows_cache is None or self._model_rows_cache[0] is not bm:
-            self._model_rows_cache = (bm, substep_cuda.build_model_rows(bm, B).t().contiguous().t())
+            self._model_rows_cache = (bm, substep_cuda.build_model_rows(bm, B))
         return self._model_rows_cache[1]
 
     def _shape_obs(self, B: int) -> torch.Tensor | None:

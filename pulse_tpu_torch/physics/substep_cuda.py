@@ -15,10 +15,13 @@ Counterpart of `pulse_tpu/physics/substep_pallas.py`:
   * the model as the constant table K1 and K3 read from `__constant__`
     memory (`_extract_consts`): the TPU kernel baked the model into its
     trace. The table's layout is `ModelConsts` in `csrc/physics_step.cuh`:
-    4-byte fields in declaration order, no padding. K3-rows reads only the
-    topology and the config scalars from it, uploaded from the base model.
-  * the `[rows, B]` layout of the kernels' inputs and outputs, and
-    `physics_state_from_rows`, which K1 and K3 share.
+    4-byte fields in declaration order, no padding, with the topology the
+    kernels' phases walk (level starts, each body's children and contact
+    points). K3-rows reads only the topology and the config scalars from
+    it, uploaded from the base model.
+  * the env-major `[B, rows]` records of the physics kernels' inputs and
+    outputs (`env_block`, `physics_state_from_rows`), which K1 and K3 share,
+    and the `[rows, B]` blocks of RA and K2 (`rows_block`).
 
 A wrapper given CPU tensors runs the plain version. Given CUDA tensors it
 launches the kernel or raises; it never falls back.
@@ -39,9 +42,15 @@ from pulse_tpu_torch.physics.step import physics_step
 
 MAX_J = 24   # csrc/humanoid_math.cuh MAX_J
 MAX_P = 72   # csrc/physics_step.cuh MAX_P
-# K3 threads per block (at most its __launch_bounds__(64)): one warp a block,
-# as K1, spreads the envs over the most SMs
-K3_BLOCK = 32
+MAX_J1 = 25  # csrc/physics_step.cuh MAX_J1 (MAX_J + 1)
+# Lanes per env of K1, K3 and K3-rows (csrc/physics_step.cuh kGroup). The
+# physics is bound by chains of dependent operations; G lanes step one env
+# (a level's bodies, the joints and the contact points split over them)
+# with its working set in shared memory, so that 3072 envs keep 3072 G
+# lanes in flight. G = 8, four envs a warp, is the fastest of 4, 8, 16 and
+# 32 at 3072 envs on the H100 (chip_smoke.py's group_sweep, PERF.md).
+GROUP = 8
+BUILT_GROUPS = (1, 4, 8, 16, 32)   # csrc/physics_step.cuh HM_GROUPS: G = 1 and the sweep beside GROUP
 
 
 def supported(model: Model) -> bool:
@@ -75,11 +84,22 @@ def model_const_table(model: Model) -> bytes:
 
     I6 = host(model.spatial_inertia)
     order = [b for lvl, _ in model.levels for b in lvl]
+    lev_start = np.cumsum([0] + [len(lvl) for lvl, _ in model.levels])
+    # pass 2 adds a body's children in reverse level order
+    pos = {b: k for k, b in enumerate(order)}
+    children = [sorted((c for c in range(1, J) if model.parents[c] == b), key=lambda c: -pos[c]) for b in range(J)]
+    cp_body = host(model.cp_body)
+    points = [[i for i in range(P) if cp_body[i] == b] for b in range(J)]
     h = cfg.h
     parts = [
-        np.asarray([J, P, cfg.steps_per_control, 0], i32),
+        np.asarray([J, P, cfg.steps_per_control, len(model.levels)], i32),
         _padded(order, (MAX_J,), i32),
         _padded(np.maximum(np.asarray(model.parents), 0), (MAX_J,), i32),
+        _padded(lev_start, (MAX_J1,), i32),
+        _padded(np.cumsum([0] + [len(c) for c in children]), (MAX_J1,), i32),
+        _padded([c for ch in children for c in ch], (MAX_J,), i32),
+        _padded(np.cumsum([0] + [len(p) for p in points]), (MAX_J1,), i32),
+        _padded([i for p in points for i in p], (MAX_P,), i32),
         _padded(host(model.local_translation), (MAX_J, 3), f32),
         _padded(host(model.body_mass), (MAX_J,), f32),
         _padded(host(model.body_com), (MAX_J, 3), f32),
@@ -91,7 +111,7 @@ def model_const_table(model: Model) -> bytes:
         _padded(host(model.joint_armature), (MAX_J,), f32),
         _padded(host(model.dof_lower).reshape(J - 1, 3), (MAX_J, 3), f32),
         _padded(host(model.dof_upper).reshape(J - 1, 3), (MAX_J, 3), f32),
-        _padded(host(model.cp_body), (MAX_P,), i32),
+        _padded(cp_body, (MAX_P,), i32),
         _padded(host(model.cp_offset), (MAX_P, 3), f32),
         _padded(host(model.cp_radius), (MAX_P,), f32),
         _padded(host(model.cp_friction), (MAX_P,), f32),
@@ -123,12 +143,17 @@ def check_kernel_inputs(parts: list[torch.Tensor], B: int) -> torch.device:
     return dev
 
 
-def rows_block(parts: list[torch.Tensor], B: int, n_rows: int) -> torch.Tensor:
-    """[B, ...] tensors -> one contiguous [n_rows, B] block."""
+def env_block(parts: list[torch.Tensor], B: int, n_rows: int) -> torch.Tensor:
+    """[B, ...] tensors -> one contiguous env-major [B, n_rows] block."""
     x = torch.cat([t.reshape(B, -1) for t in parts], dim=1)
     if x.shape[1] != n_rows:
         raise ValueError(f"kernel input has {x.shape[1]} rows, expected {n_rows}")
-    return x.t().contiguous()
+    return x
+
+
+def rows_block(parts: list[torch.Tensor], B: int, n_rows: int) -> torch.Tensor:
+    """[B, ...] tensors -> one contiguous [n_rows, B] block."""
+    return env_block(parts, B, n_rows).t().contiguous()
 
 
 def physics_state_from_rows(rows: torch.Tensor, J: int) -> PhysicsState:
@@ -233,8 +258,8 @@ def physics_step_cuda(model: Model, state: PhysicsState, pd_target: torch.Tensor
     bodies and the substep-mean contact force, as `physics_step` computes
     it. `model` is shared; with `model_rows` ([B, n_model] from
     `build_model_rows`) each env steps under its own model, and `model`
-    gives only the topology and the config. Rows stored as a contiguous
-    [n_model, B] block and handed over as its transpose are read in place."""
+    gives only the topology and the config. Contiguous rows are read in
+    place."""
     if state.root_pos.device.type == "cpu":
         if model_rows is not None:
             model = model_from_rows(model, model_rows)
@@ -247,18 +272,18 @@ def physics_step_cuda(model: Model, state: PhysicsState, pd_target: torch.Tensor
     n_state = state_rows(J)
     lib = _build.load()
     with torch.cuda.device(dev):
-        x = rows_block(parts, B, n_state + 3 * (J - 1))
-        out = torch.empty(n_state + 16 * J, B, device=dev)
+        x = env_block(parts, B, n_state + 3 * (J - 1))
+        out = torch.empty(B, n_state + 16 * J, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         _build.upload_consts("physics_step", (model,), lambda: (model_const_table(model),), dev, stream)
         if model_rows is None:
-            _build.check(lib.k3_physics_step(x.data_ptr(), out.data_ptr(), B, K3_BLOCK, stream), "K3 launch")
+            _build.check(lib.k3_physics_step(x.data_ptr(), out.data_ptr(), B, GROUP, stream), "K3 launch")
         else:
             n_model = model_rows_layout(J, int(model.cp_body.shape[0]))[1]
             if model_rows.shape != (B, n_model):
                 raise ValueError(f"model rows {tuple(model_rows.shape)}, expected ({B}, {n_model})")
-            m = model_rows.t().contiguous()
-            _build.check(lib.k3_physics_step_rows(x.data_ptr(), m.data_ptr(), out.data_ptr(), B, K3_BLOCK, stream),
+            m = model_rows.contiguous()
+            _build.check(lib.k3_physics_step_rows(x.data_ptr(), m.data_ptr(), out.data_ptr(), B, GROUP, stream),
                          "K3-rows launch")
     _build.launches["physics_step_rows" if model_rows is not None else "physics_step"] += 1
-    return physics_state_from_rows(out.t(), J)
+    return physics_state_from_rows(out, J)

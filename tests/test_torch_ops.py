@@ -144,12 +144,18 @@ def _c_struct_words(src: str, name: str, consts: dict) -> int:
 
 def test_constant_tables_match_c_structs(port):
     _, model, _, env = port
-    consts = {"MAX_J": substep_cuda.MAX_J, "MAX_P": substep_cuda.MAX_P, "MAX_KEY": cuda_obs.MAX_KEY}
+    consts = {"MAX_J": substep_cuda.MAX_J, "MAX_P": substep_cuda.MAX_P, "MAX_J1": substep_cuda.MAX_J1,
+              "MAX_KEY": cuda_obs.MAX_KEY}
     csrc = ROOT / "pulse_tpu_torch" / "csrc"
     math_h, hdr, ra = ((csrc / f).read_text() for f in ("humanoid_math.cuh", "physics_step.cuh", "reward_amp.cuh"))
-    for src, define in ((math_h, "MAX_J"), (hdr, "MAX_P"), (ra, "MAX_KEY")):
+    for src, define in ((math_h, "MAX_J"), (hdr, "MAX_P"), (hdr, "MAX_J1"), (ra, "MAX_KEY")):
         assert int(re.search(r"#define %s (\d+)" % define, src).group(1)) == consts[define]
+    assert consts["MAX_J1"] == consts["MAX_J"] + 1
     assert int(re.search(r"kRaRows = (\d+);", ra).group(1)) == cuda_obs.RA_ROWS
+    assert int(re.search(r"constexpr int kGroup = (\d+);", hdr).group(1)) == substep_cuda.GROUP
+    built = re.search(r"#define HM_GROUPS\(X\) (.*)", hdr).group(1)
+    assert tuple(int(g) for g in re.findall(r"X\((\d+)\)", built)) == substep_cuda.BUILT_GROUPS
+    assert substep_cuda.GROUP in substep_cuda.BUILT_GROUPS and 1 in substep_cuda.BUILT_GROUPS
     assert len(substep_cuda.model_const_table(model)) == 4 * _c_struct_words(hdr, "ModelConsts", consts)
     assert len(env.consts.table()) == 4 * _c_struct_words(ra, "EnvConsts", consts)
 
@@ -502,12 +508,16 @@ def test_kernel_math_header_matches_plain_functions(tmp_path):
 
 _EPILOGUE_HARNESS = r"""
 #include <cstdio>
+#include <cstdlib>
 #include <vector>
 #include "reward_amp.cuh"
 using namespace hm;
-// in: n, width, n_out, table bytes, EnvConsts, then per env the RA kernel's
-// input record (bodies 13J | joint rot 4(J-1) | joint omega 3(J-1) | ref 13J)
+// argv: input file, output file, lanes (K1 splits the epilogue over its
+// group's lanes, RA runs one). in: n, width, n_out, table bytes, EnvConsts,
+// then per env the RA kernel's input record (bodies 13J | joint rot 4(J-1)
+// | joint omega 3(J-1) | ref 13J)
 int main(int argc, char** argv) {
+  const int lanes = std::atoi(argv[3]);
   FILE* f = std::fopen(argv[1], "rb");
   int n, width, n_out, table_bytes;
   EnvConsts c;
@@ -534,7 +544,9 @@ int main(int argc, char** argv) {
       jrot[j] = Q4{jr[4 * j], jr[4 * j + 1], jr[4 * j + 2], jr[4 * j + 3]};
       omega[j] = V3{om[3 * j], om[3 * j + 1], om[3 * j + 2]};
     }
-    reward_amp(c, pos, rot, vel, ang, jrot, omega, RowsIn{om + 3 * Jm1, 1}, RowsOut{out.data() + (size_t)i * n_out, 1});
+    for (int l = 0; l < lanes; ++l)
+      reward_amp(c, pos, rot, vel, ang, jrot, omega, RowsIn{om + 3 * Jm1, 1},
+                 RowsOut{out.data() + (size_t)i * n_out, 1}, l, lanes);
   }
   f = std::fopen(argv[2], "wb");
   std::fwrite(out.data(), 4, out.size(), f);
@@ -559,12 +571,9 @@ def epilogue_harness(tmp_path_factory):
     return d
 
 
-@pytest.mark.parametrize("amp_v", [1, 2])
-def test_reward_amp_header_matches_plain(port, epilogue_harness, amp_v):
-    """csrc/reward_amp.cuh, the epilogue K1 and RA run, against
-    reward_amp_plain on jittered stepped states: float32 rounding in
-    another order, 1e-5 (acosf and arccos of cosines near 1 in the rotation
-    term are the widest)."""
+def _epilogue_case(port, epilogue_harness, amp_v: int, lanes: int):
+    """(the harness's [B, 7 + A] rows over `lanes` lanes, reward_amp_plain's)
+    on jittered stepped states."""
     import subprocess
 
     ph, ref = _stepped_like(port, seed=6)
@@ -577,8 +586,27 @@ def test_reward_amp_header_matches_plain(port, epilogue_harness, amp_v):
     d = epilogue_harness
     (d / f"in{amp_v}.bin").write_bytes(np.asarray([B, x.shape[1], want.shape[1], len(table)], np.int32).tobytes()
                                        + table + x.tobytes())
-    subprocess.run([str(d / "harness"), str(d / f"in{amp_v}.bin"), str(d / f"out{amp_v}.bin")], check=True,
-                   timeout=60)
-    got = np.fromfile(d / f"out{amp_v}.bin", np.float32).reshape(B, -1)
+    out = d / f"out{amp_v}_{lanes}.bin"
+    subprocess.run([str(d / "harness"), str(d / f"in{amp_v}.bin"), str(out), str(lanes)], check=True, timeout=60)
+    return np.fromfile(out, np.float32).reshape(B, -1), want
+
+
+@pytest.mark.parametrize("amp_v", [1, 2])
+def test_reward_amp_header_matches_plain(port, epilogue_harness, amp_v):
+    """csrc/reward_amp.cuh, the epilogue K1 and RA run, against
+    reward_amp_plain on jittered stepped states: float32 rounding in
+    another order, 1e-5 (acosf and arccos of cosines near 1 in the rotation
+    term are the widest)."""
+    got, want = _epilogue_case(port, epilogue_harness, amp_v, 1)
     assert got.shape == (B, cuda_obs.RA_ROWS + cuda_obs.amp_obs_dim(24, 4, amp_v, True))
     np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+@pytest.mark.parametrize("amp_v", [1, 2])
+def test_reward_amp_header_lane_split_matches_one_lane(port, epilogue_harness, amp_v):
+    """K1 splits the epilogue's dof rows over its group's lanes: every row
+    is written, with the bits one lane (RA) writes."""
+    one, _ = _epilogue_case(port, epilogue_harness, amp_v, 1)
+    split, _ = _epilogue_case(port, epilogue_harness, amp_v, substep_cuda.GROUP)
+    assert (split > -1e29).all()
+    np.testing.assert_array_equal(split.view(np.uint32), one.view(np.uint32))

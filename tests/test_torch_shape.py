@@ -181,36 +181,58 @@ def test_k3_rows_wrapper_on_cpu_runs_the_rows_model(stepped):
 
 # --------------------------------------------------------------------------- #
 # the kernels' per-env physics (TableView for K1/K3, RowsView for K3-rows),
-# built for the host by g++
+# built for the host by g++: the phase functions of csrc/physics_step.cuh,
+# each run for every lane of a group of G in turn
 # --------------------------------------------------------------------------- #
 
 _STEP_HARNESS = r"""
 #include <cstdio>
+#include <cstdlib>
 #include <vector>
 #include "physics_step.cuh"
 using namespace hm;
-// in: n, n_in, n_out, n_model, table bytes, ModelConsts, then per env its
-// step inputs [n_in] and its model rows [n_model] (n_model 0: TableView)
+static ModelConsts c;
+static Work w;
+static float hot[kHotRows];
+
+// One env through step_env in a group of G lanes (on the host, Lanes runs
+// each phase for lanes 0 .. G-1 in turn), K3-rows' hot rows staged as on
+// the card.
+template <int G>
+static void step(const float* x, int n_in, int n_model, float* y) {
+  const Lanes<G> run{0, 0u};
+  const RowsIn in{x, 1};
+  const RowsOut out{y, 1};
+  if (n_model) {
+    const RowsIn m{x + n_in, 1};
+    run([&](int lane) { stage_hot_rows<G>(c.J, m, hot, lane); });
+    step_env(run, RowsView(&c, &c, hot, m), w, in, out, true);
+  } else {
+    step_env(run, TableView{&c, &c}, w, in, out, true);
+  }
+}
+
+// argv: input file, output file, G (1, 8 or kGroup). Input: n, n_in, n_out,
+// n_model, table bytes, ModelConsts, then per env its step inputs [n_in]
+// and its model rows [n_model] (n_model 0: TableView).
 int main(int argc, char** argv) {
+  if (argc != 4) return 2;
   FILE* f = std::fopen(argv[1], "rb");
   int n, n_in, n_out, n_model, table_bytes;
-  static ModelConsts c;
   if (std::fread(&n, 4, 1, f) != 1 || std::fread(&n_in, 4, 1, f) != 1 || std::fread(&n_out, 4, 1, f) != 1 ||
       std::fread(&n_model, 4, 1, f) != 1 || std::fread(&table_bytes, 4, 1, f) != 1 ||
       table_bytes != (int)sizeof(ModelConsts) || std::fread(&c, sizeof(ModelConsts), 1, f) != 1) return 2;
-  const int width = n_in + n_model;
+  const int width = n_in + n_model, G = std::atoi(argv[3]);
   std::vector<float> in((size_t)n * width), out((size_t)n * n_out, -1e30f);
   if (std::fread(in.data(), 4, in.size(), f) != in.size()) return 1;
   std::fclose(f);
   for (int i = 0; i < n; ++i) {
     const float* x = in.data() + (size_t)i * width;
-    PhysState s;
-    V3 pd[MAX_J - 1], contact[MAX_J];
-    WorldBodies wb;
-    read_step_inputs(c.J, RowsIn{x, 1}, s, pd);
-    if (n_model) control_step(RowsView(&c, RowsIn{x + n_in, 1}), s, pd, contact, wb);
-    else control_step(TableView{&c}, s, pd, contact, wb);
-    write_step_outputs(c.J, RowsOut{out.data() + (size_t)i * n_out, 1}, s, contact, wb);
+    float* y = out.data() + (size_t)i * n_out;
+    if (G == 1) step<1>(x, n_in, n_model, y);
+    else if (G == 8) step<8>(x, n_in, n_model, y);
+    else if (G == kGroup) step<kGroup>(x, n_in, n_model, y);
+    else return 3;
   }
   f = std::fopen(argv[2], "wb");
   std::fwrite(out.data(), 4, out.size(), f);
@@ -218,38 +240,69 @@ int main(int argc, char** argv) {
   return 0;
 }
 """
+N_OUT = substep_cuda.state_rows(24) + 16 * 24
 
 
-@pytest.mark.parametrize("view", ["rows", "table"])
-def test_kernel_physics_header_matches_plain_step(stepped, tmp_path, view):
-    """control_step of csrc/physics_step.cuh on the host: RowsView (K3-rows)
-    on the scale-varied envs against the batched plain step, TableView (K1,
-    K3) on env 0's model shared by all against the shared plain step; to the
-    physics tolerances K1 is held to on the card."""
+@pytest.fixture(scope="module")
+def header_step(stepped, tmp_path_factory):
+    """run(view, G) -> the [N, N_OUT] records control_step of
+    csrc/physics_step.cuh writes on the host for the `stepped` inputs, in
+    groups of G lanes: RowsView (K3-rows) on the scale-varied envs, TableView
+    (K1, K3) on env 0's model shared by all. The harness is built once."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ not found")
-    bm, st, pd, got, _ = stepped
-    (tmp_path / "harness.cc").write_text(_STEP_HARNESS)
-    subprocess.run([gxx, "-O2", "-std=c++17", "-I", str(ROOT / "pulse_tpu_torch" / "csrc"),
-                    str(tmp_path / "harness.cc"), "-o", str(tmp_path / "harness")], check=True, timeout=120)
-
+    bm, st, pd, _, _ = stepped
+    d = tmp_path_factory.mktemp("harness")
+    (d / "harness.cc").write_text(_STEP_HARNESS)
+    subprocess.run([gxx, "-O2", "-std=c++17", "-I", str(ROOT / "pulse_tpu_torch" / "csrc"), str(d / "harness.cc"),
+                    "-o", str(d / "harness")], check=True, timeout=240)
     base = dataclasses.replace(bm, **{f: getattr(bm, f)[0] for f in BATCHED_LEAVES})
+    table = substep_cuda.model_const_table(base)
     x = torch.cat([t.reshape(N, -1) for t in (st.root_pos, st.root_rot, st.joint_rot, st.root_vel6,
                                               st.joint_omega, pd)], dim=1)
+    for view, n_model in (("rows", 859), ("table", 0)):
+        xv = torch.cat([x, substep_cuda.build_model_rows(bm, N)], dim=1) if n_model else x
+        (d / f"{view}.bin").write_bytes(np.asarray([N, 243, N_OUT, n_model, len(table)], np.int32).tobytes() + table
+                                        + xv.numpy().astype(np.float32).tobytes())
+    outs = {}
+
+    def run(view: str, G: int) -> np.ndarray:
+        if (view, G) not in outs:
+            out = d / f"{view}_{G}.out"
+            subprocess.run([str(d / "harness"), str(d / f"{view}.bin"), str(out), str(G)], check=True, timeout=60)
+            outs[view, G] = np.fromfile(out, np.float32).reshape(N, N_OUT)
+        return outs[view, G]
+
+    return run
+
+
+@pytest.mark.parametrize("view", ["rows", "table"])
+def test_kernel_physics_header_matches_plain_step(stepped, header_step, view):
+    """control_step of csrc/physics_step.cuh on the host, in groups of the
+    kernels' G lanes: RowsView (K3-rows) on the scale-varied envs against the
+    batched plain step, TableView (K1, K3) on env 0's model shared by all
+    against the shared plain step; to the physics tolerances K1 is held to
+    on the card."""
+    bm, st, pd, got, _ = stepped
     if view == "rows":
-        x = torch.cat([x, substep_cuda.build_model_rows(bm, N)], dim=1)
-        n_model, want = 859, got
+        want = got
     else:
-        n_model, want = 0, physics_step(base, st, pd)
-    table = substep_cuda.model_const_table(base)
-    n_out = substep_cuda.state_rows(24) + 16 * 24
-    (tmp_path / "in.bin").write_bytes(np.asarray([N, 243, n_out, n_model, len(table)], np.int32).tobytes() + table
-                                      + x.numpy().astype(np.float32).tobytes())
-    subprocess.run([str(tmp_path / "harness"), str(tmp_path / "in.bin"), str(tmp_path / "out.bin")], check=True,
-                   timeout=60)
-    out = substep_cuda.physics_state_from_rows(torch.as_tensor(np.fromfile(tmp_path / "out.bin", np.float32))
-                                               .reshape(N, n_out), 24)
+        want = physics_step(dataclasses.replace(bm, **{f: getattr(bm, f)[0] for f in BATCHED_LEAVES}), st, pd)
+    out = substep_cuda.physics_state_from_rows(torch.as_tensor(header_step(view, substep_cuda.GROUP)), 24)
     assert float(want.contact_force.abs().max()) > 100.0
     for f, atol in PHYS_ATOL.items():
         np.testing.assert_allclose(getattr(out, f).numpy(), getattr(want, f).numpy(), atol=atol, err_msg=f)
+
+
+@pytest.mark.parametrize("G", sorted({8, substep_cuda.GROUP}))
+@pytest.mark.parametrize("view", ["rows", "table"])
+def test_kernel_physics_header_groups_match_one_lane_bitwise(header_step, view, G):
+    """The phases split bodies, joints and contact points over a group's
+    lanes but sum in the same order for every G: G lanes and one lane write
+    the same bits, on envs in ground contact."""
+    one, many = header_step(view, 1), header_step(view, G)
+    contact = substep_cuda.physics_state_from_rows(torch.as_tensor(one), 24).contact_force
+    assert int((contact.abs().amax(dim=(1, 2)) > 100.0).sum()) >= N // 2
+    assert np.isfinite(one).all()
+    np.testing.assert_array_equal(many.view(np.uint32), one.view(np.uint32))

@@ -161,7 +161,7 @@ def test_shape_channels_before_shapes_are_zero_and_resample_swaps_the_rows():
     env.enable_shape_variation(8, generator=torch.Generator().manual_seed(5))
     bm0, rows0 = env.batched_model, env._model_rows(8)
     assert env._model_rows(8) is rows0
-    assert rows0.t().is_contiguous()      # the kernel's [n_model, B] layout
+    assert rows0.is_contiguous()          # the kernel's env-major [B, n_model] layout
     env.resample_shapes()
     assert env.batched_model is not bm0
     rows1 = env._model_rows(8)
