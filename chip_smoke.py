@@ -10,7 +10,9 @@ Phases, each printed as one JSON line:
                source: seconds, registers, stack and spill bytes per kernel
                instantiation; the physics kernels' launch geometry per
                group size G (lanes an env): shared bytes an env and a
-               block, envs a block, resident blocks an SM
+               block, envs a block, resident blocks an SM; K2's and RA's
+               at 3072 envs: blocks, threads and shared bytes a block,
+               resident blocks an SM
   kernels      K1 (step_reward_amp), K2 (observe), K3 (physics_step), K3-rows
                (physics_step_rows) and RA (reward_amp) against their plain
                PyTorch versions at 3072 envs, on states from a
@@ -18,9 +20,9 @@ Phases, each printed as one JSON line:
                physics steps (feet in contact); K3 -> RA against K1 on the
                same inputs; K3-rows on a vary_model_scales(0.9, 1.1) model
                against physics_step on it, and on the shared model's rows
-               against K3; K1, K3 and K3-rows on a ragged batch of 13 envs
-               against the full batch's first 13, bit for bit, and K1 and
-               K3 writing nothing past the batch
+               against K3; K1, K3, K3-rows, RA and K2 on a ragged batch of
+               13 envs against the full batch's first 13, bit for bit, and
+               K1, K3, RA and K2 writing nothing past the batch
   slice       HumanoidImEnv (default EnvConfig/PhysicsConfig, 4 synthetic
                clips, 3072 envs) acting for 32 steps under the 2048-1536-1024
                ActorCritic in bf16 autocast; K1 and K2 must launch exactly 32
@@ -62,7 +64,12 @@ Phases, each printed as one JSON line:
   and the training env steps/s; then K3's (3072 and 256 envs), K3-rows' and
   RA's ms and their plain versions', K3 and K3-rows at the chosen G and at
   G = 1 in turns with the max abs difference of their outputs, and every
-  built G's time for K1, K3 and K3-rows (group_sweep).
+  built G's time for K1, K3 and K3-rows (group_sweep). Every kernel's ms
+  is one timer, `cuda_ms`: CUDA events around raw launches back to back,
+  their arguments built once. The roofline line gives each kernel's launch
+  geometry, achieved GB/s and fraction of its bound; for K2 and RA also
+  ms, profiled device ms and device GB/s, warm and on L2-cold inputs
+  (at 3072 and 384 envs).
 Then the kernels' JSON line, the card's nvidia-smi line, and last
 {"ok": true, "device": {...}}. Any failed check exits non-zero before the
 last line. Exits non-zero without CUDA or without the package beside it.
@@ -70,6 +77,7 @@ last line. Exits non-zero without CUDA or without the package beside it.
 
 import ctypes
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -84,6 +92,7 @@ WINDOWS = 4                     # timed windows of HORIZON steps per regime
 TRAIN_EPOCHS = 2
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_FP32_OPS_PER_S = 67e12     # fp32 outside the tensor cores, H100 SXM
+L2_BYTES = 50 * 2**20           # H100 SXM L2
 
 # Kernel-vs-plain tolerances. K1's physics: those the TPU kernel is held to
 # against the XLA step (tests/test_pallas_substep.py); the compliant contact
@@ -220,6 +229,18 @@ def compare(got, want, tol: float, n_envs: int) -> dict:
     }
 
 
+def env_slice(obj, lo: int, hi: int):
+    """Views of envs [lo, hi) of a [B, ...] tensor, a PhysicsState, a dict
+    of tensors, or a tuple of these."""
+    if isinstance(obj, tuple):
+        return tuple(env_slice(o, lo, hi) for o in obj)
+    if isinstance(obj, dict):
+        return {k: v[lo:hi] for k, v in obj.items()}
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{f.name: getattr(obj, f.name)[lo:hi] for f in dataclasses.fields(obj)})
+    return obj[lo:hi]
+
+
 def envs_beyond(got, want, n_envs: int) -> int:
     """Envs whose error exceeds K1_TOL in any physics field."""
     import torch
@@ -333,12 +354,23 @@ def main() -> int:
         # a ragged batch of RAGGED envs (the last block part-filled) against
         # the full batch's first RAGGED, bit for bit; then K1 and K3 raw into
         # buffers one block longer, whose rows past the batch must stay NaN
-        st_r = dataclasses.replace(state.physics, **{f.name: getattr(state.physics, f.name)[:RAGGED]
-                                                     for f in dataclasses.fields(state.physics)})
-        ref_r = {k: v[:RAGGED] for k, v in ref.items()}
+        st_r, ref_r = env_slice((state.physics, ref), 0, RAGGED)
         rag1 = cuda_obs.step_reward_amp(model, e, st_r, pd[:RAGGED], ref_r)
         rag3 = substep_cuda.physics_step_cuda(model, st_r, pd[:RAGGED])
         rag3r = substep_cuda.physics_step_cuda(model, st_r, pd[:RAGGED], model_rows=bm_rows[:RAGGED])
+        # RA on K3's first RAGGED envs (joint_rot and joint_omega views into
+        # K3's rows), K2 on K1's; then both raw into buffers one block
+        # longer, whose rows past the batch must stay NaN
+        k3_r, k1_r, ref_next_r = env_slice((k3, k1[0], ref_next), 0, RAGGED)
+        rag_ra = cuda_obs.reward_amp(e, k3_r, ref_r)
+        rag2 = cuda_obs.observe(e, k1_r, ref_next_r)
+        pad_ra = cuda_obs.ra_outputs(RAGGED + 8, env.amp_obs_dim_single, dev)
+        pad2 = torch.full((RAGGED + 8, env.obs_dim), float("nan"), device=dev)
+        for t_ in pad_ra:
+            t_.fill_(float("nan"))
+        cuda_obs.launch_reward_amp(e, k3_r, ref_r, tuple(t_[:RAGGED] for t_ in pad_ra))
+        cuda_obs.launch_observe(e, k1_r, ref_next_r, pad2[:RAGGED], cuda_obs.self_obs_dim(model.num_bodies,
+                                                                                          e.root_height_obs))
         k3_parts = [st_r.root_pos, st_r.root_rot, st_r.joint_rot, st_r.root_vel6, st_r.joint_omega, pd[:RAGGED]]
         n_k1_out = 174 + 16 * model.num_bodies + cuda_obs.RA_ROWS + env.amp_obs_dim_single
         pad1 = torch.full((RAGGED + 8, n_k1_out), float("nan"), device=dev)
@@ -353,8 +385,14 @@ def main() -> int:
               "K1_epilogue": max(float((a - b[:RAGGED]).abs().max()) for a, b in zip(rag1[1:], k1[1:])),
               "K3": max(float((getattr(rag3, f) - getattr(k3, f)[:RAGGED]).abs().max()) for f in PHYS_FIELDS),
               "K3rows": max(float((getattr(rag3r, f) - getattr(k3r, f)[:RAGGED]).abs().max()) for f in PHYS_FIELDS),
+              "RA": max(float((a - b[:RAGGED]).abs().max()) for a, b in zip(rag_ra, ra)),
+              "RA_raw_launch": max(float((a[:RAGGED] - b[:RAGGED]).abs().max()) for a, b in zip(pad_ra, ra)),
+              "K2": float((rag2 - k2[:RAGGED]).abs().max()),
+              "K2_raw_launch": float((pad2[:RAGGED] - k2[:RAGGED]).abs().max()),
               "K1_rows_past_batch_untouched": bool(torch.isnan(pad1[RAGGED:]).all()),
-              "K3_rows_past_batch_untouched": bool(torch.isnan(pad3[RAGGED:]).all())}
+              "K3_rows_past_batch_untouched": bool(torch.isnan(pad3[RAGGED:]).all()),
+              "RA_rows_past_batch_untouched": all(bool(torch.isnan(t_[RAGGED:]).all()) for t_ in pad_ra),
+              "K2_rows_past_batch_untouched": bool(torch.isnan(pad2[RAGGED:]).all())}
     kin_phys, kin_pd, kin_ref = state.physics, pd, ref   # K3's and RA's timing inputs
     names = ("reward", "reward_raw", "dist_mean", "dist_max", "amp")
     phys = PHYS_FIELDS
@@ -377,6 +415,7 @@ def main() -> int:
     emit({"phase": "kernels", "envs": N_ENVS, "envs_in_contact": in_contact, "K1_vs_plain": k1_cmp,
           "K1_epilogue_on_kernel_state": epi_cmp, "K2_vs_plain": k2_cmp, "K3_vs_plain": k3_cmp,
           "RA_vs_plain_on_K3_state": ra_cmp, "K3_RA_vs_K1": k3ra_vs_k1,
+          "K3_RA_vs_K1_max_abs_diff": max(c["max"] for c in k3ra_vs_k1.values()),
           "K3rows_vs_plain_scaled_model": k3r_cmp, "envs_in_contact_scaled_model": in_contact_rows,
           "body_scale_range": [float(bm.total_mass.min() / model.total_mass) ** (1 / 3),
                                float(bm.total_mass.max() / model.total_mass) ** (1 / 3)],
@@ -393,7 +432,7 @@ def main() -> int:
         fail(f"K2: {k2_cmp['outlier_envs']} envs beyond {K2_TOL} (max {k2_cmp['max']})")
     if in_contact == 0 or in_contact_rows == 0:
         fail("no env in ground contact: the contact path was not exercised")
-    untouched = ragged["K1_rows_past_batch_untouched"] and ragged["K3_rows_past_batch_untouched"]
+    untouched = all(v for k, v in ragged.items() if k.endswith("untouched"))
     if not untouched or any(v != 0.0 for k, v in ragged.items() if not k.endswith("untouched")):
         fail(f"a ragged batch differs from the full one or writes past its end: {ragged}")
 
@@ -465,9 +504,9 @@ def main() -> int:
             st_p, s = window(act, st_p)
             policy_windows.append(s)
 
-        # raw kernel launches on prepared buffers, K1's env-major, K2's
-        # [rows, B] (the wrappers' counts are untouched: these are
-        # measurement launches)
+        # raw kernel launches on prepared buffers, K1's env-major record,
+        # K2's inputs in place (the wrappers' counts are untouched: these
+        # are measurement launches)
         stream = torch.cuda.current_stream().cuda_stream
         ph = state.physics
         J, Jm1 = model.num_bodies, model.num_joints
@@ -476,9 +515,8 @@ def main() -> int:
         n_amp = cuda_obs.amp_obs_dim(J, len(e.key_ids), e.amp_v, e.root_height_obs)
         n_out1 = 174 + 16 * J + 7 + n_amp
         o1, o1_one = torch.empty(N_ENVS, n_out1, device=dev), torch.empty(N_ENVS, n_out1, device=dev)
-        x2 = substep_cuda.rows_block([ph.body_pos, ph.body_rot, ph.body_vel, ph.body_ang_vel]
-                                     + cuda_obs._bodies(ref), N_ENVS, 26 * J)
-        o2 = torch.empty(env.obs_dim, N_ENVS, device=dev)
+        o2 = torch.empty(N_ENVS, env.obs_dim, device=dev)
+        n_self = cuda_obs.self_obs_dim(J, e.root_height_obs)
 
         def k1_launch(group, out=o1, x=x1, n=N_ENVS):
             return lambda: _build.check(lib.k1_step_reward_amp(x.data_ptr(), out.data_ptr(), n, n_out1, group,
@@ -489,9 +527,8 @@ def main() -> int:
         k1_one_vs_group = float((o1 - o1_one).abs().max())
         k1_ms_one, k1_ms_group = in_turns(lambda: cuda_ms(k1_launch(1), 20), lambda: cuda_ms(k1_launch(GROUP), 20))
         k1_ms = sum(k1_ms_group) / 2
-        k2_ms = cuda_ms(lambda: _build.check(lib.k2_observe(
-            x2.data_ptr(), o2.data_ptr(), N_ENVS, J, int(e.local_root_obs), int(e.root_height_obs),
-            cuda_obs.K2_BLOCK, stream), "K2"), 100)
+        k2_args, k2_ins = cuda_obs.observe_args(e, ph, ref, o2, n_self)
+        k2_ms = cuda_ms(lambda: _build.check(lib.k2_observe(*k2_args, stream), "K2"), 100)
         k1_plain_ms = cuda_ms(lambda: cuda_obs.step_reward_amp_plain(model, e, ph, pd, ref), 3)
         k2_plain_ms = cuda_ms(lambda: cuda_obs.observe_plain(e, ph, ref), 10)
         k1_wrap_ms = cuda_ms(lambda: cuda_obs.step_reward_amp(model, e, ph, pd, ref), 20)
@@ -519,7 +556,8 @@ def main() -> int:
         4.0 * N_ENVS * (x1.shape[1] + o1.shape[1]),
         N_ENVS * k1_ops_per_env(J, int(model.cp_body.shape[0]), model.config.steps_per_control,
                                 len(e.reset_ids), len(e.key_ids), e.amp_v))
-    k2_bound, k2_by = bound_ms(4.0 * N_ENVS * (x2.shape[0] + o2.shape[0]), N_ENVS * k2_ops_per_env(J))
+    k2_bytes = 4.0 * N_ENVS * (26 * J + o2.shape[1])
+    k2_bound, k2_by = bound_ms(k2_bytes, N_ENVS * k2_ops_per_env(J))
     emit({"phase": "timing", "card": card, "envs": N_ENVS,
           "env_steps_per_s_policy": median(steps_per_s(policy_windows)),
           "env_steps_per_s_random_actions": median(steps_per_s(random_windows)),
@@ -792,9 +830,7 @@ def main() -> int:
         x3 = substep_cuda.env_block(k3_in, N_ENVS, 174 + 69)
         o3, o3_one = torch.empty(N_ENVS, 174 + 16 * J, device=dev), torch.empty(N_ENVS, 174 + 16 * J, device=dev)
         x3_fall = substep_cuda.env_block([t_[:n_fall] for t_ in k3_in], n_fall, 174 + 69)
-        xr = substep_cuda.rows_block([k3.body_pos, k3.body_rot, k3.body_vel, k3.body_ang_vel, k3.joint_rot,
-                                      k3.joint_omega] + cuda_obs._bodies(kin_ref), N_ENVS, 785)
-        o_ra = torch.empty(cuda_obs.RA_ROWS + n_amp, N_ENVS, device=dev)
+        o_ra = cuda_obs.ra_outputs(N_ENVS, n_amp, dev)
         # the wrappers upload this model's and env's tables to K3's and RA's units
         substep_cuda.physics_step_cuda(model, kin_phys, kin_pd)
         cuda_obs.reward_amp(e, k3, kin_ref)
@@ -821,8 +857,8 @@ def main() -> int:
                                             lambda: cuda_ms(k3_launch(GROUP, o3, x3_fall, n_fall), 20))
         k3r_ms_one, k3r_ms_group = in_turns(lambda: cuda_ms(k3r_launch(1), 20), lambda: cuda_ms(k3r_launch(GROUP), 20))
         k3_ms, k3_ms_fall, k3r_ms = (sum(t_) / 2 for t_ in (k3_ms_group, k3f_ms_group, k3r_ms_group))
-        ra_ms = cuda_ms(lambda: _build.check(lib.ra_reward_amp(
-            xr.data_ptr(), o_ra.data_ptr(), N_ENVS, cuda_obs.RA_BLOCK, stream), "RA"), 100)
+        ra_args, ra_ins = cuda_obs.reward_amp_args(e, k3, kin_ref, o_ra)
+        ra_ms = cuda_ms(lambda: _build.check(lib.ra_reward_amp(*ra_args, stream), "RA"), 100)
         # every built G, once each (the choice of GROUP)
         sweep = {g_: {"K1_ms": cuda_ms(k1_launch(g_), 10), "K3_ms": cuda_ms(k3_launch(g_), 10),
                       "K3_ms_256_envs": cuda_ms(k3_launch(g_, o3, x3_fall, n_fall), 10),
@@ -836,8 +872,8 @@ def main() -> int:
     k3_bound, k3_by = bound_ms(4.0 * N_ENVS * (x3.shape[1] + o3.shape[1]), N_ENVS * physics_ops_per_env(J, P, n_sub))
     k3r_bound, k3r_by = bound_ms(4.0 * N_ENVS * (x3.shape[1] + m_rows.shape[1] + o3.shape[1]),
                                  N_ENVS * rows_ops_per_env(J, P, n_sub))
-    ra_bound, ra_by = bound_ms(4.0 * N_ENVS * (xr.shape[0] + o_ra.shape[0]),
-                               N_ENVS * epilogue_ops_per_env(J, len(e.reset_ids), len(e.key_ids), e.amp_v))
+    ra_bytes = 4.0 * N_ENVS * (26 * J + 7 * (J - 1) + cuda_obs.RA_ROWS + n_amp)
+    ra_bound, ra_by = bound_ms(ra_bytes, N_ENVS * epilogue_ops_per_env(J, len(e.reset_ids), len(e.key_ids), e.amp_v))
     emit({"phase": "timing_k3_ra", "card": card, "envs": N_ENVS, "K3_ms": k3_ms, "K3_ms_256_envs": k3_ms_fall,
           "K3rows_ms": k3r_ms, "RA_ms": ra_ms, "group": GROUP,
           f"K3_ms_G{GROUP}_turns": k3_ms_group, "K3_ms_G1_turns": k3_ms_one,
@@ -851,13 +887,84 @@ def main() -> int:
           "epilogue_ops_per_env": epilogue_ops_per_env(J, len(e.reset_ids), len(e.key_ids), e.amp_v)})
     emit({"phase": "group_sweep", "card": card, "envs": N_ENVS, "group": GROUP, "ms": sweep})
 
+    def launch_geometry(info_fn, *args) -> dict:
+        info = (ctypes.c_int * 4)()
+        _build.check(info_fn(*args, info), "kernel info")
+        return {"blocks": info[0], "threads_per_block": info[1], "shared_bytes_per_block": info[2],
+                "blocks_per_sm": info[3]}
+
+    def physics_geometry(info_fn, *args) -> dict:
+        g_ = geometry(info_fn, *args)
+        return {"blocks": -(-N_ENVS // g_["envs_per_block"]), "threads_per_block": g_["threads_per_block"],
+                "shared_bytes_per_block": g_["shared_bytes_per_block"], "blocks_per_sm": g_["blocks_per_sm"]}
+
+    def roof(ms, bytes_moved, bound, by, geom) -> dict:
+        return {"ms": ms, "bound_ms": bound, "bound_by": by, "fraction_of_bound": bound / ms,
+                "GBps": bytes_moved / (ms * 1e-3) / 1e9, "geometry": geom}
+
+    # K2's and RA's diagnosis. The times above replay inputs and outputs
+    # that the L2 still holds; L2-cold, each launch takes the next of
+    # `copies` sets of them, together over twice the L2, so that no set is
+    # touched again before the L2 has turned over; at the batch and at an
+    # eighth of it (one block an SM at most). Each regime gets cuda_ms and,
+    # from a profiler trace of as many launches, the kernels' own device
+    # time: cuda_ms also holds the host's issue time of a launch where
+    # that is the longer
+    def probe(sets, args_of, warm, launch, nbytes, bound, reps=96) -> dict:
+        res = {"copies": len(sets)}
+        regimes = [("warm", N_ENVS, [warm])] + [
+            ("cold", n, [args_of(*env_slice(set_, lo, lo + n)) for lo in range(0, N_ENVS, n) for set_ in sets])
+            for n in (N_ENVS, N_ENVS // 8)]
+        for label, n, arg_list in regimes:
+            cycle = itertools.cycle(arg_list)
+
+            def fn():
+                _build.check(launch(*next(cycle)[0], stream), "probe launch")
+
+            ms_ = cuda_ms(fn, reps)
+            busy, n_kernels = device_busy(lambda: [fn() for _ in range(reps)])
+            # the mean of the kernels the trace holds (it may miss a few)
+            dev_ms = busy / n_kernels if n_kernels else None
+            res[f"{label}_{n}_envs"] = {
+                "ms": ms_, "device_ms": dev_ms, "device_kernels": n_kernels,
+                "device_GBps": nbytes * n / N_ENVS / dev_ms / 1e6 if dev_ms else None,
+                "device_fraction_of_bound": bound * n / N_ENVS / dev_ms if dev_ms else None}
+        return res
+
+    def copies(physics, ref_, fields, out, nbytes):
+        return [(dataclasses.replace(physics, **{f: getattr(physics, f).clone() for f in fields}),
+                 {k: ref_[k].clone() for k in ("rg_pos", "rb_rot", "body_vel", "body_ang_vel")}, out())
+                for _ in range(max(2, math.ceil(2 * L2_BYTES / nbytes)))]
+
+    with torch.no_grad():
+        k2_sets = copies(ph, ref, ("body_pos", "body_rot", "body_vel", "body_ang_vel"),
+                         lambda: torch.empty(N_ENVS, env.obs_dim, device=dev), k2_bytes)
+        k2_probe = probe(k2_sets, lambda p_, r_, o_: cuda_obs.observe_args(e, p_, r_, o_, n_self), (k2_args, k2_ins),
+                         lib.k2_observe, k2_bytes, k2_bound)
+        del k2_sets
+        ra_sets = copies(k3, kin_ref, ("body_pos", "body_rot", "body_vel", "body_ang_vel", "joint_rot", "joint_omega"),
+                         lambda: cuda_obs.ra_outputs(N_ENVS, n_amp, dev), ra_bytes)
+        ra_probe = probe(ra_sets, lambda p_, r_, o_: cuda_obs.reward_amp_args(e, p_, r_, o_), (ra_args, ra_ins),
+                         lib.ra_reward_amp, ra_bytes, ra_bound)
+        del ra_sets
+    emit({"phase": "roofline", "card": card, "envs": N_ENVS, "group": GROUP,
+          "probe": {"K2": k2_probe, "RA": ra_probe}, "kernels": {
+        "K1": roof(k1_ms, 4.0 * N_ENVS * (x1.shape[1] + o1.shape[1]), k1_bound, k1_by,
+                   physics_geometry(lib.k1_kernel_info, GROUP)),
+        "K2": roof(k2_ms, k2_bytes, k2_bound, k2_by, launch_geometry(lib.k2_kernel_info, N_ENVS, J)),
+        "K3": roof(k3_ms, 4.0 * N_ENVS * (x3.shape[1] + o3.shape[1]), k3_bound, k3_by,
+                   physics_geometry(lib.k3_kernel_info, GROUP, 0)),
+        "K3rows": roof(k3r_ms, 4.0 * N_ENVS * (x3.shape[1] + m_rows.shape[1] + o3.shape[1]), k3r_bound, k3r_by,
+                       physics_geometry(lib.k3_kernel_info, GROUP, 1)),
+        "RA": roof(ra_ms, ra_bytes, ra_bound, ra_by, launch_geometry(lib.ra_kernel_info, N_ENVS))}})
+
     src = "pulse_tpu_torch/csrc/"
     emit({"kernels": [
         {"name": "step_reward_amp", "route": "cuda", "source": src + "step_reward_amp.cu",
          "replaces": "pulse_tpu/env/pallas_obs.py:376", "launches": im_launches["step_reward_amp"],
          "max_abs_err": max_err["step_reward_amp"], "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": None},
-        {"name": "observe", "route": "cuda", "source": src + "observe.cu",
+        {"name": "observe", "route": "cuda", "source": src + "observe.cuh",
          "replaces": "pulse_tpu/env/pallas_obs.py:558", "launches": im_launches["observe"],
          "max_abs_err": max_err["observe"], "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": None},

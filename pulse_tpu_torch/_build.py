@@ -147,13 +147,15 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            vp, i, sz = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+            vp, i, ll, sz = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_size_t
             lib.k1_model_consts_bytes.argtypes, lib.k1_model_consts_bytes.restype = [], sz
             lib.k1_env_consts_bytes.argtypes, lib.k1_env_consts_bytes.restype = [], sz
             lib.k1_set_consts.argtypes, lib.k1_set_consts.restype = [vp, sz, vp, sz, vp], i
             lib.k1_step_reward_amp.argtypes, lib.k1_step_reward_amp.restype = [vp, vp, i, i, i, vp], i
             lib.k1_kernel_info.argtypes, lib.k1_kernel_info.restype = [i, ctypes.POINTER(i)], i
-            lib.k2_observe.argtypes, lib.k2_observe.restype = [vp, vp, i, i, i, i, i, vp], i
+            ptrs, strides = ctypes.POINTER(vp), ctypes.POINTER(ll)
+            lib.k2_observe.argtypes, lib.k2_observe.restype = [ptrs, strides, vp, ll, i, i, i, i, i, vp], i
+            lib.k2_kernel_info.argtypes, lib.k2_kernel_info.restype = [i, i, ctypes.POINTER(i)], i
             lib.k3_model_consts_bytes.argtypes, lib.k3_model_consts_bytes.restype = [], sz
             lib.k3_set_consts.argtypes, lib.k3_set_consts.restype = [vp, sz, vp], i
             lib.k3_work_bytes.argtypes, lib.k3_work_bytes.restype = [], sz
@@ -162,7 +164,8 @@ def load() -> ctypes.CDLL:
             lib.k3_kernel_info.argtypes, lib.k3_kernel_info.restype = [i, i, ctypes.POINTER(i)], i
             lib.ra_env_consts_bytes.argtypes, lib.ra_env_consts_bytes.restype = [], sz
             lib.ra_set_consts.argtypes, lib.ra_set_consts.restype = [vp, sz, vp], i
-            lib.ra_reward_amp.argtypes, lib.ra_reward_amp.restype = [vp, vp, i, i, vp], i
+            lib.ra_reward_amp.argtypes, lib.ra_reward_amp.restype = [ptrs, strides, ptrs, strides, i, vp], i
+            lib.ra_kernel_info.argtypes, lib.ra_kernel_info.restype = [i, ctypes.POINTER(i)], i
             lib.k_error_string.argtypes, lib.k_error_string.restype = [i], ctypes.c_char_p
             _lib = lib
         return _lib

@@ -1,5 +1,6 @@
 // Per-env math shared by the humanoid kernels: xyzw quaternions, exp maps,
-// tan-norm, heading, 3x3 blocks and Featherstone spatial transforms.
+// tan-norm, heading, 3x3 blocks and Featherstone spatial transforms; and the
+// lane group (Lanes) that runs a kernel's phases for one env.
 //
 // Every function mirrors a plain PyTorch function of the port
 // (pulse_tpu_torch/ops/quat.py, physics/spatial.py, env/kernels.py) formula
@@ -32,8 +33,8 @@ struct V3 { float x, y, z; };
 struct Q4 { float x, y, z, w; };
 struct M3 { float m[3][3]; };
 
-// One env's column of a [rows, B] block: row r lives at p[r * stride]
-// (stride B on the card, 1 for a host record).
+// One env's record: value r lives at p[r * stride] (stride 1 for the
+// env-major records the kernels read and write).
 struct RowsIn {
   const float* p;
   long long stride;
@@ -45,6 +46,54 @@ struct RowsOut {
   HD void operator()(int r, float v) const { p[r * stride] = v; }
 };
 
+// One env's group of G lanes. A phase is a function of the lane; run(f)
+// runs it and then the group's barrier. On the card each lane runs its own
+// f(lane) and waits at __syncwarp for the group's lanes; on the host one
+// thread runs f for each lane in turn, which gives the same result because
+// no lane reads in a phase what another lane writes in it.
+template <int G>
+struct Lanes {
+  static_assert(G >= 1 && G <= 32 && 32 % G == 0, "a group lies in one warp");
+  int lane;
+  unsigned mask;
+  template <class F>
+  HD void operator()(F f) const {
+#if defined(__CUDA_ARCH__)
+    f(lane);
+    __syncwarp(mask);
+#else
+    for (int l = 0; l < G; ++l) f(l);
+#endif
+  }
+};
+
+#if defined(__CUDACC__)
+// The group's lanes within the warp.
+template <int G>
+__device__ __forceinline__ unsigned group_mask() {
+  return G == 32 ? 0xffffffffu : ((1u << G) - 1u) << (threadIdx.x % 32 / G * G);
+}
+#endif
+
+// Float multiply and add that the compiler may not fuse into an FMA: where
+// two kernels must give the same bits from one sum (K1's epilogue and RA),
+// each term is rounded the same way whether it is added at once or first
+// stored. The host compiler does not contract (x86-64 without -mfma).
+HD float mul_rn(float a, float b) {
+#if defined(__CUDA_ARCH__)
+  return __fmul_rn(a, b);
+#else
+  return a * b;
+#endif
+}
+HD float add_rn(float a, float b) {
+#if defined(__CUDA_ARCH__)
+  return __fadd_rn(a, b);
+#else
+  return a + b;
+#endif
+}
+
 HD V3 v3(float x, float y, float z) { return V3{x, y, z}; }
 HD V3 operator+(V3 a, V3 b) { return V3{a.x + b.x, a.y + b.y, a.z + b.z}; }
 HD V3 operator-(V3 a, V3 b) { return V3{a.x - b.x, a.y - b.y, a.z - b.z}; }
@@ -55,6 +104,8 @@ HD V3 cross(V3 a, V3 b) {
   return V3{a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
 }
 HD float sq3(V3 a) { return dot(a, a); }
+// |a|^2 with every product and sum rounded on its own (mul_rn, add_rn)
+HD float sq3_rn(V3 a) { return add_rn(add_rn(mul_rn(a.x, a.x), mul_rn(a.y, a.y)), mul_rn(a.z, a.z)); }
 
 // ---- quaternions (ops/quat.py) ------------------------------------------ //
 

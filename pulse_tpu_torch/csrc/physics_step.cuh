@@ -243,27 +243,6 @@ struct Work {
   union { Inertia I; Contacts cp; WorldBodies wb; } y;
 };
 
-// One env's group of G lanes. A phase is a function of the lane; run(f)
-// runs it and then the group's barrier. On the card each lane runs its own
-// f(lane) and waits at __syncwarp for the group's lanes; on the host one
-// thread runs f for each lane in turn, which gives the same result because
-// no lane reads in a phase what another lane writes in it.
-template <int G>
-struct Lanes {
-  static_assert(G >= 1 && G <= 32 && 32 % G == 0, "a group lies in one warp");
-  int lane;
-  unsigned mask;
-  template <class F>
-  HD void operator()(F f) const {
-#if defined(__CUDA_ARCH__)
-    f(lane);
-    __syncwarp(mask);
-#else
-    for (int l = 0; l < G; ++l) f(l);
-#endif
-  }
-};
-
 // ---- the phases ----------------------------------------------------------- //
 
 // FK and pass-1 velocities of level l's bodies, with their velocity-product
@@ -614,13 +593,5 @@ constexpr int kEnvsPerBlock = 8;
 // The group sizes built for the card: G = 1 (the one-lane baseline), the
 // chosen kGroup among them, and the others chip_smoke.py times beside it.
 #define HM_GROUPS(X) X(1) X(4) X(8) X(16) X(32)
-
-#if defined(__CUDACC__)
-// The group's lanes within the warp.
-template <int G>
-__device__ __forceinline__ unsigned group_mask() {
-  return G == 32 ? 0xffffffffu : ((1u << G) - 1u) << (threadIdx.x % 32 / G * G);
-}
-#endif
 
 }  // namespace hm

@@ -1,7 +1,6 @@
-// RA: the imitation env's reward/AMP epilogue on an already-stepped state,
-// one thread per env (reward_amp.cuh, the same code K1 runs after its
-// physics): reward, its 4 raw terms, mean/max termination distance and the
-// AMP row.
+// RA: the imitation env's reward/AMP epilogue on an already-stepped state
+// (reward_amp.cuh, the same code K1 runs after its physics): reward, its 4
+// raw terms, mean/max termination distance and the AMP row.
 //
 // Replaces the TPU kernel pulse_tpu/env/pallas_obs.py:pallas_reward_amp
 // (body _build_reward_amp_kernel). Plain version:
@@ -9,9 +8,13 @@
 //
 // Bound on the H100: by bytes. An env reads 785 floats (stepped bodies 13J,
 // joint rotations and velocities 7(J-1), reference bodies 13J) and writes
-// 239, with a few thousand float operations in between. Inputs and outputs
-// are [rows, B], so a warp's 32 loads of one row are one 128-byte line; the
-// stepped bodies sit in per-thread arrays.
+// 239, with ~5,000 float operations in between. The design keeps loads in
+// flight: one warp an env, 8 envs a block (384 blocks at 3072 envs, all
+// resident at once). The warp copies the env's ten input blocks into shared
+// memory (RaEnv, 3.6 KB), reading the [B, ...] tensors in place through a
+// pointer and an env stride each, 32 consecutive floats a load; then its
+// lanes compute the per-body terms and the AMP row's dof entries, and lane
+// 0 finishes. The outputs go straight into their own tensors.
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -22,30 +25,17 @@ using namespace hm;
 // This translation unit's copy of the env constants (ra_set_consts).
 static __constant__ EnvConsts c_env;
 
-__global__ void __launch_bounds__(128) reward_amp_kernel(const float* __restrict__ in,
-                                                         float* __restrict__ out, int B) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= B) return;
-  const int J = c_env.J, Jm1 = J - 1;
-  const RowsIn x{in + e, B};
-  // input rows: bodies pos 3J | rot 4J | vel 3J | ang 3J | joint rot 4(J-1)
-  // | joint omega 3(J-1) | reference bodies 13J
-  const int bp = 0, br = 3 * J, bv = 7 * J, ba = 10 * J, r_jrot = 13 * J, r_om = r_jrot + 4 * Jm1;
-  V3 pos[MAX_J], vel[MAX_J], ang[MAX_J];
-  Q4 rot[MAX_J], jrot[MAX_J - 1];
-  V3 omega[MAX_J - 1];
-  for (int b = 0; b < J; ++b) {
-    pos[b] = V3{x(bp + 3 * b), x(bp + 3 * b + 1), x(bp + 3 * b + 2)};
-    rot[b] = Q4{x(br + 4 * b), x(br + 4 * b + 1), x(br + 4 * b + 2), x(br + 4 * b + 3)};
-    vel[b] = V3{x(bv + 3 * b), x(bv + 3 * b + 1), x(bv + 3 * b + 2)};
-    ang[b] = V3{x(ba + 3 * b), x(ba + 3 * b + 1), x(ba + 3 * b + 2)};
-  }
-  for (int j = 0; j < Jm1; ++j) {
-    jrot[j] = Q4{x(r_jrot + 4 * j), x(r_jrot + 4 * j + 1), x(r_jrot + 4 * j + 2), x(r_jrot + 4 * j + 3)};
-    omega[j] = V3{x(r_om + 3 * j), x(r_om + 3 * j + 1), x(r_om + 3 * j + 2)};
-  }
-  const RowsIn ref{in + e + (size_t)(r_om + 3 * Jm1) * B, B};
-  reward_amp(c_env, pos, rot, vel, ang, jrot, omega, ref, RowsOut{out + e, B});
+constexpr int kRaEnvs = 8;   // envs (warps) a block
+// Resident blocks an SM the registers must allow: 3 x 132 SMs hold the 384
+// blocks of 3072 envs in one wave (at most 85 registers a thread).
+constexpr int kRaMinBlocks = 3;
+
+__global__ void __launch_bounds__(kRaEnvs * 32, kRaMinBlocks) reward_amp_kernel(RaIn in, RaOut out, int B) {
+  __shared__ RaEnv envs[kRaEnvs];
+  const int w = threadIdx.x / 32;
+  const int e = blockIdx.x * kRaEnvs + w;
+  if (e >= B) return;   // the whole warp: no other warp waits for it
+  reward_amp_env(Lanes<32>{(int)(threadIdx.x % 32), 0xffffffffu}, c_env, in, out, e, envs[w]);
 }
 
 extern "C" {
@@ -59,9 +49,32 @@ int ra_set_consts(const void* env, size_t env_bytes, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// in: [785, B] f32, out: [239, B] f32 at the SMPL humanoid's J = 24 (AMP v1).
-int ra_reward_amp(const float* in, float* out, int B, int block, void* stream) {
-  reward_amp_kernel<<<(B + block - 1) / block, block, 0, (cudaStream_t)stream>>>(in, out, B);
+// in[10] / in_stride[10]: RaIn's tensors and env strides (floats); out[5] /
+// out_stride[5]: reward, raw, dist mean, dist max, AMP row.
+int ra_reward_amp(const void* const* in, const long long* in_stride, void* const* out,
+                  const long long* out_stride, int B, void* stream) {
+  RaIn x;
+  RaOut y;
+  for (int k = 0; k < kRaInputs; ++k) {
+    x.p[k] = (const float*)in[k];
+    x.stride[k] = in_stride[k];
+  }
+  for (int k = 0; k < 5; ++k) {
+    y.p[k] = (float*)out[k];
+    y.stride[k] = out_stride[k];
+  }
+  if (B > 0)
+    reward_amp_kernel<<<(B + kRaEnvs - 1) / kRaEnvs, kRaEnvs * 32, 0, (cudaStream_t)stream>>>(x, y, B);
+  return (int)cudaGetLastError();
+}
+
+// Launch geometry of RA at B envs into info[4]: blocks, threads a block,
+// shared bytes a block, resident blocks an SM.
+int ra_kernel_info(int B, int* info) {
+  info[0] = (B + kRaEnvs - 1) / kRaEnvs;
+  info[1] = kRaEnvs * 32;
+  info[2] = (int)(kRaEnvs * sizeof(RaEnv));
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[3], reward_amp_kernel, kRaEnvs * 32, 0);
   return (int)cudaGetLastError();
 }
 

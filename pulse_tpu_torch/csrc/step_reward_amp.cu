@@ -19,8 +19,9 @@
 // records are env-major ([B, rows]) so a group reads and writes its env's
 // contiguously. The
 // epilogue (~2% of the work) runs on the world bodies the physics left in
-// shared memory: the AMP row's dof tan-norms (half of it) over the group's
-// lanes, the rest on its first lane; it is the same code RA runs.
+// shared memory: the AMP row's dof entries (phase b of reward_amp.cuh, half
+// of its work) over the group's lanes, the rest on its first lane; it is
+// the same code RA runs.
 #include <cuda_runtime.h>
 #include <stddef.h>
 

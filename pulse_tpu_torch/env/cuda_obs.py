@@ -11,10 +11,10 @@ Counterpart of `pulse_tpu/env/pallas_obs.py`:
     stepped (csrc/reward_amp.cu; replaces `pallas_reward_amp`). The env
     runs K3 → RA where a subclass overrides termination or reset or the
     observation carries shape channels, and K3-rows → RA with per-env body
-    shapes. The wrapper appends the env's shape columns to the AMP row.
+    shapes. The wrapper fills the env's shape columns of the AMP row.
   * K2 `observe` — self obs v1 ++ task obs v6 (T = 1) of the post-merge
-    state (csrc/observe.cu; replaces `pallas_observe`). The wrapper splices
-    the env's shape columns in between.
+    state (csrc/observe.cu + observe.cuh; replaces `pallas_observe`). The
+    wrapper fills the env's shape columns between the two.
 
 The shape columns are functions of the env's body shape alone, never of
 the state, so they stay outside the kernels.
@@ -23,15 +23,18 @@ A wrapper given CPU tensors runs the plain version. Given CUDA tensors it
 launches the kernel or raises; it never falls back. `_build.launches`
 counts the kernel launches of each wrapper.
 
-Kernel layouts, built by the wrappers from the [B, ...] tensors: K1's
-records are env-major [B, rows] float32, as K3's (a group of lanes steps
-one env and reads and writes its record contiguously); RA and K2, one
-thread per env, take [rows, B] (one row per scalar of the per-env record),
-so neighbouring threads read neighbouring addresses.
+Kernel layouts. K1's records are env-major [B, rows] float32, as K3's (a
+group of lanes steps one env and reads and writes its record
+contiguously). RA (one warp an env) and K2 (one thread an (env, body)
+pair) read the [B, ...] tensors in place, each through its pointer and env
+stride (`substep_cuda.env_strided`), and write env-major outputs: RA
+reward, raws, distances and the AMP row into their own tensors, K2 the
+[B, obs_dim] observation.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -43,12 +46,10 @@ from pulse_tpu_torch.physics import substep_cuda
 from pulse_tpu_torch.physics.model import Model
 from pulse_tpu_torch.physics.state import PhysicsState, dof_pos_from_state, dof_vel_from_state
 from pulse_tpu_torch.physics.step import physics_step
-from pulse_tpu_torch.physics.substep_cuda import check_kernel_inputs, env_block, physics_state_from_rows, rows_block
+from pulse_tpu_torch.physics.substep_cuda import check_kernel_inputs, env_block, env_strided, physics_state_from_rows
 
 MAX_KEY = 8           # csrc/reward_amp.cuh MAX_KEY
 RA_ROWS = 7           # csrc/reward_amp.cuh kRaRows: reward, 4 raws, dist mean, dist max
-K2_BLOCK = 128        # matches __launch_bounds__(128)
-RA_BLOCK = 128        # matches __launch_bounds__(128)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -216,6 +217,55 @@ def _split_reward_amp(ra: torch.Tensor):
     )
 
 
+def _pointers(tensors: list[torch.Tensor], strides: list[int]) -> tuple:
+    """ctypes arrays of the tensors' addresses and their env strides."""
+    return ((ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors]),
+            (ctypes.c_longlong * len(strides))(*strides))
+
+
+def ra_outputs(B: int, n_amp: int, dev) -> tuple:
+    """RA's outputs, one allocation: reward [B], raw [B, 4], dist_mean [B],
+    dist_max [B] and the AMP row [B, n_amp], each contiguous."""
+    buf = torch.empty(B * (RA_ROWS + n_amp), device=dev)
+    return (buf[:B], buf[B : 5 * B].view(B, 4), buf[5 * B : 6 * B], buf[6 * B : 7 * B],
+            buf[7 * B :].view(B, n_amp))
+
+
+def reward_amp_args(e: EnvConsts, physics: PhysicsState, ref: dict, outs: tuple) -> tuple[tuple, list]:
+    """`lib.ra_reward_amp`'s arguments but the stream, after the layout
+    checks, and the input tensors they point into (`env_strided` may have
+    copied one: keep them while the arguments are in use)."""
+    B, J = physics.body_pos.shape[0], e.J
+    # csrc/reward_amp.cuh RaIn's order
+    ins = [env_strided(t, n) for t, n in zip(
+        [physics.body_pos, physics.body_rot, physics.body_vel, physics.body_ang_vel, physics.joint_rot,
+         physics.joint_omega] + _bodies(ref),
+        (3 * J, 4 * J, 3 * J, 3 * J, 4 * (J - 1), 3 * (J - 1), 3 * J, 4 * J, 3 * J, 3 * J))]
+    check_kernel_inputs([t for t, _ in ins] + list(outs), B)
+    reward, raw, dmean, dmax, amp = outs
+    n_amp = amp_obs_dim(J, len(e.key_ids), e.amp_v, e.root_height_obs)
+    if (any(t.dim() != 1 for t in (reward, dmean, dmax)) or raw.shape[1:] != (4,) or raw.stride(1) != 1
+            or amp.dim() != 2 or amp.shape[1] < n_amp or amp.stride(1) != 1):
+        raise ValueError(f"RA outputs {[tuple(t.shape) for t in outs]}: expected [B], [B, 4], [B], [B], "
+                         f"[B, >= {n_amp}] with unit stride within a row")
+    tensors = [t for t, _ in ins]
+    return (*_pointers(tensors, [s for _, s in ins]), *_pointers(list(outs), [t.stride(0) for t in outs]), B), tensors
+
+
+def launch_reward_amp(e: EnvConsts, physics: PhysicsState, ref: dict, outs: tuple) -> None:
+    """RA's kernel on CUDA tensors into `outs` (`ra_outputs`, or any five
+    tensors of B rows with unit stride within a row), its env constants
+    uploaded; counted in `_build.launches`."""
+    args, _ = reward_amp_args(e, physics, ref, outs)
+    dev = outs[0].device
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _build.upload_consts("reward_amp", (e,), lambda: (e.table(),), dev, stream)
+        _build.check(lib.ra_reward_amp(*args, stream), "RA launch")
+    _build.launches["reward_amp"] += 1
+
+
 def reward_amp(e: EnvConsts, physics: PhysicsState, ref: dict, shape_params=None, limb_weight_params=None):
     """RA. K1's epilogue on an already-stepped state against the reference
     at the post-step time: (reward [B], raw [B, 4], dist_mean [B],
@@ -223,44 +273,59 @@ def reward_amp(e: EnvConsts, physics: PhysicsState, ref: dict, shape_params=None
     shape columns."""
     if physics.body_pos.device.type == "cpu":
         return reward_amp_plain(e, physics, ref, shape_params, limb_weight_params)
-    B, J = physics.body_pos.shape[0], e.J
-    parts = [physics.body_pos, physics.body_rot, physics.body_vel, physics.body_ang_vel,
-             physics.joint_rot, physics.joint_omega] + _bodies(ref)
-    dev = check_kernel_inputs(parts, B)
-    n_out = RA_ROWS + amp_obs_dim(J, len(e.key_ids), e.amp_v, e.root_height_obs)
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        x = rows_block(parts, B, 26 * J + 7 * (J - 1))
-        out = torch.empty(n_out, B, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _build.upload_consts("reward_amp", (e,), lambda: (e.table(),), dev, stream)
-        _build.check(lib.ra_reward_amp(x.data_ptr(), out.data_ptr(), B, RA_BLOCK, stream), "RA launch")
-    _build.launches["reward_amp"] += 1
-    reward, raw, dmean, dmax, amp = _split_reward_amp(out.t())
+    B = physics.body_pos.shape[0]
+    n_amp = amp_obs_dim(e.J, len(e.key_ids), e.amp_v, e.root_height_obs)
     tails = [t for t in (shape_params, limb_weight_params) if t is not None]
-    return reward, raw, dmean, dmax, torch.cat([amp] + tails, dim=1) if tails else amp
+    outs = ra_outputs(B, n_amp + sum(t.shape[1] for t in tails), physics.body_pos.device)
+    launch_reward_amp(e, physics, ref, outs)
+    amp, col = outs[4], n_amp
+    for t in tails:
+        amp[:, col : col + t.shape[1]] = t
+        col += t.shape[1]
+    return outs
+
+
+def observe_args(e: EnvConsts, physics: PhysicsState, ref: dict, out: torch.Tensor,
+                 task_col: int) -> tuple[tuple, list]:
+    """`lib.k2_observe`'s arguments but the stream, after the layout checks,
+    and the input tensors they point into (keep them while the arguments
+    are in use)."""
+    B, J = physics.body_pos.shape[0], e.J
+    # csrc/observe.cuh ObsIn's order
+    ins = [env_strided(t, k * J) for t, k in zip(
+        [physics.body_pos, physics.body_rot, physics.body_vel, physics.body_ang_vel] + _bodies(ref),
+        (3, 4, 3, 3, 3, 4, 3, 3))]
+    check_kernel_inputs([t for t, _ in ins] + [out], B)
+    if out.stride(1) != 1 or out.shape[1] < task_col + 24 * J:
+        raise ValueError(f"observation buffer {tuple(out.shape)} {out.stride()}: expected [B, >= {task_col + 24 * J}]"
+                         " with unit column stride")
+    tensors = [t for t, _ in ins]
+    return (*_pointers(tensors, [s for _, s in ins]), out.data_ptr(), out.stride(0), task_col, B, J,
+            int(e.local_root_obs), int(e.root_height_obs)), tensors
+
+
+def launch_observe(e: EnvConsts, physics: PhysicsState, ref: dict, out: torch.Tensor, task_col: int) -> None:
+    """K2's kernel on CUDA tensors into `out` ([B, >= task_col + 24 J], unit
+    stride within a row): the self obs to columns [0, self_obs_dim), the
+    task obs from column `task_col`; counted in `_build.launches`."""
+    args, _ = observe_args(e, physics, ref, out, task_col)
+    lib = _build.load()
+    with torch.cuda.device(out.device):
+        _build.check(lib.k2_observe(*args, torch.cuda.current_stream(out.device).cuda_stream), "K2 launch")
+    _build.launches["observe"] += 1
 
 
 def observe(e: EnvConsts, physics: PhysicsState, ref: dict, shape_obs=None) -> torch.Tensor:
     """K2. [B, obs_dim] observation of the (post-merge) state against the
     reference bodies at the next control time, with the per-env shape
-    columns [B, S] spliced between self and task obs where given."""
+    columns [B, S] between self and task obs where given."""
     if physics.body_pos.device.type == "cpu":
         return observe_plain(e, physics, ref, shape_obs)
-    B, J = physics.body_pos.shape[0], e.J
-    parts = [physics.body_pos, physics.body_rot, physics.body_vel, physics.body_ang_vel] + _bodies(ref)
-    dev = check_kernel_inputs(parts, B)
-    n_out = obs_dim(J, e.root_height_obs)
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        x = rows_block(parts, B, 26 * J)
-        out = torch.empty(n_out, B, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.k2_observe(x.data_ptr(), out.data_ptr(), B, J, int(e.local_root_obs), int(e.root_height_obs),
-                            K2_BLOCK, stream)
-        _build.check(rc, "K2 launch")
-    _build.launches["observe"] += 1
-    if shape_obs is None:
-        return out.t().contiguous()
-    n_self = self_obs_dim(J, e.root_height_obs)
-    return torch.cat([out[:n_self].t(), shape_obs, out[n_self:].t()], dim=1)
+    B = physics.body_pos.shape[0]
+    S = 0 if shape_obs is None else shape_obs.shape[1]
+    n_self = self_obs_dim(e.J, e.root_height_obs)
+    out = torch.empty(B, obs_dim(e.J, e.root_height_obs, S), device=physics.body_pos.device)
+    launch_observe(e, physics, ref, out, n_self + S)
+    if S:
+        out[:, n_self : n_self + S] = shape_obs
+    return out

@@ -21,7 +21,8 @@ Counterpart of `pulse_tpu/physics/substep_pallas.py`:
     it, uploaded from the base model.
   * the env-major `[B, rows]` records of the physics kernels' inputs and
     outputs (`env_block`, `physics_state_from_rows`), which K1 and K3 share,
-    and the `[rows, B]` blocks of RA and K2 (`rows_block`).
+    and the layout check of the `[B, ...]` tensors RA and K2 read in place
+    (`env_strided`).
 
 A wrapper given CPU tensors runs the plain version. Given CUDA tensors it
 launches the kernel or raises; it never falls back.
@@ -30,6 +31,7 @@ launches the kernel or raises; it never falls back.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -151,9 +153,21 @@ def env_block(parts: list[torch.Tensor], B: int, n_rows: int) -> torch.Tensor:
     return x
 
 
-def rows_block(parts: list[torch.Tensor], B: int, n_rows: int) -> torch.Tensor:
-    """[B, ...] tensors -> one contiguous [n_rows, B] block."""
-    return env_block(parts, B, n_rows).t().contiguous()
+def env_strided(t: torch.Tensor, n: int) -> tuple[torch.Tensor, int]:
+    """A [B, ...] kernel input of n floats an env, as (tensor, env stride in
+    floats) for a kernel that reads env e's block at data_ptr + e * stride:
+    the tensor itself where each env's block is contiguous (a contiguous
+    tensor, or a view into wider rows such as `physics_state_from_rows`'
+    joint_rot), else a contiguous copy."""
+    if math.prod(t.shape[1:]) != n:
+        raise ValueError(f"kernel input {tuple(t.shape)}: expected {n} floats an env")
+    expect = 1
+    for size, stride in zip(reversed(t.shape[1:]), reversed(t.stride()[1:])):
+        if size != 1 and stride != expect:
+            t = t.contiguous()
+            break
+        expect *= size
+    return t, t.stride(0)
 
 
 def physics_state_from_rows(rows: torch.Tensor, J: int) -> PhysicsState:

@@ -6,9 +6,10 @@ seed and handed to both packages as numpy arrays.
 
 Also: the port imports no JAX, its entry points demand CUDA unless given
 device="cpu", its asset file equals the JAX package's, the constant tables
-the kernels read match the C structs' layout, and the kernels' per-env math
-and reward/AMP epilogue headers, built for the host by g++, agree with the
-plain functions.
+the kernels read match the C structs' layout, the kernels' per-env math,
+reward/AMP epilogue and observation headers, built for the host by g++,
+agree with the plain functions, and the layout check of the tensors RA and
+K2 read in place.
 """
 
 import ast
@@ -509,46 +510,91 @@ def test_kernel_math_header_matches_plain_functions(tmp_path):
 _EPILOGUE_HARNESS = r"""
 #include <cstdio>
 #include <cstdlib>
+#include <cstring>
 #include <vector>
+#include "observe.cuh"
 #include "reward_amp.cuh"
 using namespace hm;
-// argv: input file, output file, lanes (K1 splits the epilogue over its
-// group's lanes, RA runs one). in: n, width, n_out, table bytes, EnvConsts,
-// then per env the RA kernel's input record (bodies 13J | joint rot 4(J-1)
-// | joint omega 3(J-1) | ref 13J)
+// argv: mode, input file, output file. in: n, width (floats an env record,
+// the env stride), n_out, then per mode:
+//   k1 <lanes>: table bytes, EnvConsts, records bodies 13J | joint rot
+//     4(J-1) | joint omega 3(J-1) | ref 13J (| pad); reward_amp over `lanes`
+//     lanes (K1's group split), output records reward | raws | dists | AMP;
+//   ra: the same input, read in place through RaIn (one pointer and env
+//     stride per tensor), run as RA runs it (reward_amp_env, 32 lanes);
+//   k2: J, local_root_obs, root_height_obs, task_col, records bodies 13J |
+//     ref 13J (| pad); observe_body for every (env, body) pair.
+static FILE* open_in(const char* path, int* n, int* width, int* n_out) {
+  FILE* f = std::fopen(path, "rb");
+  if (std::fread(n, 4, 1, f) != 1 || std::fread(width, 4, 1, f) != 1 || std::fread(n_out, 4, 1, f) != 1) std::exit(2);
+  return f;
+}
 int main(int argc, char** argv) {
-  const int lanes = std::atoi(argv[3]);
-  FILE* f = std::fopen(argv[1], "rb");
-  int n, width, n_out, table_bytes;
-  EnvConsts c;
-  if (std::fread(&n, 4, 1, f) != 1 || std::fread(&width, 4, 1, f) != 1 || std::fread(&n_out, 4, 1, f) != 1 ||
-      std::fread(&table_bytes, 4, 1, f) != 1 || table_bytes != (int)sizeof(EnvConsts) ||
-      std::fread(&c, sizeof(EnvConsts), 1, f) != 1) return 2;
-  std::vector<float> in((size_t)n * width), out((size_t)n * n_out, -1e30f);
-  if (std::fread(in.data(), 4, in.size(), f) != in.size()) return 1;
-  std::fclose(f);
-  const int J = c.J, Jm1 = J - 1;
-  for (int i = 0; i < n; ++i) {
-    const float* x = in.data() + (size_t)i * width;
-    V3 pos[MAX_J], vel[MAX_J], ang[MAX_J], omega[MAX_J - 1];
-    Q4 rot[MAX_J], jrot[MAX_J - 1];
-    for (int b = 0; b < J; ++b) {
-      pos[b] = V3{x[3 * b], x[3 * b + 1], x[3 * b + 2]};
-      rot[b] = Q4{x[3 * J + 4 * b], x[3 * J + 4 * b + 1], x[3 * J + 4 * b + 2], x[3 * J + 4 * b + 3]};
-      vel[b] = V3{x[7 * J + 3 * b], x[7 * J + 3 * b + 1], x[7 * J + 3 * b + 2]};
-      ang[b] = V3{x[10 * J + 3 * b], x[10 * J + 3 * b + 1], x[10 * J + 3 * b + 2]};
+  const char* mode = argv[1];
+  int n, width, n_out;
+  FILE* f = open_in(argv[2], &n, &width, &n_out);
+  std::vector<float> out;
+  if (!std::strcmp(mode, "k2")) {
+    int hdr[4];
+    if (std::fread(hdr, 4, 4, f) != 4) return 2;
+    const int J = hdr[0];
+    std::vector<float> in((size_t)n * width);
+    if (std::fread(in.data(), 4, in.size(), f) != in.size()) return 1;
+    out.assign((size_t)n * n_out, -1e30f);
+    const int offs[8] = {0, 3 * J, 7 * J, 10 * J, 13 * J, 16 * J, 20 * J, 23 * J};
+    ObsIn x;
+    for (int k = 0; k < kObsInputs; ++k) { x.p[k] = in.data() + offs[k]; x.stride[k] = width; }
+    for (int e = 0; e < n; ++e)
+      for (int b = 0; b < J; ++b)
+        observe_body(x, e, b, J, hdr[1], hdr[2], RowsOut{out.data() + (size_t)e * n_out, 1}, hdr[3]);
+  } else {
+    int table_bytes;
+    EnvConsts c;
+    if (std::fread(&table_bytes, 4, 1, f) != 1 || table_bytes != (int)sizeof(EnvConsts) ||
+        std::fread(&c, sizeof(EnvConsts), 1, f) != 1) return 2;
+    std::vector<float> in((size_t)n * width);
+    if (std::fread(in.data(), 4, in.size(), f) != in.size()) return 1;
+    out.assign((size_t)n * n_out, -1e30f);
+    const int J = c.J, Jm1 = J - 1;
+    if (!std::strcmp(mode, "ra")) {
+      const int offs[kRaInputs] = {0, 3 * J, 7 * J, 10 * J, 13 * J, 13 * J + 4 * Jm1, 13 * J + 7 * Jm1,
+                                   16 * J + 7 * Jm1, 20 * J + 7 * Jm1, 23 * J + 7 * Jm1};
+      RaIn x;
+      for (int k = 0; k < kRaInputs; ++k) { x.p[k] = in.data() + offs[k]; x.stride[k] = width; }
+      const int rows[5] = {0, 1, 5, 6, kRaRows};
+      RaOut y;
+      for (int k = 0; k < 5; ++k) { y.p[k] = out.data() + rows[k]; y.stride[k] = n_out; }
+      RaEnv s;
+      for (int e = 0; e < n; ++e) {
+        std::memset(&s, 0xff, sizeof s);   // NaN: a read of a slot not staged shows
+        reward_amp_env(Lanes<32>{0, 0u}, c, x, y, e, s);
+      }
+    } else {
+      const int lanes = std::atoi(argv[4]);
+      for (int i = 0; i < n; ++i) {
+        const float* x = in.data() + (size_t)i * width;
+        V3 pos[MAX_J], vel[MAX_J], ang[MAX_J], omega[MAX_J - 1];
+        Q4 rot[MAX_J], jrot[MAX_J - 1];
+        for (int b = 0; b < J; ++b) {
+          pos[b] = V3{x[3 * b], x[3 * b + 1], x[3 * b + 2]};
+          rot[b] = Q4{x[3 * J + 4 * b], x[3 * J + 4 * b + 1], x[3 * J + 4 * b + 2], x[3 * J + 4 * b + 3]};
+          vel[b] = V3{x[7 * J + 3 * b], x[7 * J + 3 * b + 1], x[7 * J + 3 * b + 2]};
+          ang[b] = V3{x[10 * J + 3 * b], x[10 * J + 3 * b + 1], x[10 * J + 3 * b + 2]};
+        }
+        const float* jr = x + 13 * J;
+        const float* om = jr + 4 * Jm1;
+        for (int j = 0; j < Jm1; ++j) {
+          jrot[j] = Q4{jr[4 * j], jr[4 * j + 1], jr[4 * j + 2], jr[4 * j + 3]};
+          omega[j] = V3{om[3 * j], om[3 * j + 1], om[3 * j + 2]};
+        }
+        for (int l = 0; l < lanes; ++l)
+          reward_amp(c, pos, rot, vel, ang, jrot, omega, RowsIn{om + 3 * Jm1, 1},
+                     RowsOut{out.data() + (size_t)i * n_out, 1}, l, lanes);
+      }
     }
-    const float* jr = x + 13 * J;
-    const float* om = jr + 4 * Jm1;
-    for (int j = 0; j < Jm1; ++j) {
-      jrot[j] = Q4{jr[4 * j], jr[4 * j + 1], jr[4 * j + 2], jr[4 * j + 3]};
-      omega[j] = V3{om[3 * j], om[3 * j + 1], om[3 * j + 2]};
-    }
-    for (int l = 0; l < lanes; ++l)
-      reward_amp(c, pos, rot, vel, ang, jrot, omega, RowsIn{om + 3 * Jm1, 1},
-                 RowsOut{out.data() + (size_t)i * n_out, 1}, l, lanes);
   }
-  f = std::fopen(argv[2], "wb");
+  std::fclose(f);
+  f = std::fopen(argv[3], "wb");
   std::fwrite(out.data(), 4, out.size(), f);
   std::fclose(f);
   return 0;
@@ -571,24 +617,35 @@ def epilogue_harness(tmp_path_factory):
     return d
 
 
-def _epilogue_case(port, epilogue_harness, amp_v: int, lanes: int):
-    """(the harness's [B, 7 + A] rows over `lanes` lanes, reward_amp_plain's)
-    on jittered stepped states."""
+def _run_harness(d, mode: str, header: list, payload: bytes, n_out: int, *args) -> np.ndarray:
+    """Run the host harness in `mode` on one input file; its [B, n_out]
+    output."""
     import subprocess
 
+    name = "_".join([mode, *map(str, header), *map(str, args)])
+    (d / f"in_{name}.bin").write_bytes(np.asarray(header, np.int32).tobytes() + payload)
+    out = d / f"out_{name}.bin"
+    subprocess.run([str(d / "harness"), mode, str(d / f"in_{name}.bin"), str(out), *map(str, args)], check=True,
+                   timeout=60)
+    return np.fromfile(out, np.float32).reshape(B, n_out)
+
+
+def _epilogue_case(port, epilogue_harness, amp_v: int, lanes: int, mode: str = "k1", pad: int = 0):
+    """(the harness's [B, 7 + A] rows, reward_amp_plain's) on jittered
+    stepped states: K1's epilogue over `lanes` lanes, or (mode "ra") RA's
+    staged one-warp path; each env's input record followed by `pad` NaNs,
+    so that the env stride exceeds the record."""
     ph, ref = _stepped_like(port, seed=6)
     e = dataclasses.replace(port[3].consts, amp_v=amp_v)
     want = torch.cat([t.reshape(B, -1) for t in cuda_obs.reward_amp_plain(e, ph, ref)], dim=1).numpy()
     x = torch.cat([t.reshape(B, -1) for t in [ph.body_pos, ph.body_rot, ph.body_vel, ph.body_ang_vel, ph.joint_rot,
                                                ph.joint_omega, ref["rg_pos"], ref["rb_rot"], ref["body_vel"],
                                                ref["body_ang_vel"]]], dim=1).numpy()
+    x = np.concatenate([x, np.full((B, pad), np.nan, np.float32)], axis=1)
     table = e.table()
-    d = epilogue_harness
-    (d / f"in{amp_v}.bin").write_bytes(np.asarray([B, x.shape[1], want.shape[1], len(table)], np.int32).tobytes()
-                                       + table + x.tobytes())
-    out = d / f"out{amp_v}_{lanes}.bin"
-    subprocess.run([str(d / "harness"), str(d / f"in{amp_v}.bin"), str(out), str(lanes)], check=True, timeout=60)
-    return np.fromfile(out, np.float32).reshape(B, -1), want
+    got = _run_harness(epilogue_harness, mode, [B, x.shape[1], want.shape[1], len(table)], table + x.tobytes(),
+                       want.shape[1], *([lanes] if mode == "k1" else []))
+    return got, want
 
 
 @pytest.mark.parametrize("amp_v", [1, 2])
@@ -602,11 +659,64 @@ def test_reward_amp_header_matches_plain(port, epilogue_harness, amp_v):
     np.testing.assert_allclose(got, want, atol=1e-5)
 
 
-@pytest.mark.parametrize("amp_v", [1, 2])
-def test_reward_amp_header_lane_split_matches_one_lane(port, epilogue_harness, amp_v):
-    """K1 splits the epilogue's dof rows over its group's lanes: every row
-    is written, with the bits one lane (RA) writes."""
+@pytest.mark.parametrize("amp_v, mode", [(1, "k1"), (2, "k1"), (1, "ra"), (2, "ra")],
+                         ids=["1", "2", "ra-1", "ra-2"])
+def test_reward_amp_header_lane_split_matches_one_lane(port, epilogue_harness, amp_v, mode):
+    """K1 splits the epilogue's dof rows over its group's lanes; RA stages
+    the env's inputs (read in place, with an env stride beyond the record,
+    as K3's joint_rot has) and runs the per-body terms over a warp's 32
+    lanes, then the ordered finish on lane 0. Both write every row, with
+    the bits one lane writes."""
     one, _ = _epilogue_case(port, epilogue_harness, amp_v, 1)
-    split, _ = _epilogue_case(port, epilogue_harness, amp_v, substep_cuda.GROUP)
+    if mode == "k1":
+        split, _ = _epilogue_case(port, epilogue_harness, amp_v, substep_cuda.GROUP)
+    else:
+        split, _ = _epilogue_case(port, epilogue_harness, amp_v, 32, mode="ra", pad=7)
     assert (split > -1e29).all()
     np.testing.assert_array_equal(split.view(np.uint32), one.view(np.uint32))
+
+
+@pytest.mark.parametrize("flags", ["default", "global_root_no_height"])
+def test_observe_header_matches_plain(port, epilogue_harness, flags):
+    """csrc/observe.cuh, K2's per-(env, body) function, looped over (env,
+    body) on the host against observe_plain at 1e-5 (float32 rounding in
+    another order; the same atan2 heading). Its inputs are read with an env
+    stride beyond the record, its task block starts past S = 21 shape
+    columns, and it writes every column but those."""
+    ph, ref = _stepped_like(port, seed=8)
+    e = port[3].consts
+    if flags != "default":
+        e = dataclasses.replace(e, local_root_obs=False, root_height_obs=False)
+    J, S = e.J, 21
+    shape_obs = torch.full((B, S), -1e30)
+    want = cuda_obs.observe_plain(e, ph, ref, shape_obs).numpy()
+    x = torch.cat([t.reshape(B, -1) for t in [ph.body_pos, ph.body_rot, ph.body_vel, ph.body_ang_vel]
+                   + cuda_obs._bodies(ref)], dim=1).numpy()
+    x = np.concatenate([x, np.full((B, 5), np.nan, np.float32)], axis=1)
+    n_self = cuda_obs.self_obs_dim(J, e.root_height_obs)
+    header = [B, x.shape[1], want.shape[1], J, int(e.local_root_obs), int(e.root_height_obs), n_self + S]
+    got = _run_harness(epilogue_harness, "k2", header, x.tobytes(), want.shape[1])
+    assert want.shape[1] == cuda_obs.obs_dim(J, e.root_height_obs, S)
+    np.testing.assert_array_equal(got[:, n_self : n_self + S], np.float32(-1e30))
+    np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+def test_env_strided_reads_views_in_place_and_copies_permuted():
+    """The layout check of RA's and K2's inputs: a contiguous tensor and a
+    view into wider rows (physics_state_from_rows' joint_rot, the env
+    stride the record width) are read in place; a tensor whose env block is
+    not contiguous is copied once; a wrong width raises."""
+    J = 5
+    rows = torch.arange(7 * (174 + 16 * 24), dtype=torch.float32).reshape(7, -1)
+    ph = substep_cuda.physics_state_from_rows(rows, 24)
+    t, stride = substep_cuda.env_strided(ph.joint_rot, 4 * 23)
+    assert t.data_ptr() == ph.joint_rot.data_ptr() and stride == rows.shape[1]
+    assert torch.equal(rows[3, 7 : 7 + 4 * 23], t.flatten(1)[3])
+    c = torch.randn(7, J, 3)
+    t, stride = substep_cuda.env_strided(c, 3 * J)
+    assert t is c and stride == 3 * J
+    p = torch.randn(7, 3, J).transpose(1, 2)   # [7, J, 3], its env block strided
+    t, stride = substep_cuda.env_strided(p, 3 * J)
+    assert t.data_ptr() != p.data_ptr() and t.is_contiguous() and stride == 3 * J and torch.equal(t, p)
+    with pytest.raises(ValueError):
+        substep_cuda.env_strided(c, 4 * J)
