@@ -35,6 +35,14 @@ Phases, each printed as one JSON line:
                num_envs=3072` for 2 epochs through run.main: finite losses,
                changed parameters, obs_rms.count grown by 32 * 3072 an epoch,
                32 launches of K1 and of K2 an epoch and none of K3 or RA
+  eval         im_eval of train_im's policy on the 6 hard clips at a batch
+               of 6, early termination off, then run.main's test=true on
+               train_im's checkpoint and 4 clips (a batch of 3072): finite
+               metrics, each clip's scored steps #{i : (i+1) dt < length},
+               and per batch exactly max_steps launches of K1 and max_steps
+               + 1 of K2 (one at reset_to; test=true one more at the
+               agent's reset), none of K3 or RA; the eval's seconds and K1's
+               and K2's ms at 6 envs
   getup_tables K3 against physics_step on the fall-state settle's ragdoll
                model (kp 0, kd 5) at 256 envs, on the settle's first input;
                then, with no cache cleared, K3 on the real model against the
@@ -662,7 +670,66 @@ def main() -> int:
                                                             "physics_step": 0, "physics_step_rows": 0,
                                                             "reward_amp": 0})
     emit(info)
-    del res
+
+    # ---- eval: train_im's policy on the hard clips, then test=true ----------- #
+    # im_eval of train_im's train state on the 6 hard clips at a batch of 6,
+    # early termination off; then the CLI's test=true on train_im's own
+    # checkpoint and clips. Each eval step launches K1 and K2 once, reset_to
+    # one K2 (and test=true's agent.init one K2 at its reset)
+    from pulse_tpu_torch.eval import im_eval
+    from pulse_tpu_torch.motion.synthetic import make_hard_clips
+
+    hard, hard_names = make_hard_clips(spec.skeleton)
+    eval_env = HumanoidImEnv(model, build_motion_data(spec.skeleton, hard, device=dev),
+                             EnvConfig(enable_early_termination=False), device=dev, seed=0)
+    dt = model.config.control_dt
+
+    def eval_checks(label, result, env_, batches, extra_k2) -> dict:
+        lengths = env_.motion.motion_lengths.cpu()
+        max_steps = math.ceil(float(lengths.max()) / dt)
+        clock = torch.arange(1, max_steps + 1, dtype=torch.float32) * dt
+        want_steps = (clock[None] < lengths[:, None]).sum(1).tolist()
+        want_launches = {"step_reward_amp": batches * max_steps, "observe": batches * (max_steps + 1) + extra_k2,
+                         "physics_step": 0, "physics_step_rows": 0, "reward_amp": 0}
+        launches_ = dict(_build.launches)
+        metrics = {k: getattr(result, k) for k in ("success_rate", "mpjpe_g", "mpjpe_l", "mpjpe_pa", "vel_dist",
+                                                   "accel_dist")}
+        if not all(math.isfinite(v) for v in metrics.values()):
+            fail(f"{label}: non-finite metrics {metrics}")
+        if result.per_motion_steps.tolist() != want_steps:
+            fail(f"{label}: scored steps {result.per_motion_steps.tolist()}, expected {want_steps}")
+        if launches_ != want_launches:
+            fail(f"{label}: launches {launches_}, expected {want_launches}")
+        return {"max_steps": max_steps, "launches": launches_, "per_motion_steps": want_steps, **metrics,
+                "failed_motions": result.failed_motions.tolist()}
+
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    hard_result = im_eval(eval_env, run._policy_fn(res.train_state), batch_size=len(hard_names))
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    hard_info = eval_checks("eval hard clips", hard_result, eval_env, 1, 0)
+    if run.latest_checkpoint(os.path.join(out_root, "train_im", "ckpt")) is None:
+        fail("eval test=true: train_im left no checkpoint to restore")
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    cli_result = run.main(["env=im", "learning=im_ppo", f"num_envs={N_ENVS}", "test=true", "epoch=-1", "device=cuda",
+                           f"output_dir={out_root}", "exp_name=train_im"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    cli_info = eval_checks("eval test=true", cli_result, res.agent.env, 1, 1)
+    n_ev = len(hard_names)
+    with torch.no_grad():
+        ev_k2_args, _ = cuda_obs.observe_args(e, env_slice(ph, 0, n_ev), env_slice(ref, 0, n_ev), o2[:n_ev], n_self)
+        ev_k1_ms = cuda_ms(k1_launch(GROUP, n=n_ev), 100)
+        ev_k2_ms = cuda_ms(lambda: _build.check(lib.k2_observe(*ev_k2_args, stream), "K2"), 100)
+    emit({"phase": "eval", "card": card, "clips": hard_names, "envs": n_ev, "seconds": eval_s, **hard_info,
+          "per_motion_mpjpe_g": hard_result.per_motion_mpjpe_g.tolist(),
+          f"K1_ms_{n_ev}_envs": ev_k1_ms, f"K2_ms_{n_ev}_envs": ev_k2_ms,
+          "test_true": {"envs": N_ENVS, "clips": int(res.agent.env.motion.num_motions), "seconds": cli_s,
+                        **cli_info}})
+    del res, eval_env
 
     # ---- K3 on the fall-state settle's ragdoll table, then on the real model - #
     # The getup env uploads the ragdoll's table to K3's unit for its settle

@@ -163,6 +163,7 @@ class HumanoidImEnv:
             raise ValueError("has_shape_obs_disc requires has_shape_obs")
         if self.device.type == "cuda" and not substep_cuda.supported(model):
             raise NotImplementedError("model outside the CUDA kernel's surface")
+        self.seed = seed
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
 
@@ -186,6 +187,24 @@ class HumanoidImEnv:
         self.action_dim = model.num_dof
         self.consts = cuda_obs.env_consts_from(self)
         self.amp_frame_table = self._build_amp_frame_table()
+
+    def _ctor_kwargs(self) -> dict:
+        """Constructor kwargs beyond (model, motion, config, device, seed).
+        A subclass with more of them overrides this, so that with_config
+        rebuilds it faithfully."""
+        return {}
+
+    def with_config(self, config: EnvConfig) -> "HumanoidImEnv":
+        """This env rebuilt with another config (e.g. early termination off
+        for im_eval), on the same model and motion store (so the same live
+        PMCP weights), with the per-env body shapes carried over. The new
+        env draws from a fresh generator of the same seed."""
+        new = type(self)(self.model, self.motion, config, device=self.device, seed=self.seed, **self._ctor_kwargs())
+        for attr in ("batched_model", "_shape_obs_table", "_model_rows_cache", "_shape_args"):
+            setattr(new, attr, getattr(self, attr))
+        if (new.obs_dim, new.amp_obs_dim) != (self.obs_dim, self.amp_obs_dim):
+            raise ValueError("with_config must keep the obs and AMP obs widths")
+        return new
 
     def _surface_ok(self) -> bool:
         """The config is one the kernels cover."""

@@ -40,6 +40,10 @@ class MotionData:
     motion_dt: torch.Tensor       # [M]
     sampling_prob: torch.Tensor   # [M]
 
+    @property
+    def num_motions(self) -> int:
+        return self.motion_lengths.shape[0]
+
 
 def _compute_dof_vels(local_rot: torch.Tensor, fps: float) -> torch.Tensor:
     """dof_vel[t] = exp_map(q_t^-1 q_{t+1}) * fps, last frame repeated."""
@@ -156,3 +160,29 @@ def get_motion_state(
         "body_ang_vel": body_ang_vel,
         "local_rot": local_rot,
     }
+
+
+# --------------------------------------------------------------------------- #
+# PMCP adaptive sampling (≙ motion_lib_base.py:348-384)
+# --------------------------------------------------------------------------- #
+
+def update_hard_sampling_weight(data: MotionData, failed_ids: torch.Tensor) -> MotionData:
+    """Hard-negative mining: sample only clips that failed evaluation.
+
+    failed_ids: [M] bool mask. If nothing failed, falls back to uniform.
+    Returns a new MotionData; to make the env's auto-resets sample by the
+    new weights, copy them into the live store's `sampling_prob`."""
+    failed = torch.as_tensor(failed_ids, device=data.sampling_prob.device).to(torch.bool)
+    M = data.num_motions
+    prob = failed.to(torch.float32)
+    prob = torch.where(failed.any(), prob / torch.clamp(prob.sum(), min=1e-9), torch.full((M,), 1.0 / M, device=prob.device))
+    return dataclasses.replace(data, sampling_prob=prob)
+
+
+def update_soft_sampling_weight(data: MotionData, termination_history: torch.Tensor) -> MotionData:
+    """Soft PMCP: weight clips by their termination counts; uniform if clean."""
+    hist = torch.as_tensor(termination_history, device=data.sampling_prob.device).to(torch.float32)
+    total = hist.sum()
+    M = data.num_motions
+    prob = torch.where(total > 0, hist / torch.clamp(total, min=1e-9), torch.full((M,), 1.0 / M, device=hist.device))
+    return dataclasses.replace(data, sampling_prob=prob)

@@ -11,6 +11,13 @@ checkpoints of the train state every `save_frequency` epochs and at the end.
 With `epoch` not 0 the latest checkpoint of the experiment is restored.
 `device=cpu` runs the kernels' plain PyTorch versions on the CPU.
 
+`test=true` evaluates the (restored) policy instead of training: `im_eval`
+over every clip with early termination off, printed as JSON. With
+`eval_frequency=N` the same eval runs every N epochs of training, and the
+clips it failed become the only ones the env's resets sample (PMCP
+hard-negative mining); the weights are not checkpointed, so a resumed run
+starts uniform.
+
 Ported: the HumanoidIm and HumanoidImGetup tasks with `agent: ppo`, and
 HumanoidIm with per-env body shapes (`env=im_shape`: isotropic scales, or
 SMPL-beta skeletons with `env.smpl_model_path`). Other tasks, agents and
@@ -224,16 +231,14 @@ class TrainResult:
     metrics: list            # one dict of floats per epoch run
 
 
-def main(argv=None) -> TrainResult:
+def main(argv=None):
+    """Train and return a TrainResult, or with test=true evaluate and
+    return the EvalResult."""
     from pulse_tpu_torch._device import resolve_device
     from pulse_tpu_torch.utils.config import load_config
     from pulse_tpu_torch.utils.logger import MetricLogger
 
     cfg = load_config(argv if argv is not None else sys.argv[1:])
-    if cfg["test"]:
-        raise _unported("test=true (im_eval)", 8)
-    if int(cfg.get("eval_frequency", 0)) > 0:
-        raise _unported("eval_frequency > 0 (im_eval)", 8)
     device = resolve_device(cfg["device"])
 
     out_dir = os.path.join(cfg["output_dir"], cfg["exp_name"])
@@ -256,6 +261,9 @@ def main(argv=None) -> TrainResult:
             epoch0 = int(re.search(r"epoch_(\d+)\.pt$", path).group(1))
             print(f"restored {path}")
 
+    if cfg["test"]:
+        return run_eval(cfg, env, ts)
+
     logger = MetricLogger(out_dir)
     t_start = time.time()
     t_window, e_window = t_start, epoch0   # windowed fps
@@ -275,8 +283,53 @@ def main(argv=None) -> TrainResult:
                 f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}" for k, v in line.items()), flush=True)
         if int(cfg["save_frequency"]) > 0 and epoch > 0 and epoch % int(cfg["save_frequency"]) == 0:
             save_checkpoint(ckpt_dir, epoch, ts)
+        # periodic im_eval + PMCP hard-negative reweighting (≙ IMAmpAgent
+        # eval feedback, im_amp.py:136-242): the new weights are written
+        # into the motion store the env's resets sample from
+        ef = int(cfg.get("eval_frequency", 0))
+        if ef > 0 and epoch > epoch0 and epoch % ef == 0:
+            from pulse_tpu_torch.motion.motion_lib import update_hard_sampling_weight
+
+            result = run_eval(cfg, env, ts)
+            env.motion.sampling_prob.copy_(
+                update_hard_sampling_weight(env.motion, torch.as_tensor(result.failed_motions)).sampling_prob)
     save_checkpoint(ckpt_dir, int(cfg["max_epochs"]), ts)
     return TrainResult(agent=agent, train_state=ts, metrics=history)
+
+
+def _policy_fn(ts):
+    """The deterministic policy of a train state: the mean action on
+    normalized obs, clipped to the action bounds."""
+    net, obs_rms = ts.network, ts.obs_rms
+
+    def policy_fn(obs):
+        mu, _, _ = net(obs_rms.normalize(obs))
+        return torch.clamp(mu, -1.0, 1.0)
+
+    return policy_fn
+
+
+def run_eval(cfg, env, ts):
+    """im_eval of the train state's policy over every clip (success rate and
+    MPJPE, ≙ im_amp_players.py), `num_envs` clips a batch, printed as JSON.
+    Early termination is switched off, so that mid-clip auto-resets do not
+    pollute the accumulation (failure is latched separately)."""
+    from pulse_tpu_torch.eval import im_eval
+
+    if not hasattr(env, "reset_to"):
+        raise _unported("the episode-return eval of task envs (eval/task_eval.py)", 11)
+    if env.config.enable_early_termination:
+        env = env.with_config(dataclasses.replace(env.config, enable_early_termination=False))
+    result = im_eval(env, _policy_fn(ts), batch_size=int(cfg["num_envs"]))
+    print(json.dumps(dataclass_to_dict(result), indent=2))
+    return result
+
+
+def dataclass_to_dict(d) -> dict:
+    """A dataclass as a JSON-ready dict: numpy arrays become lists."""
+    import numpy as np
+
+    return {k: v.tolist() if isinstance(v, np.ndarray) else v for k, v in dataclasses.asdict(d).items()}
 
 
 if __name__ == "__main__":

@@ -5,8 +5,12 @@
 with a narrow network, 8 fall states settled for 2 steps and a horizon of
 4. It must write the config, a metrics JSONL line per epoch and a
 checkpoint, and a second run with `epoch=-1` must restore that checkpoint
-and go on from its epoch. Options the slice does not port raise
-NotImplementedError before anything is built.
+and go on from its epoch. `test=true epoch=-1` evaluates the restored
+policy and prints the EvalResult as JSON; `eval_frequency` evaluates
+during training and writes the PMCP weights of the failed clips into the
+motion store the resets sample from. Options the slice does not port raise
+NotImplementedError. The port's config dataclasses default as the JAX
+package's.
 """
 
 import json
@@ -15,10 +19,21 @@ import subprocess
 import sys
 from pathlib import Path
 
+import dataclasses
+
+import numpy as np
 import pytest
 import torch
 
+from pulse_tpu.env import EnvConfig as JaxEnvConfig
+from pulse_tpu.learning.ppo import PPOConfig as JaxPPOConfig
+from pulse_tpu.physics import PhysicsConfig as JaxPhysicsConfig
+
 from pulse_tpu_torch import _build, run
+from pulse_tpu_torch.env.humanoid_im import EnvConfig
+from pulse_tpu_torch.learning.ppo import PPOConfig
+from pulse_tpu_torch.motion.motion_lib import update_hard_sampling_weight
+from pulse_tpu_torch.physics.model import PhysicsConfig
 
 ROOT = Path(__file__).resolve().parent.parent
 TINY = ["device=cpu", "num_envs=8", "learning.horizon_length=4", "learning.minibatch_size=16",
@@ -60,7 +75,7 @@ def test_main_runs_env_im_in_process(tmp_path):
 
 
 @pytest.mark.parametrize("args", [
-    ["test=true"], ["eval_frequency=5"], ["env.task=HumanoidImDistillGetup"], ["env.task=HumanoidImMCP"],
+    ["env.task=HumanoidImDistillGetup"], ["env.task=HumanoidImMCP"],
     ["env.task=HumanoidSpeedZ"], ["learning.agent=amp"], ["learning.agent=distill"],
     ["env.randomize=true"], ["env=im_getup", "env.shape_variation=true"], ["env.control_mode=pd"],
     ["env.motion_file=x.pkl"],
@@ -68,3 +83,51 @@ def test_main_runs_env_im_in_process(tmp_path):
 def test_unported_options_raise(args, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run.main(["device=cpu", f"output_dir={tmp_path}", *args])
+
+
+def test_cli_test_true_prints_the_eval_result(tmp_path):
+    run.main(["env=im", "max_epochs=1", "exp_name=e", f"output_dir={tmp_path}", *TINY])
+    out = _cli(["env=im", "test=true", "epoch=-1", "exp_name=e", *TINY], tmp_path)
+    assert "restored" in out and "epoch=" not in out   # evaluated, not trained
+    res = json.loads(out[out.index("{"):])
+    assert len(res["failed_motions"]) == 4
+    assert res["per_motion_steps"] == [119.0] * 4   # 4 s clips: the step at t = length is not scored
+    for k in ("success_rate", "mpjpe_g", "mpjpe_l", "mpjpe_pa", "vel_dist", "accel_dist"):
+        assert np.isfinite(res[k]) and res[k] >= 0, k
+
+
+def test_eval_frequency_reweights_pmcp_sampling(tmp_path, monkeypatch):
+    """Evals after epochs 1 and 2 (not 0); the failure mask of the last one
+    (forced to two of the four clips, as a trained policy would leave it)
+    becomes the live sampling weights, which the env's resets then draw from."""
+    evals, real = [], run.run_eval
+
+    def run_eval(*args):
+        result = real(*args)
+        result.failed_motions = np.array([True, False, False, True])
+        evals.append(result)
+        return result
+
+    monkeypatch.setattr(run, "run_eval", run_eval)
+    res = run.main(["env=im", "eval_frequency=1", "max_epochs=3", f"output_dir={tmp_path}", *TINY])
+    assert len(evals) == 2 and len(res.metrics) == 3
+    motion = res.agent.env.motion
+    want = update_hard_sampling_weight(motion, torch.as_tensor(evals[-1].failed_motions)).sampling_prob
+    assert torch.equal(motion.sampling_prob, want) and want.tolist() == [0.5, 0.0, 0.0, 0.5]
+    ids, _ = res.agent.env._sample_reset(64)
+    assert set(ids.tolist()) <= {0, 3}
+
+
+@pytest.mark.parametrize("port_cls, jax_cls", [(EnvConfig, JaxEnvConfig), (PPOConfig, JaxPPOConfig),
+                                               (PhysicsConfig, JaxPhysicsConfig)])
+def test_config_defaults_match_jax(port_cls, jax_cls):
+    """Every field both packages' config dataclasses have defaults alike, so
+    the quality A/B's settings are the JAX arm's."""
+    port = {f.name: getattr(port_cls(), f.name) for f in dataclasses.fields(port_cls)}
+    want = {f.name: getattr(jax_cls(), f.name) for f in dataclasses.fields(jax_cls)}
+    shared = port.keys() & want.keys()
+    assert len(shared) >= 10
+    for k in shared:
+        a, b = port[k], want[k]
+        assert (tuple(a) if isinstance(a, (list, tuple)) else a) == (tuple(b) if isinstance(b, (list, tuple)) else b), k
+
