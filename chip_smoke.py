@@ -43,6 +43,23 @@ Phases, each printed as one JSON line:
                + 1 of K2 (one at reset_to; test=true one more at the
                agent's reset), none of K3 or RA; the eval's seconds and K1's
                and K2's ms at 6 envs
+  distill      `python -m pulse_tpu_torch.run env=im_vae learning=im_z_fit
+               num_envs=3072` for 3 epochs through run.main, the teacher
+               train_im's checkpoint: PULSE's online distillation into the
+               reference-width PulseVAE on the getup curriculum with the
+               cycled reference (episode_length 300) and the power reward.
+               60 K3 launches (the fall-state settle) while the env is
+               built, one K2 at the reset, then 32 of K3, RA and K2 an epoch
+               and none of K1; finite losses (bc_loss per epoch), the
+               encoder, prior and decoder changed, the critic and the
+               teacher bit-unchanged, obs_rms.count grown by 32 * 3072 an
+               epoch; some env crossed its clip's end without a reset, and
+               there its reference root moved less than 0.1 m (the cycle
+               offset applied); no reward above the kernel's imitation
+               reward (the power penalty is <= 0); then RA and K2 against
+               their plain versions on a reference a clip or more ahead
+               (every env's shifted); rollout and update times, device busy
+               ms, kernels and idle share
   getup_tables K3 against physics_step on the fall-state settle's ragdoll
                model (kp 0, kd 5) at 256 envs, on the settle's first input;
                then, with no cache cleared, K3 on the real model against the
@@ -98,6 +115,7 @@ N_ENVS = 3072
 HORIZON = 32
 WINDOWS = 4                     # timed windows of HORIZON steps per regime
 TRAIN_EPOCHS = 2
+DISTILL_EPOCHS = 3
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_FP32_OPS_PER_S = 67e12     # fp32 outside the tensor cores, H100 SXM
 L2_BYTES = 50 * 2**20           # H100 SXM L2
@@ -334,7 +352,7 @@ def main() -> int:
         pd = env.action_to_pd_target(0.3 * torch.randn(N_ENVS, env.action_dim, generator=g, device=dev))
         state = state.replace(physics=physics_step(model, state.physics, pd))
     pd = env.action_to_pd_target(0.3 * torch.randn(N_ENVS, env.action_dim, generator=g, device=dev))
-    t = env._motion_time(state.start_time, state.progress + 1)
+    t = env._motion_time(state.motion_id, state.start_time, state.progress + 1)
     ref = get_motion_state(motion, state.motion_id, t)
 
     # ---- kernels vs plain ----------------------------------------------------- #
@@ -730,6 +748,149 @@ def main() -> int:
           "test_true": {"envs": N_ENVS, "clips": int(res.agent.env.motion.num_motions), "seconds": cli_s,
                         **cli_info}})
     del res, eval_env
+
+    # ---- distill: PULSE stage 2 from train_im's checkpoint --------------------- #
+    # run.main with env=im_vae learning=im_z_fit (the getup curriculum on a
+    # cycled reference with the power reward; the reference-width PulseVAE;
+    # train_im's policy as the frozen teacher). HumanoidImEnv.step is
+    # wrapped to keep each step's (clip, start, progress) and its flags and
+    # rewards, read after the run for the wrap and penalty gates
+    from pulse_tpu_torch.learning.distill import DistillAgent
+    from pulse_tpu_torch.learning.networks import PulseVAE
+
+    teacher_dir = os.path.join(out_root, "train_im", "ckpt")
+    teacher_sd = torch.load(run.latest_checkpoint(teacher_dir), map_location=dev, weights_only=True)["network"]
+    steps_seen, epoch_launches = [], []
+    env_step, distill_epoch = HumanoidImEnv.step, DistillAgent.train_epoch
+
+    def recorded_step(self, st, actions):
+        new = env_step(self, st, actions)
+        steps_seen.append((st.motion_id, st.start_time, st.progress, new.done, new.reward, new.reward_raw))
+        return new
+
+    def counted_distill_epoch(agent, ds):
+        before = dict(_build.launches)
+        out = distill_epoch(agent, ds)
+        epoch_launches.append({k: n - before[k] for k, n in _build.launches.items()})
+        return out
+
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    HumanoidImEnv.step, DistillAgent.train_epoch = recorded_step, counted_distill_epoch
+    t0 = time.perf_counter()
+    try:
+        res = run.main(["env=im_vae", "learning=im_z_fit", f"num_envs={N_ENVS}", f"max_epochs={DISTILL_EPOCHS}",
+                        "log_frequency=1", "device=cuda", f"output_dir={out_root}", "exp_name=distill",
+                        f"learning.teacher_checkpoint={teacher_dir}"])
+    finally:
+        HumanoidImEnv.step, DistillAgent.train_epoch = env_step, distill_epoch
+    torch.cuda.synchronize()
+    distill_s = time.perf_counter() - t0
+    d_counts = dict(_build.launches)
+    agent, ds, ms = res.agent, res.train_state, res.metrics
+    denv, dcfg = agent.env, agent.env.config
+    lc = agent.config
+    d_mb = min(lc.minibatch_size, (HORIZON - 1) * N_ENVS)
+    fresh = PulseVAE(denv.obs_dim, denv.action_dim, latent_dim=ds.network.latent_dim, self_obs_dim=denv.self_obs_dim,
+                     device=dev, seed=0).state_dict()
+    changed = {part: sum(not torch.equal(v, fresh[k]) for k, v in ds.network.state_dict().items()
+                         if k.startswith(part + "."))
+               for part in ("encoder", "prior", "decoder", "critic")}
+    teacher_unchanged = all(torch.equal(v, teacher_sd[k]) for k, v in agent.teacher_fn.network.state_dict().items())
+    # the wrap and penalty gates over every step of the run
+    lengths, dt = denv.motion.motion_lengths, denv.model.config.control_dt
+    wrapped, moved, moved_without_offset, penalty_over, penalized = 0, [], [], 0, 0
+    w = torch.tensor([dcfg.w_pos, dcfg.w_rot, dcfg.w_vel, dcfg.w_ang_vel], device=dev)
+    with torch.no_grad():
+        for ids, start, p, done, reward, raw in steps_seen:
+            L = lengths[ids]
+            crossed = (torch.floor((start + (p + 1).float() * dt) / L) > torch.floor((start + p.float() * dt) / L))
+            keep = crossed & ~done
+            imitation = raw @ w
+            penalty_over += int((reward > imitation + 1e-6).sum())
+            penalized += int((reward < imitation).sum())
+            if keep.any():
+                wrapped += int(keep.sum())
+                i_, s_, p_ = ids[keep], start[keep], p[keep]
+                before = get_motion_state(denv.motion, i_, denv._motion_time(i_, s_, p_),
+                                          denv._cycle_offset(i_, s_, p_))["root_pos"]
+                t_after = denv._motion_time(i_, s_, p_ + 1)
+                after = get_motion_state(denv.motion, i_, t_after, denv._cycle_offset(i_, s_, p_ + 1))["root_pos"]
+                bare = get_motion_state(denv.motion, i_, t_after)["root_pos"]
+                moved.append(float((after - before).norm(dim=-1).max()))
+                moved_without_offset.append(float((bare - before).norm(dim=-1).min()))
+    timed = ms[1:]
+    info = {"phase": "distill", "card": card, "envs": N_ENVS, "epochs": len(ms), "seconds_all": distill_s,
+            "launches": d_counts, "launches_per_epoch": epoch_launches,
+            "bc_loss": [m["bc_loss"] for m in ms],
+            "losses": [{k: m[k] for k in ("bc_loss", "kld", "ar1", "prior_reg", "kld_coef")} for m in ms],
+            "reward_mean": [m["reward_mean"] for m in ms], "obs_rms_count": float(ds.obs_rms.count),
+            "params_changed": changed, "teacher_unchanged": teacher_unchanged,
+            "episode_length": dcfg.episode_length, "cycle_motion": dcfg.cycle_motion,
+            "power_reward": dcfg.power_reward, "minibatch": d_mb,
+            "minibatches_per_epoch": lc.mini_epochs * ((HORIZON - 1) * N_ENVS // d_mb),
+            "wrapped_env_steps": wrapped, "wrap_ref_root_moved_max_m": max(moved, default=None),
+            "wrap_ref_root_moved_without_offset_min_m": min(moved_without_offset, default=None),
+            "reward_above_imitation_reward": penalty_over, "reward_below_imitation_reward": penalized,
+            "rollout_ms": [1e3 * m["rollout_s"] for m in timed], "update_ms": [1e3 * m["update_s"] for m in timed],
+            "train_env_steps_per_s": [per_epoch / (m["rollout_s"] + m["update_s"]) for m in timed],
+            "obs_finite": bool(torch.isfinite(ds.env_state.obs).all())}
+    settle = d_counts["physics_step"] - sum(el["physics_step"] for el in epoch_launches)
+    want_d = {"step_reward_amp": 0, "observe": HORIZON, "physics_step": HORIZON, "physics_step_rows": 0,
+              "reward_amp": HORIZON}
+    if len(epoch_launches) != DISTILL_EPOCHS or any(el != want_d for el in epoch_launches):
+        fail(f"distill: launches per epoch {epoch_launches}, expected {want_d}")
+    if settle != denv.config.fall_settle_steps or d_counts["observe"] - DISTILL_EPOCHS * HORIZON != 1:
+        fail(f"distill: {settle} K3 launches while building (expected {denv.config.fall_settle_steps}), "
+             f"{d_counts['observe'] - DISTILL_EPOCHS * HORIZON} K2 outside the epochs (expected 1, the reset)")
+    if not all(math.isfinite(v) for m in info["losses"] for v in m.values()):
+        fail(f"distill: non-finite loss {info['losses']}")
+    if not all(changed[part] for part in ("encoder", "prior", "decoder")) or changed["critic"]:
+        fail(f"distill: parameters changed per part {changed}: expected the encoder, prior and decoder only")
+    if not teacher_unchanged:
+        fail("distill: the teacher's parameters changed")
+    if abs(info["obs_rms_count"] - len(ms) * per_epoch) > 1.0:
+        fail(f"distill: obs_rms.count {info['obs_rms_count']}, expected {len(ms) * per_epoch}")
+    if not (dcfg.cycle_motion and dcfg.power_reward and isinstance(agent, DistillAgent)):
+        fail("distill: not the im_vae / im_z_fit configuration")
+    if wrapped == 0 or max(moved) >= 0.1:
+        fail(f"distill: {wrapped} env steps wrapped a clip without a reset; reference root moved up to "
+             f"{max(moved, default=None)} m on them (limit 0.1)")
+    if penalty_over or not info["obs_finite"]:
+        fail(f"distill: {penalty_over} env steps with a reward above the kernel's imitation reward, or non-finite obs")
+    # RA and K2 against their plain versions on a cycled, offset reference:
+    # the run's last state, a full clip or more ahead, so that every env's
+    # reference is shifted
+    with torch.no_grad():
+        st = ds.env_state
+        p_c = st.progress + 1 + math.ceil(float(lengths.max()) / dt)
+        off_c = denv._cycle_offset(st.motion_id, st.start_time, p_c)
+        ref_c = get_motion_state(denv.motion, st.motion_id, denv._motion_time(st.motion_id, st.start_time, p_c),
+                                 off_c)
+        pd_c = denv.action_to_pd_target(0.3 * torch.randn(N_ENVS, denv.action_dim, generator=g, device=dev))
+        k3_c = substep_cuda.physics_step_cuda(denv.model, st.physics, pd_c)
+        ra_c, pra_c = cuda_obs.reward_amp(denv.consts, k3_c, ref_c), cuda_obs.reward_amp_plain(denv.consts, k3_c, ref_c)
+        k2_c, p2_c = cuda_obs.observe(denv.consts, k3_c, ref_c), cuda_obs.observe_plain(denv.consts, k3_c, ref_c)
+    cyc_ra = {n: compare(a, b, K1_TOL[n], N_ENVS) for n, a, b in zip(names, ra_c, pra_c)}
+    cyc_k2 = compare(k2_c, p2_c, K2_TOL, N_ENVS)
+    info.update(cycled_ref={"envs_offset": int((off_c[:, :2].norm(dim=-1) > 0).sum()),
+                            "offset_m_min": float(off_c[:, :2].norm(dim=-1).min()),
+                            "RA_vs_plain": cyc_ra, "K2_vs_plain": cyc_k2})
+    if info["cycled_ref"]["envs_offset"] != N_ENVS:
+        fail(f"distill: only {info['cycled_ref']['envs_offset']} envs have a shifted reference")
+    for name, c in list(cyc_ra.items()) + [("obs", cyc_k2)]:
+        if c["outlier_envs"]:
+            fail(f"distill: {'K2' if name == 'obs' else 'RA'} {name} on the cycled reference: {c['outlier_envs']} "
+                 f"envs beyond {c['tol']} (max {c['max']})")
+    # device time of one more rollout and update, from a profiler trace
+    roll_busy, roll_kernels = device_busy(lambda: agent.rollout(ds))
+    upd_busy, upd_kernels = device_busy(lambda: agent.update(ds, agent._buffers))
+    info.update(rollout_device_busy_ms=roll_busy, rollout_device_kernels=roll_kernels,
+                rollout_device_idle_share=1.0 - roll_busy / median(info["rollout_ms"]),
+                update_device_busy_ms=upd_busy, update_device_kernels=upd_kernels,
+                update_device_idle_share=1.0 - upd_busy / median(info["update_ms"]))
+    emit(info)
+    del res, agent, ds, denv, steps_seen, teacher_sd
 
     # ---- K3 on the fall-state settle's ragdoll table, then on the real model - #
     # The getup env uploads the ragdoll's table to K3's unit for its settle

@@ -3,9 +3,11 @@ PyTorch.
 
 Counterpart of `pulse_tpu/env/humanoid_im.py` on the surface of its Pallas
 kernels (obs v6 with one future step, self obs v1, AMP obs v1/v2, isaac_pd
-control, no far-goal, cycling, power reward, occlusion, obs noise or domain
-randomization), with PHC's per-env body shapes and shape channels. A config
-off that surface raises NotImplementedError.
+control, no far-goal, occlusion, obs noise or domain randomization), with
+PHC's per-env body shapes and shape channels, the cycled reference
+(`cycle_motion`: the clip time wraps, the reference is shifted by the clip's
+root travel per cycle, and episodes end at `episode_length` steps) and the
+power reward. A config off that surface raises NotImplementedError.
 
 One `step`: gather the reference at the post-step time, then
 
@@ -18,12 +20,14 @@ One `step`: gather the reference at the post-step time, then
   * else kernel K3 (physics) and kernel RA, which together compute what K1
     does;
 
-then termination (`_termination`), the AMP history roll, the branch-free
-auto-reset merge with fresh states (`_reset_states`), and kernel K2 (the
-observation of the merged state). With shape channels, each env's shape
-row (gender, betas, limb weights; zeros until shapes are enabled) is
-spliced into the observation after the self obs and appended to every AMP
-row. Random draws come from the env's `torch.Generator`.
+then, with `power_reward`, the energy penalty of the stepped state added to
+the kernel's imitation reward, termination (`_termination`), the AMP
+history roll, the branch-free auto-reset merge with fresh states
+(`_reset_states`), and kernel K2 (the observation of the merged state).
+With shape channels, each env's shape row (gender, betas, limb weights;
+zeros until shapes are enabled) is spliced into the observation after the
+self obs and appended to every AMP row. Random draws come from the env's
+`torch.Generator`.
 """
 
 from __future__ import annotations
@@ -42,7 +46,8 @@ from pulse_tpu_torch.ops import quat as q
 from pulse_tpu_torch.physics import shape_variation, substep_cuda
 from pulse_tpu_torch.physics.model import Model, batched_model_from_numpy
 from pulse_tpu_torch.physics.state import (
-    PhysicsState, physics_state_from_numpy, state_from_kinematics, state_from_motion_ref,
+    PhysicsState, dof_pos_from_state, dof_vel_from_state, physics_state_from_numpy, state_from_kinematics,
+    state_from_motion_ref,
 )
 
 DEFAULT_KEY_BODIES = ("R_Ankle", "L_Ankle", "R_Wrist", "L_Wrist")
@@ -65,7 +70,9 @@ class EnvConfig:
     local_root_obs: bool = True
     root_height_obs: bool = True
     state_init: str = "Random"         # reference-state init at a random clip time
+    episode_length: int = 300          # steps an episode of a cycled reference lasts
     power_reward: bool = False
+    power_coefficient: float = 0.0005
     cycle_motion: bool = False
     obs_v: int = 6
     self_obs_v: int = 1
@@ -181,6 +188,8 @@ class HumanoidImEnv:
         self._model_rows_cache = None               # (batched model, its K3-rows rows)
         self._shape_args = None                     # enable_shape_variation's, for resample_shapes
         self.obs_dim = cuda_obs.obs_dim(J, cfg.root_height_obs, self.shape_obs_dim)
+        # the self obs and the shape row after it: what a PULSE prior reads
+        self.self_obs_dim = cuda_obs.self_obs_dim(J, cfg.root_height_obs) + self.shape_obs_dim
         self.amp_obs_dim_single = cuda_obs.amp_obs_dim(J, len(self.key_body_ids), cfg.amp_obs_v, cfg.root_height_obs,
                                                        self.shape_disc_dim)
         self.amp_obs_dim = cfg.num_amp_obs_steps * self.amp_obs_dim_single
@@ -216,9 +225,7 @@ class HumanoidImEnv:
             and cfg.self_obs_v == 1
             and cfg.amp_obs_v in (1, 2)
             and cfg.num_traj_samples == 1
-            and not cfg.cycle_motion
             and not cfg.zero_out_far
-            and not cfg.power_reward
             and cfg.occlusion_prob == 0
             and cfg.obs_noise_std == 0
             and cfg.track_bodies is None
@@ -251,8 +258,30 @@ class HumanoidImEnv:
     # reset (reference state init)
     # ------------------------------------------------------------------ #
 
-    def _motion_time(self, start_time: torch.Tensor, progress: torch.Tensor) -> torch.Tensor:
-        return start_time + progress.to(torch.float32) * self.model.config.control_dt
+    def _motion_time(self, motion_id: torch.Tensor, start_time: torch.Tensor, progress: torch.Tensor) -> torch.Tensor:
+        """In-clip time; with cycle_motion it wraps at the clip's length (and
+        `_cycle_offset` carries the position on)."""
+        t = start_time + progress.to(torch.float32) * self.model.config.control_dt
+        if self.config.cycle_motion:
+            t = torch.remainder(t, torch.clamp(self.motion.motion_lengths[motion_id], min=1e-6))
+        return t
+
+    def _cycle_offset(self, motion_id: torch.Tensor, start_time: torch.Tensor,
+                      progress: torch.Tensor) -> torch.Tensor | None:
+        """[B, 3] world shift of a cycled reference: the clip's root travel
+        (last frame minus first, z zeroed) times the cycles completed by the
+        unwrapped time, so that the reference goes on from where the clip
+        ended instead of teleporting back to its start. None without
+        cycle_motion."""
+        if not self.config.cycle_motion:
+            return None
+        m = self.motion
+        raw_t = start_time + progress.to(torch.float32) * self.model.config.control_dt
+        cycles = torch.floor(raw_t / torch.clamp(m.motion_lengths[motion_id], min=1e-6))
+        start = m.length_starts[motion_id]
+        delta = m.gts[start + m.motion_num_frames[motion_id] - 1, 0] - m.gts[start, 0]
+        delta[:, 2] = 0.0
+        return cycles[:, None] * delta
 
     def _sample_reset(self, n: int) -> tuple[torch.Tensor, torch.Tensor]:
         """(motion ids [n], start times [n]) for n fresh episodes."""
@@ -317,9 +346,11 @@ class HumanoidImEnv:
         return state.replace(obs=self._observe(state))
 
     def _observe(self, state: EnvState) -> torch.Tensor:
-        """K2 against the reference at the next control step's time."""
-        t_next = self._motion_time(state.start_time, state.progress) + self.model.config.control_dt
-        ref = get_motion_state(self.motion, state.motion_id, t_next)
+        """K2 against the reference at the next control step's time (with the
+        cycle offset of the state's own time, as the JAX package's)."""
+        t_next = self._motion_time(state.motion_id, state.start_time, state.progress) + self.model.config.control_dt
+        ref = get_motion_state(self.motion, state.motion_id, t_next,
+                               self._cycle_offset(state.motion_id, state.start_time, state.progress))
         return cuda_obs.observe(self.consts, state.physics, ref, self._shape_obs(state.motion_id.shape[0]))
 
     # ------------------------------------------------------------------ #
@@ -346,8 +377,9 @@ class HumanoidImEnv:
         progress = state.progress + 1
         # the reference at the post-step time depends only on (clip,
         # progress), so it is gathered before physics and rides into K1
-        t = self._motion_time(state.start_time, progress)
-        ref = get_motion_state(self.motion, state.motion_id, t)
+        t = self._motion_time(state.motion_id, state.start_time, progress)
+        ref = get_motion_state(self.motion, state.motion_id, t,
+                               self._cycle_offset(state.motion_id, state.start_time, progress))
         pd_target = self.action_to_pd_target(actions)
         if self.batched_model is None and self._fused_step_ok():
             physics, reward, reward_raw, dmean, dmax, amp_row = cuda_obs.step_reward_amp(
@@ -359,13 +391,24 @@ class HumanoidImEnv:
             physics = substep_cuda.physics_step_cuda(self.model, state.physics, pd_target, model_rows=rows)
             reward, reward_raw, dmean, dmax, amp_row = cuda_obs.reward_amp(self.consts, physics, ref,
                                                                            *self._disc_parts(B))
+        cfg = self.config
+        if cfg.power_reward:
+            # the PD torque proxy kp (target - dof) - kd dof_vel of the env's model
+            m = self.model if self.batched_model is None else self.batched_model
+            dof_vel = dof_vel_from_state(physics)
+            tau = (m.joint_kp.repeat_interleave(3, dim=-1) * (pd_target - dof_pos_from_state(physics))
+                   - m.joint_kd.repeat_interleave(3, dim=-1) * dof_vel)
+            reward = reward + kernels.compute_power_penalty(tau, dof_vel, cfg.power_coefficient)
 
         stepped = state.replace(
             physics=physics,
             progress=progress,
             amp_hist=torch.cat([amp_row[:, None], state.amp_hist[:, :-1]], dim=1),
         )
-        pass_time = t >= self.motion.motion_lengths[state.motion_id]
+        if cfg.cycle_motion:
+            pass_time = progress >= cfg.episode_length
+        else:
+            pass_time = t >= self.motion.motion_lengths[state.motion_id]
         reset, terminate = self._termination(stepped, dmean, dmax, pass_time)
         merged = _select(reset, self._reset_states(reset), stepped)
         return merged.replace(

@@ -108,6 +108,11 @@ def compute_imitation_reward(
     return reward, torch.stack([r_pos, r_rot, r_vel, r_ang_vel], dim=-1)
 
 
+def compute_power_penalty(tau: torch.Tensor, dof_vel: torch.Tensor, coefficient: float = 0.0005) -> torch.Tensor:
+    """Energy penalty -c * sum |tau * qvel| over the dofs. [B, D] -> [B]."""
+    return -coefficient * torch.sum(torch.abs(tau * dof_vel), dim=-1)
+
+
 def compute_humanoid_im_reset(
     progress: torch.Tensor,       # [B] int
     body_pos: torch.Tensor,       # [B, Jr, 3] tracked reset bodies

@@ -4,7 +4,8 @@ Counterpart of `RunningMeanStd` in `pulse_tpu/learning/running_norm.py`:
 batched updates by the parallel-variance (Chan et al.) merge of batch
 moments, with the batch variance taken over N (ddof 0, as `jnp.var`), and
 a clamp to ±5 on normalize. An update returns a new instance, so a caller
-can keep the stats it started from.
+can keep the stats it started from; a frozen instance (`freeze`, as a
+distillation teacher's input stats) returns itself.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ class RunningMeanStd:
     mean: torch.Tensor
     var: torch.Tensor
     count: torch.Tensor
+    frozen: bool = False
 
     @classmethod
     def create(cls, dim: int, device=None) -> "RunningMeanStd":
@@ -35,6 +37,8 @@ class RunningMeanStd:
 
     def update_moments(self, b_mean: torch.Tensor, b_var: torch.Tensor, b_count) -> "RunningMeanStd":
         """Chan-merge precomputed batch moments into the running ones."""
+        if self.frozen:
+            return self
         delta = b_mean - self.mean
         tot = self.count + b_count
         m2 = self.var * self.count + b_var * b_count + delta**2 * self.count * b_count / tot
@@ -45,6 +49,9 @@ class RunningMeanStd:
 
     def denormalize(self, x: torch.Tensor) -> torch.Tensor:
         return x * torch.sqrt(self.var + 1e-5) + self.mean
+
+    def freeze(self) -> "RunningMeanStd":
+        return dataclasses.replace(self, frozen=True)
 
 
 def running_mean_std_from_jax(d: dict, device=None) -> RunningMeanStd:

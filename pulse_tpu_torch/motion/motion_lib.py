@@ -121,11 +121,12 @@ def _calc_frame_blend(time, length, num_frames, dt):
 
 
 def get_motion_state(
-    data: MotionData, motion_ids: torch.Tensor, motion_times: torch.Tensor
+    data: MotionData, motion_ids: torch.Tensor, motion_times: torch.Tensor, offset: torch.Tensor | None = None
 ) -> dict[str, torch.Tensor]:
     """Blended reference state at arbitrary times: lerp for positions and
     velocities, slerp for rotations, dof_pos the exp-map of the slerped
-    local joint rotations."""
+    local joint rotations. An `offset` [..., 3] (a cycled clip's world
+    shift) is added to the body positions, and so to root_pos, only."""
     f0, f1, blend = _calc_frame_blend(
         motion_times,
         data.motion_lengths[motion_ids],
@@ -141,6 +142,8 @@ def get_motion_state(
         return (1.0 - b) * table[f0l] + b * table[f1l]
 
     rg_pos = lerp(data.gts, b2)
+    if offset is not None:
+        rg_pos = rg_pos + offset[..., None, :]
     body_vel = lerp(data.gvs, b2)
     body_ang_vel = lerp(data.gavs, b2)
     dof_vel = lerp(data.dvs, b1)

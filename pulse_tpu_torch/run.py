@@ -1,11 +1,14 @@
-"""CLI entry point: config-driven PPO training.
+"""CLI entry point: config-driven PPO training and PULSE distillation.
 
 Counterpart of `pulse_tpu/run.py`:
 
     python -m pulse_tpu_torch.run env=im_getup learning=im_ppo num_envs=3072
+    python -m pulse_tpu_torch.run env=im_vae learning=im_z_fit num_envs=3072 \
+        learning.teacher_checkpoint=output/<exp>/ckpt
 
 composes the YAML config tree (`utils/config.py`), builds the model, the
-synthetic motion clips, the env and the PPO agent, and runs the epoch loop
+synthetic motion clips, the env and the agent (PPO, or distillation of a
+frozen PPO teacher into a PulseVAE), and runs the epoch loop
 with JSONL metric lines every `log_frequency` epochs and `torch.save`
 checkpoints of the train state every `save_frequency` epochs and at the end.
 With `epoch` not 0 the latest checkpoint of the experiment is restored.
@@ -18,10 +21,13 @@ clips it failed become the only ones the env's resets sample (PMCP
 hard-negative mining); the weights are not checkpointed, so a resumed run
 starts uniform.
 
-Ported: the HumanoidIm and HumanoidImGetup tasks with `agent: ppo`, and
-HumanoidIm with per-env body shapes (`env=im_shape`: isotropic scales, or
-SMPL-beta skeletons with `env.smpl_model_path`). Other tasks, agents and
-options raise NotImplementedError naming the ROADMAP item that ports them.
+Ported: the HumanoidIm and HumanoidImGetup tasks (and their distillation
+names HumanoidImDistill and HumanoidImDistillGetup) with `agent: ppo` or
+`agent: distill`, and HumanoidIm with per-env body shapes (`env=im_shape`:
+isotropic scales, or SMPL-beta skeletons with `env.smpl_model_path`). Other
+tasks, agents and options raise NotImplementedError naming the ROADMAP item
+that ports them. The distill agent has no evaluator: `test=true` and
+`eval_frequency` raise with it.
 """
 
 from __future__ import annotations
@@ -40,7 +46,7 @@ import torch
 _UNPORTED_TASKS = {
     "HumanoidAMP": 10, "HumanoidAMPGetup": 10,
     "HumanoidImMCP": 10, "HumanoidImMCPGetup": 10, "HumanoidImMCPDemo": 15, "HumanoidImDemo": 15,
-    "HumanoidImDistill": 11, "HumanoidImDistillGetup": 11, "HumanoidImZ": 11,
+    "HumanoidImZ": 11,
     "HumanoidSpeed": 11, "HumanoidReach": 11, "HumanoidTraj": 11, "HumanoidStrike": 11,
     "HumanoidPedestrianTerrain": 11,
 }
@@ -88,14 +94,16 @@ def build_env_from_cfg(cfg, model, motion, device):
 
     e = cfg["env"]
     task = e["task"]
-    if task not in ("HumanoidIm", "HumanoidImGetup"):
+    # the distillation tasks are the imitation envs under another name
+    getup = task in ("HumanoidImGetup", "HumanoidImDistillGetup")
+    if not getup and task not in ("HumanoidIm", "HumanoidImDistill"):
         if task in _UNPORTED_TASKS or task.endswith("Z"):
             raise _unported(f"task {task}", _UNPORTED_TASKS.get(task, 11))
         raise ValueError(f"unknown task {task!r}")
     if bool(e.get("randomize", False)):
         raise _unported("domain randomization (env.randomize, env/domain_rand.py)", 10)
     shape_variation = bool(e.get("shape_variation", False))
-    if shape_variation and task == "HumanoidImGetup":
+    if shape_variation and getup:
         raise _unported("shape variation with HumanoidImGetup", 12)
     if str(e.get("control_mode", "isaac_pd")) != "isaac_pd":
         raise _unported(f"control_mode {e['control_mode']}", 12)
@@ -107,7 +115,9 @@ def build_env_from_cfg(cfg, model, motion, device):
         local_root_obs=bool(e["local_root_obs"]),
         root_height_obs=bool(e["root_height_obs"]),
         state_init=str(e["state_init"]),
+        episode_length=int(e["episode_length"]),
         power_reward=bool(e["power_reward"]),
+        power_coefficient=float(e["power_coefficient"]),
         cycle_motion=bool(e["cycle_motion"]),
         obs_v=int(e.get("obs_v", 6)),
         self_obs_v=int(e.get("self_obs_v", 1)),
@@ -125,7 +135,7 @@ def build_env_from_cfg(cfg, model, motion, device):
         **{k: float(v) for k, v in (e.get("reward_specs") or {}).items()},
     )
     seed = int(cfg["seed"])
-    if task == "HumanoidIm":
+    if not getup:
         env = HumanoidImEnv(model, motion, EnvConfig(**common), device=device, seed=seed)
         if shape_variation:
             # per-env body shapes (PHC's has_shape_variation), drawn from a
@@ -156,10 +166,38 @@ def build_agent_from_cfg(cfg, env):
 
     l = cfg["learning"]
     kind = l["agent"]
+    seed = int(cfg["seed"])
     if kind == "amp":
         raise _unported("the AMP agent", 9)
     if kind == "distill":
-        raise _unported("the distill agent", 11)
+        from pulse_tpu_torch.learning.distill import DistillAgent, DistillConfig
+        from pulse_tpu_torch.learning.networks import PulseVAE
+
+        teacher = build_teacher_from_cfg(cfg, env)
+        dc = DistillConfig(
+            num_envs=int(cfg["num_envs"]),
+            horizon_length=int(l["horizon_length"]),
+            minibatch_size=int(l["minibatch_size"]),
+            mini_epochs=int(l["mini_epochs"]),
+            kin_lr=float(l["kin_lr"]),
+            grad_norm=float(l["grad_norm"]),
+            kld_coefficient=float(l["kld_coefficient"]),
+            kld_coefficient_min=float(l["kld_coefficient_min"]),
+            kld_anneal_start=int(l["kld_anneal_start"]),
+            kld_anneal_end=int(l["kld_anneal_end"]),
+            ar1_coefficient=float(l["ar1_coefficient"]),
+        )
+        net = PulseVAE(
+            env.obs_dim, env.action_dim,
+            latent_dim=int(l["latent_dim"]),
+            self_obs_dim=env.self_obs_dim,
+            encoder_units=tuple(l["encoder_units"]),
+            prior_units=tuple(l["prior_units"]),
+            decoder_units=tuple(l["decoder_units"]),
+            device=env.device,
+            seed=seed,
+        )
+        return DistillAgent(env, teacher, dc, net, seed=seed + 1)
     if kind != "ppo":
         raise ValueError(f"unknown agent {kind!r}")
     ppo_cfg = PPOConfig(
@@ -178,7 +216,6 @@ def build_agent_from_cfg(cfg, env):
         normalize_value=bool(l["normalize_value"]),
         normalize_advantage=bool(l["normalize_advantage"]),
     )
-    seed = int(cfg["seed"])
     net = ActorCritic(
         env.obs_dim, env.action_dim,
         actor_units=tuple(l["actor_units"]),
@@ -191,6 +228,48 @@ def build_agent_from_cfg(cfg, env):
     return PPOAgent(env, ppo_cfg, net, seed=seed + 1)
 
 
+TEACHER_SEED = 7   # the JAX package's stand-in teacher is drawn from PRNGKey(7)
+
+
+def build_teacher_from_cfg(cfg, env) -> "DeterministicPolicy":
+    """The frozen teacher of distillation: the deterministic policy of one of
+    the port's PPO checkpoints (`learning.teacher_checkpoint`: a run's
+    `ckpt/` directory, whose latest `epoch_N.pt` is read, or one such file),
+    with its normalizer frozen. The checkpoint's network fixes the widths.
+    Without a checkpoint a fresh network (`teacher_actor_units` /
+    `teacher_critic_units`, default 2048-1536-1024) from a seed of its own
+    stands in, on observations normalized by zero mean and unit variance."""
+    from pulse_tpu_torch.learning.networks import ActorCritic
+    from pulse_tpu_torch.learning.running_norm import RunningMeanStd
+
+    l = cfg["learning"]
+    for key in ("teacher_pnn_checkpoint", "teacher_composer_checkpoint"):
+        if l.get(key, ""):
+            raise _unported(f"learning.{key} (PNN and composer teachers from .pth checkpoints)", 11)
+    ckpt = str(l.get("teacher_checkpoint", "") or "")
+    if ckpt:
+        path = latest_checkpoint(ckpt) if os.path.isdir(ckpt) else ckpt
+        if path is None:
+            raise FileNotFoundError(f"no epoch_N.pt checkpoint in {ckpt}")
+        ck = torch.load(path, map_location=env.device, weights_only=True)
+        sd = ck["network"]
+        units = {tower: [w.shape[0] for k, w in sd.items() if k.startswith(tower + ".") and k.endswith(".weight")]
+                 for tower in ("actor", "critic")}
+        net = ActorCritic(env.obs_dim, env.action_dim, actor_units=units["actor"], critic_units=units["critic"],
+                          device=env.device)
+        net.load_state_dict(sd)
+        obs_rms = RunningMeanStd(**ck["obs_rms"])
+        print(f"teacher restored from {path}")
+    else:
+        net = ActorCritic(env.obs_dim, env.action_dim,
+                          actor_units=tuple(l.get("teacher_actor_units", (2048, 1536, 1024))),
+                          critic_units=tuple(l.get("teacher_critic_units", (2048, 1536, 1024))),
+                          device=env.device, seed=TEACHER_SEED)
+        obs_rms = RunningMeanStd.create(env.obs_dim, device=env.device)
+    net.requires_grad_(False)
+    return DeterministicPolicy(net.eval(), obs_rms.freeze())
+
+
 # --------------------------------------------------------------------------- #
 # checkpoints: the train state without the env state (num_envs-dependent)
 # --------------------------------------------------------------------------- #
@@ -200,10 +279,15 @@ def _rms_dict(r) -> dict:
 
 
 def save_checkpoint(ckpt_dir: str, epoch: int, ts) -> str:
+    """A PPO TrainState's or a DistillState's network, optimizer,
+    normalizers and epoch."""
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, f"epoch_{epoch}.pt")
-    torch.save({"network": ts.network.state_dict(), "optimizer": ts.optimizer.state_dict(),
-                "obs_rms": _rms_dict(ts.obs_rms), "value_rms": _rms_dict(ts.value_rms), "epoch": ts.epoch}, path)
+    state = {"network": ts.network.state_dict(), "optimizer": ts.optimizer.state_dict(),
+             "obs_rms": _rms_dict(ts.obs_rms), "epoch": ts.epoch}
+    if hasattr(ts, "value_rms"):
+        state["value_rms"] = _rms_dict(ts.value_rms)
+    torch.save(state, path)
     return path
 
 
@@ -220,8 +304,8 @@ def restore_checkpoint(path: str, ts):
     ck = torch.load(path, map_location=dev, weights_only=True)
     ts.network.load_state_dict(ck["network"])
     ts.optimizer.load_state_dict(ck["optimizer"])
-    return dataclasses.replace(ts, obs_rms=RunningMeanStd(**ck["obs_rms"]), value_rms=RunningMeanStd(**ck["value_rms"]),
-                               epoch=int(ck["epoch"]))
+    rms = {k: RunningMeanStd(**ck[k]) for k in ("obs_rms", "value_rms") if k in ck}
+    return dataclasses.replace(ts, epoch=int(ck["epoch"]), **rms)
 
 
 @dataclasses.dataclass
@@ -239,6 +323,11 @@ def main(argv=None):
     from pulse_tpu_torch.utils.logger import MetricLogger
 
     cfg = load_config(argv if argv is not None else sys.argv[1:])
+    if cfg["learning"]["agent"] == "distill" and (cfg["test"] or int(cfg.get("eval_frequency", 0)) > 0):
+        # the JAX package's run_eval cannot evaluate a distill state either
+        # (its policy calls PulseVAE without z_noise and unpacks its dict)
+        raise NotImplementedError("test=true and eval_frequency evaluate a PPO policy; the distill agent has no "
+                                  "evaluator")
     device = resolve_device(cfg["device"])
 
     out_dir = os.path.join(cfg["output_dir"], cfg["exp_name"])
@@ -297,16 +386,22 @@ def main(argv=None):
     return TrainResult(agent=agent, train_state=ts, metrics=history)
 
 
-def _policy_fn(ts):
-    """The deterministic policy of a train state: the mean action on
-    normalized obs, clipped to the action bounds."""
-    net, obs_rms = ts.network, ts.obs_rms
+@dataclasses.dataclass
+class DeterministicPolicy:
+    """The mean action of an ActorCritic on observations normalized by
+    `obs_rms`, clipped to the action bounds."""
 
-    def policy_fn(obs):
-        mu, _, _ = net(obs_rms.normalize(obs))
-        return torch.clamp(mu, -1.0, 1.0)
+    network: object
+    obs_rms: object
 
-    return policy_fn
+    @torch.no_grad()
+    def __call__(self, obs: torch.Tensor) -> torch.Tensor:
+        return torch.clamp(self.network.mean_action(self.obs_rms.normalize(obs)), -1.0, 1.0)
+
+
+def _policy_fn(ts) -> DeterministicPolicy:
+    """The deterministic policy of a PPO train state."""
+    return DeterministicPolicy(ts.network, ts.obs_rms)
 
 
 def run_eval(cfg, env, ts):

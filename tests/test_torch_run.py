@@ -8,9 +8,14 @@ checkpoint, and a second run with `epoch=-1` must restore that checkpoint
 and go on from its epoch. `test=true epoch=-1` evaluates the restored
 policy and prints the EvalResult as JSON; `eval_frequency` evaluates
 during training and writes the PMCP weights of the failed clips into the
-motion store the resets sample from. Options the slice does not port raise
+motion store the resets sample from. `env=im_vae learning=im_z_fit`
+distills a PPO checkpoint into a narrow PulseVAE, checkpoints and resumes;
+it has no evaluator. Options the slice does not port raise
 NotImplementedError. The port's config dataclasses default as the JAX
 package's.
+
+One tiny `env=im` run in this process (`trained`) gives the checkpoint
+that test=true evaluates and that distillation takes as its teacher.
 """
 
 import json
@@ -26,19 +31,25 @@ import pytest
 import torch
 
 from pulse_tpu.env import EnvConfig as JaxEnvConfig
+from pulse_tpu.learning.distill import DistillConfig as JaxDistillConfig
 from pulse_tpu.learning.ppo import PPOConfig as JaxPPOConfig
 from pulse_tpu.physics import PhysicsConfig as JaxPhysicsConfig
 
 from pulse_tpu_torch import _build, run
 from pulse_tpu_torch.env.humanoid_im import EnvConfig
+from pulse_tpu_torch.learning.distill import DistillConfig
 from pulse_tpu_torch.learning.ppo import PPOConfig
-from pulse_tpu_torch.motion.motion_lib import update_hard_sampling_weight
+from pulse_tpu_torch.motion.motion_lib import build_motion_data, update_hard_sampling_weight
+from pulse_tpu_torch.motion.synthetic import make_synthetic_clips
 from pulse_tpu_torch.physics.model import PhysicsConfig
 
 ROOT = Path(__file__).resolve().parent.parent
 TINY = ["device=cpu", "num_envs=8", "learning.horizon_length=4", "learning.minibatch_size=16",
         "learning.mini_epochs=2", "learning.actor_units=[32,24]", "learning.critic_units=[32,24]", "log_frequency=1"]
 GETUP = ["env=im_getup", "env.num_fall_states=8", "env.fall_settle_steps=2"]
+DISTILL = ["env=im_vae", "learning=im_z_fit", "device=cpu", "num_envs=8", "learning.horizon_length=4",
+           "learning.minibatch_size=16", "learning.encoder_units=[64]", "learning.prior_units=[32]",
+           "learning.decoder_units=[64]", "env.num_fall_states=4", "env.fall_settle_steps=2", "log_frequency=1"]
 
 
 def _cli(args, tmp_path):
@@ -49,7 +60,17 @@ def _cli(args, tmp_path):
     return out.stdout
 
 
-def test_cli_trains_logs_checkpoints_and_resumes(tmp_path):
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    """(output dir, TrainResult, launch counts before and after) of a
+    2-epoch env=im run in this process; its checkpoint is under im/ckpt."""
+    out = tmp_path_factory.mktemp("trained")
+    before = dict(_build.launches)
+    res = run.main(["env=im", "max_epochs=2", f"output_dir={out}", "exp_name=im", *TINY])
+    return out, res, before, dict(_build.launches)
+
+
+def test_cli_trains_logs_checkpoints_and_resumes(tmp_path, capsys):
     first = _cli([*GETUP, "max_epochs=1", "exp_name=g", *TINY], tmp_path)
     exp = tmp_path / "g"
     assert json.loads((exp / "config.json").read_text())["env"]["task"] == "HumanoidImGetup"
@@ -60,23 +81,24 @@ def test_cli_trains_logs_checkpoints_and_resumes(tmp_path):
     ck = torch.load(exp / "ckpt" / "epoch_1.pt", weights_only=True)
     assert ck["epoch"] == 1 and float(ck["obs_rms"]["count"]) > 8 * 4
 
-    second = _cli([*GETUP, "max_epochs=2", "exp_name=g", "epoch=-1", *TINY], tmp_path)
+    run.main([*GETUP, "max_epochs=2", "exp_name=g", "epoch=-1", f"output_dir={tmp_path}", *TINY])
+    second = capsys.readouterr().out
     assert "restored" in second and "epoch=1" in second and "epoch=0" not in second
     assert torch.load(exp / "ckpt" / "epoch_2.pt", weights_only=True)["epoch"] == 2
 
 
-def test_main_runs_env_im_in_process(tmp_path):
-    before = dict(_build.launches)
-    res = run.main(["env=im", "max_epochs=2", f"output_dir={tmp_path}", *TINY])
-    assert _build.launches == before   # the CPU runs the plain versions: no kernel launched
+def test_main_runs_env_im_in_process(trained):
+    _, res, before, after = trained
+    assert after == before   # the CPU runs the plain versions: no kernel launched
     assert len(res.metrics) == 2 and res.train_state.epoch == 2
     assert res.agent.env._fused_step_ok()
     assert float(res.train_state.obs_rms.count) == pytest.approx(2 * 8 * 4, abs=1e-3)
 
 
 @pytest.mark.parametrize("args", [
-    ["env.task=HumanoidImDistillGetup"], ["env.task=HumanoidImMCP"],
-    ["env.task=HumanoidSpeedZ"], ["learning.agent=amp"], ["learning.agent=distill"],
+    ["env.task=HumanoidImZ"], ["env.task=HumanoidImMCP"],
+    ["env.task=HumanoidSpeedZ"], ["learning.agent=amp"],
+    [*DISTILL, "learning.teacher_composer_checkpoint=x.pth"],
     ["env.randomize=true"], ["env=im_getup", "env.shape_variation=true"], ["env.control_mode=pd"],
     ["env.motion_file=x.pkl"],
 ])
@@ -85,13 +107,21 @@ def test_unported_options_raise(args, tmp_path):
         run.main(["device=cpu", f"output_dir={tmp_path}", *args])
 
 
-def test_cli_test_true_prints_the_eval_result(tmp_path):
-    run.main(["env=im", "max_epochs=1", "exp_name=e", f"output_dir={tmp_path}", *TINY])
-    out = _cli(["env=im", "test=true", "epoch=-1", "exp_name=e", *TINY], tmp_path)
+def _one_second_clips(monkeypatch):
+    """run.main builds its four synthetic clips one second long, not four,
+    so that an eval steps 30 times, not 120."""
+    monkeypatch.setattr(run, "build_motion_from_cfg", lambda cfg, spec, device: build_motion_data(
+        spec.skeleton, make_synthetic_clips(spec.skeleton, 4, seconds=1.0), device=device))
+
+
+def test_cli_test_true_prints_the_eval_result(trained, capsys, monkeypatch):
+    _one_second_clips(monkeypatch)
+    run.main(["env=im", "test=true", "epoch=-1", "exp_name=im", f"output_dir={trained[0]}", *TINY])
+    out = capsys.readouterr().out
     assert "restored" in out and "epoch=" not in out   # evaluated, not trained
     res = json.loads(out[out.index("{"):])
     assert len(res["failed_motions"]) == 4
-    assert res["per_motion_steps"] == [119.0] * 4   # 4 s clips: the step at t = length is not scored
+    assert res["per_motion_steps"] == [29.0] * 4   # 1 s clips: the step at t = length is not scored
     for k in ("success_rate", "mpjpe_g", "mpjpe_l", "mpjpe_pa", "vel_dist", "accel_dist"):
         assert np.isfinite(res[k]) and res[k] >= 0, k
 
@@ -109,8 +139,10 @@ def test_eval_frequency_reweights_pmcp_sampling(tmp_path, monkeypatch):
         return result
 
     monkeypatch.setattr(run, "run_eval", run_eval)
+    _one_second_clips(monkeypatch)
     res = run.main(["env=im", "eval_frequency=1", "max_epochs=3", f"output_dir={tmp_path}", *TINY])
     assert len(evals) == 2 and len(res.metrics) == 3
+    assert [e.per_motion_steps.tolist() for e in evals] == [[29.0] * 4] * 2
     motion = res.agent.env.motion
     want = update_hard_sampling_weight(motion, torch.as_tensor(evals[-1].failed_motions)).sampling_prob
     assert torch.equal(motion.sampling_prob, want) and want.tolist() == [0.5, 0.0, 0.0, 0.5]
@@ -118,8 +150,52 @@ def test_eval_frequency_reweights_pmcp_sampling(tmp_path, monkeypatch):
     assert set(ids.tolist()) <= {0, 3}
 
 
+def test_cli_distills_from_a_teacher_checkpoint_and_resumes(trained, tmp_path, capsys):
+    """Two epochs of env=im_vae learning=im_z_fit with the env=im run's
+    policy as the frozen teacher, then a resume to a third."""
+    teacher = trained[0] / "im" / "ckpt"
+    args = [*DISTILL, f"learning.teacher_checkpoint={teacher}", "exp_name=d", f"output_dir={tmp_path}"]
+    res = run.main([*args, "max_epochs=2"])
+    first = capsys.readouterr().out
+    assert f"teacher restored from {teacher / 'epoch_2.pt'}" in first and "epoch=1" in first
+    env, agent = res.agent.env, res.agent
+    assert type(env).__name__ == "HumanoidImGetupEnv" and env.config.cycle_motion and env.config.power_reward
+    assert env.config.episode_length == 300 and not env._fused_step_ok()
+    rows = [json.loads(l) for l in (tmp_path / "d" / "metrics.jsonl").read_text().splitlines()]
+    assert [r["epoch"] for r in rows] == [0, 1]
+    for k in ("bc_loss", "kld", "ar1", "prior_reg", "kld_coef", "reward_mean", "rollout_s", "update_s"):
+        assert all(np.isfinite(r[k]) for r in rows), k
+    assert res.train_state.epoch == 2 and float(res.train_state.obs_rms.count) == pytest.approx(2 * 8 * 4, abs=1e-3)
+    # the teacher is the checkpoint's network, frozen, its normalizer too
+    ck = torch.load(teacher / "epoch_2.pt", weights_only=True)
+    sd = agent.teacher_fn.network.state_dict()
+    assert all(torch.equal(sd[k], v) for k, v in ck["network"].items())
+    assert agent.teacher_fn.obs_rms.frozen and not any(p.requires_grad for p in agent.teacher_fn.network.parameters())
+    assert torch.equal(agent.teacher_fn.obs_rms.mean, ck["obs_rms"]["mean"])
+    saved = torch.load(tmp_path / "d" / "ckpt" / "epoch_2.pt", weights_only=True)
+    assert saved["epoch"] == 2 and "value_rms" not in saved and "encoder.z_mu.weight" in saved["network"]
+
+    res = run.main([*args, "max_epochs=3", "epoch=-1"])
+    second = capsys.readouterr().out
+    assert "restored" in second and "epoch=2" in second and "epoch=0" not in second
+    assert res.train_state.epoch == 3 and float(res.train_state.obs_rms.count) == pytest.approx(3 * 8 * 4, abs=1e-3)
+    assert torch.load(tmp_path / "d" / "ckpt" / "epoch_3.pt", weights_only=True)["epoch"] == 3
+
+
+def test_distill_pnn_teacher_raises_naming_item_11(tmp_path):
+    with pytest.raises(NotImplementedError, match="item 11"):
+        run.main([*DISTILL, "learning.teacher_pnn_checkpoint=x.pth", f"output_dir={tmp_path}"])
+
+
+@pytest.mark.parametrize("args", [["test=true"], ["eval_frequency=1"]])
+def test_distill_has_no_evaluator(args, tmp_path):
+    with pytest.raises(NotImplementedError, match="no evaluator"):
+        run.main([*DISTILL, *args, f"output_dir={tmp_path}"])
+
+
 @pytest.mark.parametrize("port_cls, jax_cls", [(EnvConfig, JaxEnvConfig), (PPOConfig, JaxPPOConfig),
-                                               (PhysicsConfig, JaxPhysicsConfig)])
+                                               (PhysicsConfig, JaxPhysicsConfig),
+                                               (DistillConfig, JaxDistillConfig)])
 def test_config_defaults_match_jax(port_cls, jax_cls):
     """Every field both packages' config dataclasses have defaults alike, so
     the quality A/B's settings are the JAX arm's."""
