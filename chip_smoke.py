@@ -31,6 +31,19 @@ Phases, each printed as one JSON line:
                K1's and K2's ms and their plain versions' (CUDA events); K1
                at the chosen G and at G = 1 in turns (1, G, G, 1), and the
                max abs difference of their outputs
+  general      on env=im's config, from one state at 3072 envs with the
+               env's generator re-seeded before each, one step through
+               `_step_general` (K3, then plain PyTorch) and one through `step`
+               (K1, then K2): reward, raws and AMP history within 1e-5 and the
+               observation within 1e-4 in every env, the same resets, done and
+               terminate alike but where the mean reset-body distance lies
+               within 1e-5 of the threshold; exact launches. Then 8 acting
+               steps each of obs v7, v8, v9 with 3 future frames, self obs v2
+               and v3, the far-goal mode with a quarter of the envs moved
+               10 m, occlusion 0.5, noise 0.05, state init Start and Hybrid:
+               the obs width, finite obs, exact launches (K3 alone on the
+               general path; K1 and K2 where an option rides them), and each
+               option's own effect
   train_im     `python -m pulse_tpu_torch.run env=im learning=im_ppo
                num_envs=3072` for 2 epochs through run.main: finite losses,
                changed parameters, obs_rms.count grown by 32 * 3072 an epoch,
@@ -85,6 +98,9 @@ Phases, each printed as one JSON line:
                smpl/synthetic.py), 3072 SMPL-beta skeletons: 8 policy-acting
                steps (8 launches each of K3-rows, RA and K2), then K3-rows
                against physics_step on the env's state
+  train_vr     the same training as train_im with env=im_vr (VR three-point
+               tracking: Head, L_Hand, R_Hand): 32 K3 launches an epoch and
+               none of K1, RA or K2; the observation 430 wide
   The training phases time rollout, GAE and update (epochs after the first)
   and the training env steps/s; then K3's (3072 and 256 envs), K3-rows' and
   RA's ms and their plain versions', K3 and K3-rows at the chosen G and at
@@ -133,6 +149,10 @@ PHYS_FIELDS = ("root_pos", "root_rot", "joint_rot", "root_vel6", "joint_omega", 
                "body_ang_vel", "contact_force")
 OUTLIER_FRAC = 0.01
 RAGGED = 13                     # a batch whose last block of 8 envs holds 5
+GENERAL_STEPS = 8               # acting steps of each general-path option
+# the general step against the kernel path: max abs per field in every env
+GENERAL_TOL = {"reward": 1e-5, "reward_raw": 1e-5, "amp_hist": 1e-5, "obs": 1e-4}
+GENERAL_EDGE = 1e-5             # done/terminate may differ within this of the threshold
 SETTLE_CHECK_STEP = 8           # the mid-settle step (in contact) where K3 is measured
 
 
@@ -601,6 +621,127 @@ def main() -> int:
                                            len(e.reset_ids), len(e.key_ids), e.amp_v),
           "K2_ops_per_env": k2_ops_per_env(J)})
 
+    # ---- general: the env's general step against the kernel path ------------ #
+    # On env=im's config, from one state and with the env's generator
+    # re-seeded before each, `_step_general` (K3, then the reward, the
+    # distances, the AMP row and the observation in plain PyTorch) and `step`
+    # (K1, then K2) must take the same step. Then every option of the general
+    # path acts GENERAL_STEPS steps on a config of its own
+    def one_step(step_fn, st, actions):
+        """(the stepped state, the launches) of one step from the env's
+        generator seeded afresh."""
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        env.generator.manual_seed(11)
+        out = step_fn(st, actions)
+        torch.cuda.synchronize()
+        return out, dict(_build.launches)
+
+    with torch.no_grad():
+        st0 = st_p
+        actions = torch.clamp(policy_step(net, st0.obs, g, obs_rms=obs_rms)[0], -1.0, 1.0)
+        gen, gen_launches = one_step(env._step_general, st0, actions)
+        ker, ker_launches = one_step(env.step, st0, actions)
+        # the mean reset-body distance of the stepped state (a measurement launch)
+        _, ref1 = env._post_step_ref(st0, st0.progress + 1)
+        phys1 = substep_cuda.physics_step_cuda(model, st0.physics, env.action_to_pd_target(actions))
+        rid = list(e.reset_ids)
+        dmean = torch.linalg.vector_norm(phys1.body_pos[:, rid] - ref1["rg_pos"][:, rid], dim=-1).mean(dim=-1)
+    on_edge = (dmean - env.config.termination_distance).abs() <= GENERAL_EDGE
+    gen_cmp = {f: compare(getattr(gen, f), getattr(ker, f), tol, N_ENVS) for f, tol in GENERAL_TOL.items()}
+    flags = {f: {"envs_differ": int((getattr(gen, f) != getattr(ker, f)).sum()),
+                 "envs_differ_off_edge": int(((getattr(gen, f) != getattr(ker, f)) & ~on_edge).sum())}
+             for f in ("done", "terminate")}
+    same_resets = all(torch.equal(getattr(gen, f), getattr(ker, f)) for f in ("motion_id", "start_time", "progress"))
+    general_info = {"phase": "general", "envs": N_ENVS, "vs_kernel_path": gen_cmp, "flags": flags,
+                    "envs_on_edge": int(on_edge.sum()), "resets": int(ker.done.sum()),
+                    "terminations": int(ker.terminate.sum()), "same_resets": same_resets,
+                    "launches_general": gen_launches, "launches_kernel": ker_launches}
+    want_gen = {"step_reward_amp": 0, "observe": 0, "physics_step": 1, "physics_step_rows": 0, "reward_amp": 0}
+    want_ker = {"step_reward_amp": 1, "observe": 1, "physics_step": 0, "physics_step_rows": 0, "reward_amp": 0}
+    if gen_launches != want_gen or ker_launches != want_ker:
+        fail(f"general: launches {gen_launches} (expected {want_gen}) and {ker_launches} (expected {want_ker})")
+    for name, c in gen_cmp.items():
+        if c["outlier_envs"]:
+            fail(f"general vs kernel path {name}: {c['outlier_envs']} envs beyond {c['tol']} (max {c['max']})")
+    if any(v["envs_differ_off_edge"] for v in flags.values()) or not same_resets or not int(ker.done.sum()):
+        fail(f"general vs kernel path: flags {flags}, same resets {same_resets}, {int(ker.done.sum())} resets")
+    del gen, ker, st0, phys1
+
+    # every option of the general path (and those that ride the kernels):
+    # (name, EnvConfig overrides, obs width)
+    general_options = [
+        ("obs_v7_T3", dict(obs_v=7, num_traj_samples=3), 358 + 3 * 24 * 9),
+        ("obs_v8_T3", dict(obs_v=8, num_traj_samples=3), 358 + 24 * 15 + 3 * 24 * 15),
+        ("obs_v9_T3", dict(obs_v=9, num_traj_samples=3), 358 + 3 * (24 * 18 + 6)),
+        ("self_obs_v2", dict(self_obs_v=2), 5 * 358 + 576),
+        ("self_obs_v3", dict(self_obs_v=3), 370 + 576),
+        ("zero_out_far", dict(zero_out_far=True), 934),
+        ("occlusion_0.5", dict(occlusion_prob=0.5), 934),
+        ("noise_0.05", dict(obs_noise_std=0.05), 934),
+        ("state_init_Start", dict(state_init="Start"), 934),
+        ("state_init_Hybrid", dict(state_init="Hybrid"), 934),
+    ]
+    n_far = N_ENVS // 4
+    options_info = {}
+    for name, kw, width in general_options:
+        oenv = HumanoidImEnv(model, motion, EnvConfig(**kw), device=dev, seed=0)
+        onet = ActorCritic(oenv.obs_dim, oenv.action_dim, device=dev, seed=0)
+        orms = RunningMeanStd.create(oenv.obs_dim, device=dev)
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            ost = oenv.reset(N_ENVS)
+            start_at_zero = float((ost.start_time == 0).float().mean())
+            if oenv.config.zero_out_far:   # the first quarter of the envs 10 m away
+                shift = torch.zeros(N_ENVS, 3, device=dev)
+                shift[:n_far, 0] = 10.0
+                ost = ost.replace(physics=ost.physics.replace(root_pos=ost.physics.root_pos + shift,
+                                                              body_pos=ost.physics.body_pos + shift[:, None]))
+            rewards = []
+            for i in range(GENERAL_STEPS):
+                ost = oenv.step(ost, torch.clamp(policy_step(onet, ost.obs, g, obs_rms=orms)[0], -1.0, 1.0))
+                rewards.append(ost.reward)
+                if i == 0:
+                    first = ost
+            torch.cuda.synchronize()
+            o_launches = dict(_build.launches)
+        rewards = torch.stack(rewards)
+        kernel_path = oenv._kernel_surface()
+        want_o = ({"step_reward_amp": GENERAL_STEPS, "observe": GENERAL_STEPS + 1, "physics_step": 0,
+                   "physics_step_rows": 0, "reward_amp": 0} if kernel_path else
+                  {"step_reward_amp": 0, "observe": 0, "physics_step": GENERAL_STEPS, "physics_step_rows": 0,
+                   "reward_amp": 0})
+        task = ost.obs[:, oenv.self_obs_dim:]
+        o = {"obs_dim": oenv.obs_dim, "kernel_path": kernel_path, "launches": o_launches,
+             "obs_finite": bool(torch.isfinite(ost.obs).all()), "reward_mean": float(rewards.mean()),
+             "resets": int(ost.done.sum()), "reset_start_time_zero_share": start_at_zero}
+        checks = [oenv.obs_dim == width, ost.obs.shape == (N_ENVS, width), o["obs_finite"], o_launches == want_o]
+        if name == "self_obs_v2":
+            checks.append(torch.equal(ost.obs[:, :oenv.self_obs_dim], ost.self_obs_hist.flatten(1)))
+        if name == "zero_out_far":
+            kept = ~first.done[:n_far]
+            far_task = first.obs[:n_far, oenv.self_obs_dim:][kept]
+            o.update(far_envs_kept=int(kept.sum()), far_terminated=int(first.terminate[:n_far].sum()),
+                     far_reward_max=float(first.reward[:n_far][kept].max()),
+                     far_goal_m_min=float(far_task[:, :3].norm(dim=-1).min()))
+            checks += [o["far_envs_kept"] > 0, o["far_terminated"] == 0, o["far_reward_max"] < 1e-3,
+                       bool((far_task[:, 3:] == 0).all()), o["far_goal_m_min"] > 9.0]
+        if name == "occlusion_0.5":
+            width_occ = max(int(oenv.task_obs_dim * oenv.config.occlusion_frac), 1)
+            o["occluded_share"] = float(((task == 0).sum(dim=1) >= width_occ).float().mean())
+            checks.append(0.4 < o["occluded_share"] < 0.6)
+        if name == "state_init_Start":
+            checks.append(start_at_zero == 1.0)
+        if name == "state_init_Hybrid":
+            checks.append(0.4 < start_at_zero < 0.6)
+        options_info[name] = o
+        if not all(checks):
+            fail(f"general option {name}: {o} (width expected {width}, launches {want_o})")
+        del oenv, onet, orms, ost, first
+    general_info["options"] = options_info
+    emit(general_info)
+
     # ---- training through the CLI's entry point ------------------------------ #
     from pulse_tpu_torch import run
     from pulse_tpu_torch.env.humanoid_im_getup import GetupConfig, fall_drop_start, ragdoll
@@ -1047,6 +1188,21 @@ def main() -> int:
         if not c["outlier_envs"] <= allowed:
             fail(f"shape_betas K3-rows {name}: {c['outlier_envs']} envs beyond {c['tol']} (max {c['max']})")
     del benv, bst, got, want
+
+    # ---- VR three-point tracking: env=im_vr on the general path ------------- #
+    # the reference's im_vr.yaml: task obs and reward over Head, L_Hand and
+    # R_Hand, so every step is K3, then the general step in plain PyTorch
+    want_vr = {"step_reward_amp": 0, "observe": 0, "physics_step": HORIZON, "physics_step_rows": 0, "reward_amp": 0}
+    res, vr_launches, info = train("train_vr", ["env=im_vr"], want_vr)
+    venv = res.agent.env
+    info.update(obs_dim=venv.obs_dim, track_bodies=list(venv.config.track_bodies),
+                kernel_path=venv._kernel_surface())
+    emit(info)
+    want_vr = {k: TRAIN_EPOCHS * n for k, n in want_vr.items()}
+    if vr_launches != want_vr or venv.obs_dim != 358 + 3 * 24 or info["kernel_path"]:
+        fail(f"train_vr: launches {vr_launches} (expected {want_vr}), obs {venv.obs_dim} wide (expected 430), "
+             f"kernel path {info['kernel_path']}")
+    del res, venv
     shutil.rmtree(out_root, ignore_errors=True)
 
     # ---- K3's and RA's times on the kernel phase's inputs ---------------------- #
@@ -1197,7 +1353,10 @@ def main() -> int:
          "max_abs_err": max_err["observe"], "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": None},
         {"name": "physics_step", "route": "cuda", "source": src + "physics_step.cu",
-         "replaces": "pulse_tpu/physics/substep_pallas.py:847", "launches": getup_launches["physics_step"],
+         "replaces": "pulse_tpu/physics/substep_pallas.py:847",
+         "launches": getup_launches["physics_step"] + vr_launches["physics_step"],
+         "launches_by_phase": {"train_getup": getup_launches["physics_step"],
+                               "train_vr": vr_launches["physics_step"]},
          "max_abs_err": max_err["physics_step"], "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
          "bound_by": k3_by, "library_ms": None},
         {"name": "physics_step_rows", "route": "cuda", "source": src + "physics_step.cu",

@@ -121,19 +121,10 @@ def obs_dim(J: int, root_height: bool, shape_dim: int = 0) -> int:
 # plain versions
 # --------------------------------------------------------------------------- #
 
-def reward_amp_plain(e: EnvConsts, physics: PhysicsState, ref: dict, shape_params=None, limb_weight_params=None):
-    """K1's epilogue on an already-stepped state: (reward [B], raw [B, 4],
-    dist_mean [B], dist_max [B], amp row [B, A]); the AMP row ends with the
-    given per-env shape columns ([B, 11] gender+betas, [B, 10] limb
+def amp_row_plain(e: EnvConsts, physics: PhysicsState, shape_params=None, limb_weight_params=None) -> torch.Tensor:
+    """The AMP row [B, A] of a stepped state (RA's last output), ending with
+    the given per-env shape columns ([B, 11] gender+betas, [B, 10] limb
     weights)."""
-    reward, raw = kernels.compute_imitation_reward(
-        physics.body_pos, physics.body_rot, physics.body_vel, physics.body_ang_vel,
-        ref["rg_pos"], ref["rb_rot"], ref["body_vel"], ref["body_ang_vel"],
-        k_pos=e.k_pos, k_rot=e.k_rot, k_vel=e.k_vel, k_ang_vel=e.k_ang_vel,
-        w_pos=e.w_pos, w_rot=e.w_rot, w_vel=e.w_vel, w_ang_vel=e.w_ang_vel,
-    )
-    rid = list(e.reset_ids)
-    dist = torch.linalg.vector_norm(physics.body_pos[:, rid] - ref["rg_pos"][:, rid], dim=-1)
     kid = list(e.key_ids)
     args = (
         physics.root_pos, physics.root_rot, physics.body_vel[:, 0], physics.body_ang_vel[:, 0],
@@ -142,9 +133,23 @@ def reward_amp_plain(e: EnvConsts, physics: PhysicsState, ref: dict, shape_param
     kw = dict(local_root_obs=e.local_root_obs, root_height_obs=e.root_height_obs, shape_params=shape_params,
               limb_weight_params=limb_weight_params)
     if e.amp_v == 2:
-        amp = kernels.build_amp_observations_smpl_v2(*args, physics.body_vel[:, kid], **kw)
-    else:
-        amp = kernels.build_amp_observations_smpl(*args, **kw)
+        return kernels.build_amp_observations_smpl_v2(*args, physics.body_vel[:, kid], **kw)
+    return kernels.build_amp_observations_smpl(*args, **kw)
+
+
+def reward_amp_plain(e: EnvConsts, physics: PhysicsState, ref: dict, shape_params=None, limb_weight_params=None):
+    """K1's epilogue on an already-stepped state: (reward [B], raw [B, 4],
+    dist_mean [B], dist_max [B], amp row [B, A]); the AMP row ends with the
+    given per-env shape columns."""
+    reward, raw = kernels.compute_imitation_reward(
+        physics.body_pos, physics.body_rot, physics.body_vel, physics.body_ang_vel,
+        ref["rg_pos"], ref["rb_rot"], ref["body_vel"], ref["body_ang_vel"],
+        k_pos=e.k_pos, k_rot=e.k_rot, k_vel=e.k_vel, k_ang_vel=e.k_ang_vel,
+        w_pos=e.w_pos, w_rot=e.w_rot, w_vel=e.w_vel, w_ang_vel=e.w_ang_vel,
+    )
+    rid = list(e.reset_ids)
+    dist = torch.linalg.vector_norm(physics.body_pos[:, rid] - ref["rg_pos"][:, rid], dim=-1)
+    amp = amp_row_plain(e, physics, shape_params, limb_weight_params)
     return reward, raw, dist.mean(dim=-1), dist.amax(dim=-1), amp
 
 

@@ -1,33 +1,44 @@
 """HumanoidIm, the motion-imitation environment, batched over envs in
 PyTorch.
 
-Counterpart of `pulse_tpu/env/humanoid_im.py` on the surface of its Pallas
-kernels (obs v6 with one future step, self obs v1, AMP obs v1/v2, isaac_pd
-control, no far-goal, occlusion, obs noise or domain randomization), with
-PHC's per-env body shapes and shape channels, the cycled reference
-(`cycle_motion`: the clip time wraps, the reference is shifted by the clip's
-root travel per cycle, and episodes end at `episode_length` steps) and the
-power reward. A config off that surface raises NotImplementedError.
+Counterpart of `pulse_tpu/env/humanoid_im.py` for isaac_pd control without
+domain randomization: task obs v6-v9 over all bodies or a tracked subset
+(`track_bodies`, VR sparse tracking) with `num_traj_samples` future frames,
+self obs v1, v2 (a history of `self_obs_hist_steps` frames) and v3 (the
+ankles' contact forces), AMP obs v1/v2, the far-goal mode
+(`zero_out_far`), occlusion, obs noise, state init Default / Start /
+Random / Hybrid, PHC's per-env body shapes and shape channels, the cycled
+reference (`cycle_motion`: the clip time wraps, the reference is shifted
+by the clip's root travel per cycle, and episodes end at `episode_length`
+steps) and the power reward. Other control modes raise
+NotImplementedError.
 
 One `step`: gather the reference at the post-step time, then
 
-  * on the fused path (`_fused_step_ok`: no subclass overrides termination
-    or reset, no shape channels, one shared model) kernel K1: physics,
-    reward, termination distances, AMP row;
-  * with per-env body shapes (`enable_shape_variation`) kernel K3-rows (the
-    physics under each env's own model) and kernel RA (reward, distances,
-    AMP row on the stepped state);
-  * else kernel K3 (physics) and kernel RA, which together compute what K1
-    does;
+  * on the kernels' surface (`_kernel_surface`: obs v6 over all bodies with
+    one future frame, self obs v1, no far-goal mode)
+      - on the fused path (`_fused_step_ok`: no subclass overrides
+        termination or reset, no shape channels, one shared model) kernel
+        K1: physics, reward, termination distances, AMP row;
+      - with per-env body shapes (`enable_shape_variation`) kernel K3-rows
+        (the physics under each env's own model) and kernel RA (reward,
+        distances, AMP row on the stepped state);
+      - else kernel K3 (physics) and kernel RA, which together compute what
+        K1 does;
+  * otherwise `_step_general`: K3 (or K3-rows), then the reward over the
+    tracked bodies, the distances and the AMP row in plain PyTorch (the
+    counterpart of the JAX package's per-env XLA `_finish_step`);
 
 then, with `power_reward`, the energy penalty of the stepped state added to
-the kernel's imitation reward, termination (`_termination`), the AMP
-history roll, the branch-free auto-reset merge with fresh states
-(`_reset_states`), and kernel K2 (the observation of the merged state).
-With shape channels, each env's shape row (gender, betas, limb weights;
-zeros until shapes are enabled) is spliced into the observation after the
-self obs and appended to every AMP row. Random draws come from the env's
-`torch.Generator`.
+the imitation reward; with `zero_out_far`, the location reward and no
+termination for envs far from their reference; termination
+(`_termination`), the AMP and self-obs history rolls, the branch-free
+auto-reset merge with fresh states (`_reset_states`), the observation of
+the merged state (kernel K2 on the kernels' surface, `_observe_general`
+otherwise), and last obs noise and occlusion. With shape channels, each
+env's shape row (gender, betas, limb weights; zeros until shapes are
+enabled) follows the self obs and is appended to every AMP row. Random
+draws come from the env's `torch.Generator`.
 """
 
 from __future__ import annotations
@@ -56,6 +67,8 @@ DEFAULT_RESET_BODIES = (
     "Neck", "Head", "L_Thorax", "L_Shoulder", "L_Elbow", "L_Wrist", "L_Hand",
     "R_Thorax", "R_Shoulder", "R_Elbow", "R_Wrist", "R_Hand",
 )
+SENSOR_BODIES = ("L_Ankle", "R_Ankle")     # self obs v3's force sensors
+STATE_INITS = ("Default", "Start", "Random", "Hybrid")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,19 +79,24 @@ class EnvConfig:
     termination_distance: float = 0.25
     enable_early_termination: bool = True
     use_mean_termination: bool = True
-    num_traj_samples: int = 1
+    num_traj_samples: int = 1          # future reference frames in the task obs
+    traj_sample_timestep: float = 1.0 / 30.0
     local_root_obs: bool = True
     root_height_obs: bool = True
-    state_init: str = "Random"         # reference-state init at a random clip time
+    state_init: str = "Random"         # Default | Start (time 0) | Random | Hybrid
+    hybrid_init_prob: float = 0.5      # Hybrid: time 0 where a uniform draw exceeds it
     episode_length: int = 300          # steps an episode of a cycled reference lasts
     power_reward: bool = False
     power_coefficient: float = 0.0005
     cycle_motion: bool = False
     obs_v: int = 6
-    self_obs_v: int = 1
+    self_obs_v: int = 1                # 1 plain / 2 + history / 3 + ankle force sensors
+    self_obs_hist_steps: int = 5
     obs_noise_std: float = 0.0
-    zero_out_far: bool = False
-    occlusion_prob: float = 0.0
+    zero_out_far: bool = False         # far-goal mode beyond zero_out_far_distance (m, XY)
+    zero_out_far_distance: float = 5.0
+    occlusion_prob: float = 0.0        # per env and step: zero one chunk of the task obs
+    occlusion_frac: float = 0.25       # the chunk's share of the task obs
     num_amp_obs_steps: int = 10
     amp_obs_v: int = 1
     has_shape_obs: bool = False
@@ -86,7 +104,7 @@ class EnvConfig:
     has_limb_weight_obs: bool = False
     key_bodies: Sequence[str] = DEFAULT_KEY_BODIES
     reset_bodies: Sequence[str] = DEFAULT_RESET_BODIES
-    track_bodies: Sequence[str] | None = None
+    track_bodies: Sequence[str] | None = None   # the task obs' and reward's bodies; None: all
     k_pos: float = 100.0
     k_rot: float = 10.0
     k_vel: float = 0.1
@@ -112,6 +130,7 @@ class EnvState:
     terminate: torch.Tensor    # [B] bool
     amp_hist: torch.Tensor     # [B, S, A] newest first
     recovery_counter: torch.Tensor  # [B] int32: steps of termination grace (getup)
+    self_obs_hist: torch.Tensor | None = None  # [B, H, single] newest first (self obs v2)
 
     @property
     def amp_obs(self) -> torch.Tensor:
@@ -124,7 +143,8 @@ class EnvState:
 def env_state_from_numpy(d: dict, device=None) -> EnvState:
     """Build an EnvState from numpy arrays keyed by field name, with
     d["physics"] a dict of PhysicsState fields (e.g. a JAX EnvState
-    converted leaf by leaf). A missing recovery_counter is zeros."""
+    converted leaf by leaf). A missing recovery_counter is zeros, a missing
+    self_obs_hist None."""
     def t(x, dtype):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
@@ -142,11 +162,15 @@ def env_state_from_numpy(d: dict, device=None) -> EnvState:
         terminate=t(d["terminate"], torch.bool),
         amp_hist=t(d["amp_hist"], torch.float32),
         recovery_counter=t(d.get("recovery_counter", np.zeros(B)), torch.int32),
+        self_obs_hist=None if d.get("self_obs_hist") is None else t(d["self_obs_hist"], torch.float32),
     )
 
 
 def _select(mask: torch.Tensor, a, b):
-    """Field-wise where(mask, a, b) over (nested) state dataclasses."""
+    """Field-wise where(mask, a, b) over (nested) state dataclasses; a field
+    that is None in both stays None."""
+    if a is None:
+        return None
     if dataclasses.is_dataclass(a):
         return type(a)(**{f.name: _select(mask, getattr(a, f.name), getattr(b, f.name)) for f in dataclasses.fields(a)})
     return torch.where(mask.reshape(mask.shape + (1,) * (a.ndim - 1)), a, b)
@@ -164,8 +188,7 @@ class HumanoidImEnv:
         self.model = model
         self.motion = motion
         self.config = cfg = config or EnvConfig()
-        if not self._surface_ok():
-            raise NotImplementedError("only the imitation step surface of the kernels (pulse_tpu _fused_step_ok) is ported")
+        self._check_config()
         if cfg.has_shape_obs_disc and not cfg.has_shape_obs:
             raise ValueError("has_shape_obs_disc requires has_shape_obs")
         if self.device.type == "cuda" and not substep_cuda.supported(model):
@@ -177,8 +200,15 @@ class HumanoidImEnv:
         self.body_names = names = load_smpl_humanoid().skeleton.node_names
         self.key_body_ids = np.asarray([names.index(n) for n in cfg.key_bodies], np.int32)
         self.reset_body_ids = np.asarray([names.index(n) for n in cfg.reset_bodies], np.int32)
+        self.sensor_body_ids = np.asarray([names.index(n) for n in SENSOR_BODIES], np.int32)
         J = model.num_bodies
         self.num_bodies = J
+        tracked = range(J) if cfg.track_bodies is None else [names.index(n) for n in cfg.track_bodies]
+        self.track_body_ids = np.asarray(tracked, np.int32)
+        self._all_tracked = np.array_equal(self.track_body_ids, np.arange(J))
+        # the tracked bodies as an index: a slice when all are tracked
+        self._track = slice(None) if self._all_tracked else torch.as_tensor(self.track_body_ids, dtype=torch.long,
+                                                                            device=self.device)
         # shape channels: [gender 1, betas 10]? [limb weights 10]? in the obs,
         # [gender, betas]? [limb weights]? at the tail of each AMP row
         self.shape_obs_dim = 11 * cfg.has_shape_obs + 10 * cfg.has_limb_weight_obs
@@ -187,9 +217,14 @@ class HumanoidImEnv:
         self._shape_obs_table = None                # [N, shape_obs_dim]
         self._model_rows_cache = None               # (batched model, its K3-rows rows)
         self._shape_args = None                     # enable_shape_variation's, for resample_shapes
-        self.obs_dim = cuda_obs.obs_dim(J, cfg.root_height_obs, self.shape_obs_dim)
-        # the self obs and the shape row after it: what a PULSE prior reads
-        self.self_obs_dim = cuda_obs.self_obs_dim(J, cfg.root_height_obs) + self.shape_obs_dim
+        # one frame of self obs: [v1's, ankle forces 6 and 6 zeros (v3)?, shape row?]
+        self.self_obs_dim_single = (cuda_obs.self_obs_dim(J, cfg.root_height_obs) + 12 * (cfg.self_obs_v == 3)
+                                    + self.shape_obs_dim)
+        # the self obs, all its frames: what a PULSE prior reads
+        self.self_obs_dim = self.self_obs_dim_single * (cfg.self_obs_hist_steps if cfg.self_obs_v == 2 else 1)
+        T, Jt = cfg.num_traj_samples, len(self.track_body_ids)
+        self.task_obs_dim = {6: T * Jt * 24, 7: T * Jt * 9, 8: Jt * 15 + T * Jt * 15, 9: T * (Jt * 18 + 6)}[cfg.obs_v]
+        self.obs_dim = self.self_obs_dim + self.task_obs_dim
         self.amp_obs_dim_single = cuda_obs.amp_obs_dim(J, len(self.key_body_ids), cfg.amp_obs_v, cfg.root_height_obs,
                                                        self.shape_disc_dim)
         self.amp_obs_dim = cfg.num_amp_obs_steps * self.amp_obs_dim_single
@@ -215,28 +250,32 @@ class HumanoidImEnv:
             raise ValueError("with_config must keep the obs and AMP obs widths")
         return new
 
-    def _surface_ok(self) -> bool:
-        """The config is one the kernels cover."""
+    def _check_config(self) -> None:
+        """Raise on a config the port does not run (domain randomization is
+        not a field here: `run.py` raises on `env.randomize`)."""
         cfg = self.config
-        return (
-            cfg.control_mode == "isaac_pd"
-            and cfg.state_init == "Random"
-            and cfg.obs_v == 6
-            and cfg.self_obs_v == 1
-            and cfg.amp_obs_v in (1, 2)
-            and cfg.num_traj_samples == 1
-            and not cfg.zero_out_far
-            and cfg.occlusion_prob == 0
-            and cfg.obs_noise_std == 0
-            and cfg.track_bodies is None
-        )
+        if cfg.control_mode in ("pd", "force"):
+            raise NotImplementedError(f"control_mode {cfg.control_mode} is not ported yet (ROADMAP queue 1, item 12)")
+        for name, allowed in (("control_mode", ("isaac_pd",)), ("state_init", STATE_INITS), ("obs_v", (6, 7, 8, 9)),
+                              ("self_obs_v", (1, 2, 3)), ("amp_obs_v", (1, 2))):
+            if getattr(cfg, name) not in allowed:
+                raise ValueError(f"unsupported {name} {getattr(cfg, name)!r}")
+
+    def _kernel_surface(self) -> bool:
+        """The step's reward and observation are K1's / RA's and K2's: task obs
+        v6 over all bodies with one future frame, self obs v1, no far-goal
+        mode (the JAX package's `_fused_step_ok` surface). Obs noise and
+        occlusion act on the final observation, so they ride this path."""
+        cfg = self.config
+        return (cfg.obs_v == 6 and cfg.self_obs_v == 1 and cfg.num_traj_samples == 1 and self._all_tracked
+                and not cfg.zero_out_far)
 
     def _fused_step_ok(self) -> bool:
         """K1 may run the step (of a shared model): no shape channels, and no
         subclass replaces a stage it fuses."""
         t = type(self)
         return (
-            self._surface_ok()
+            self._kernel_surface()
             and self.shape_obs_dim == 0
             and t._termination is HumanoidImEnv._termination
             and t._reset_states is HumanoidImEnv._reset_states
@@ -284,9 +323,18 @@ class HumanoidImEnv:
         return cycles[:, None] * delta
 
     def _sample_reset(self, n: int) -> tuple[torch.Tensor, torch.Tensor]:
-        """(motion ids [n], start times [n]) for n fresh episodes."""
-        motion_ids = sample_motions(self.generator, self.motion, n)
-        return motion_ids, sample_time(self.generator, self.motion, motion_ids)
+        """(motion ids [n], start times [n]) for n fresh episodes: the clip's
+        start (Default, Start), a uniform time in it (Random), or, per env,
+        the start where a uniform draw exceeds `hybrid_init_prob` and a
+        uniform time elsewhere (Hybrid)."""
+        cfg, g = self.config, self.generator
+        motion_ids = sample_motions(g, self.motion, n)
+        if cfg.state_init in ("Default", "Start"):
+            return motion_ids, torch.zeros(n, device=self.device)
+        times = sample_time(g, self.motion, motion_ids)
+        if cfg.state_init == "Hybrid":
+            times = torch.where(torch.rand(n, generator=g, device=self.device) > cfg.hybrid_init_prob, 0.0, times)
+        return motion_ids, times
 
     def _init_amp_hist(self, motion_ids: torch.Tensor, start_times: torch.Tensor) -> torch.Tensor:
         """Discriminator window from the clip's past frames, each row ending
@@ -306,9 +354,10 @@ class HumanoidImEnv:
         return torch.cat([rows, tail[:, None].expand(-1, S, -1)], dim=-1)
 
     def _fresh(self, motion_ids: torch.Tensor, start_times: torch.Tensor) -> EnvState:
-        """Reference-state init onto (clip, time) pairs; obs left at zero.
-        With per-env shapes the motion tables' bodies (the base skeleton's)
-        do not fit, so each env's pose is FK'd through its own model."""
+        """Reference-state init onto (clip, time) pairs; obs left at zero,
+        the self-obs history (v2) the state's own frame repeated. With
+        per-env shapes the motion tables' bodies (the base skeleton's) do
+        not fit, so each env's pose is FK'd through its own model."""
         B = motion_ids.shape[0]
         ref = get_motion_state(self.motion, motion_ids, start_times)
         z = torch.zeros(B, device=self.device)
@@ -329,6 +378,8 @@ class HumanoidImEnv:
             terminate=torch.zeros(B, dtype=torch.bool, device=self.device),
             amp_hist=self._init_amp_hist(motion_ids, start_times),
             recovery_counter=torch.zeros(B, dtype=torch.int32, device=self.device),
+            self_obs_hist=(self._self_obs_single(physics)[:, None].expand(-1, self.config.self_obs_hist_steps, -1)
+                           if self.config.self_obs_v == 2 else None),
         )
 
     def _reset_states(self, mask: torch.Tensor) -> EnvState:
@@ -346,12 +397,99 @@ class HumanoidImEnv:
         return state.replace(obs=self._observe(state))
 
     def _observe(self, state: EnvState) -> torch.Tensor:
-        """K2 against the reference at the next control step's time (with the
-        cycle offset of the state's own time, as the JAX package's)."""
+        """The observation of a state: K2 on the kernels' surface, else
+        `_observe_general`."""
+        if not self._kernel_surface():
+            return self._observe_general(state)
+        # K2 against the reference at the next control step's time (with the
+        # cycle offset of the state's own time, as the JAX package's)
         t_next = self._motion_time(state.motion_id, state.start_time, state.progress) + self.model.config.control_dt
         ref = get_motion_state(self.motion, state.motion_id, t_next,
                                self._cycle_offset(state.motion_id, state.start_time, state.progress))
         return cuda_obs.observe(self.consts, state.physics, ref, self._shape_obs(state.motion_id.shape[0]))
+
+    def _self_obs_single(self, physics: PhysicsState) -> torch.Tensor:
+        """One frame of self obs [B, self_obs_dim_single]: v1's, then (v3)
+        the ankles' contact forces and as many zeros, then the shape row."""
+        cfg = self.config
+        B = physics.body_pos.shape[0]
+        parts = [kernels.compute_humanoid_self_obs_max(
+            physics.body_pos, physics.body_rot, physics.body_vel, physics.body_ang_vel,
+            local_root_obs=cfg.local_root_obs, root_height_obs=cfg.root_height_obs)]
+        if cfg.self_obs_v == 3:
+            force = physics.contact_force[:, self.sensor_body_ids].reshape(B, -1)
+            parts += [force, torch.zeros_like(force)]
+        shape = self._shape_obs(B)
+        return torch.cat(parts + ([] if shape is None else [shape]), dim=-1)
+
+    def _observe_general(self, state: EnvState) -> torch.Tensor:
+        """[B, obs_dim]: the self obs (the history, newest first, for v2),
+        then the task obs of the tracked bodies against the reference's
+        `num_traj_samples` frames from the next control step's time, every
+        `traj_sample_timestep` (with the cycle offset of the state's own
+        time). In the far-goal mode a far env's task obs is zeros but for
+        the heading-local vector to its first frame's reference root."""
+        cfg, ph = self.config, state.physics
+        B, T = state.motion_id.shape[0], cfg.num_traj_samples
+        if cfg.self_obs_v == 2:
+            self_obs = state.self_obs_hist.flatten(1)
+        else:
+            self_obs = self._self_obs_single(ph)
+        t_next = self._motion_time(state.motion_id, state.start_time, state.progress) + self.model.config.control_dt
+        times = t_next[:, None] + torch.arange(T, dtype=torch.float32, device=self.device) * cfg.traj_sample_timestep
+        offset = self._cycle_offset(state.motion_id, state.start_time, state.progress)
+        ref = get_motion_state(self.motion, state.motion_id[:, None].expand(B, T), times,
+                               None if offset is None else offset[:, None].expand(B, T, 3))
+        tb = self._track
+        body = (ph.body_pos[:, tb], ph.body_rot[:, tb], ph.body_vel[:, tb], ph.body_ang_vel[:, tb])
+        ref_body = (ref["rg_pos"][:, :, tb], ref["rb_rot"][:, :, tb], ref["body_vel"][:, :, tb],
+                    ref["body_ang_vel"][:, :, tb])
+        if cfg.obs_v == 6:
+            task = kernels.compute_imitation_observations_v6(ph.root_pos, ph.root_rot, *body, *ref_body)
+        elif cfg.obs_v == 7:
+            task = kernels.compute_imitation_observations_v7(ph.root_pos, ph.root_rot, body[0], body[2],
+                                                             ref_body[0], ref_body[2])
+        elif cfg.obs_v == 8:
+            task = kernels.compute_imitation_observations_v8(ph.root_pos, ph.root_rot, *body, *ref_body)
+        else:   # v9 reads the root's reference velocities only
+            task = kernels.compute_imitation_observations_v9(ph.root_pos, ph.root_rot, *body, *ref_body[:2],
+                                                             ref["body_vel"][:, :, 0], ref["body_ang_vel"][:, :, 0])
+        if cfg.zero_out_far:
+            far = self._far_from_ref(state)
+            goal = q.quat_rotate(q.calc_heading_quat_inv(ph.root_rot), ref["rg_pos"][:, 0, 0] - ph.root_pos)
+            point = torch.cat([goal, torch.zeros_like(task[:, 3:])], dim=-1)
+            task = torch.where(far[:, None], point, task)
+        return torch.cat([self_obs, task], dim=-1)
+
+    def _far_distance(self, ref: dict, physics: PhysicsState) -> torch.Tensor:
+        """[B] XY distance of the root to the reference root."""
+        return torch.linalg.vector_norm(ref["root_pos"][:, :2] - physics.root_pos[:, :2], dim=-1)
+
+    def _far_from_ref(self, state: EnvState) -> torch.Tensor:
+        """[B] bool: the root lies beyond `zero_out_far_distance` of the
+        reference root at the state's own time."""
+        t = self._motion_time(state.motion_id, state.start_time, state.progress)
+        ref = get_motion_state(self.motion, state.motion_id, t,
+                               self._cycle_offset(state.motion_id, state.start_time, state.progress))
+        return self._far_distance(ref, state.physics) > self.config.zero_out_far_distance
+
+    def _perturb_obs(self, obs: torch.Tensor) -> torch.Tensor:
+        """A step's final observation with obs noise (std `obs_noise_std`),
+        then occlusion: with probability `occlusion_prob` per env, a
+        contiguous chunk of `max(int(task_obs_dim * occlusion_frac), 1)`
+        task-obs columns at a uniform offset is zeroed."""
+        cfg, g, dev = self.config, self.generator, self.device
+        if cfg.obs_noise_std > 0:
+            obs = obs + cfg.obs_noise_std * torch.randn(obs.shape, generator=g, device=dev)
+        if cfg.occlusion_prob > 0:
+            B = obs.shape[0]
+            width = max(int(self.task_obs_dim * cfg.occlusion_frac), 1)
+            start = self.self_obs_dim + torch.randint(0, max(self.task_obs_dim - width, 1), (B, 1), generator=g,
+                                                      device=dev)
+            occlude = torch.rand(B, 1, generator=g, device=dev) < cfg.occlusion_prob
+            col = torch.arange(self.obs_dim, device=dev)
+            obs = obs.masked_fill(occlude & (col >= start) & (col < start + width), 0.0)
+        return obs
 
     # ------------------------------------------------------------------ #
     # step
@@ -373,24 +511,59 @@ class HumanoidImEnv:
             terminate = torch.zeros_like(terminate)
         return pass_time | terminate, terminate
 
-    def step(self, state: EnvState, actions: torch.Tensor) -> EnvState:
-        progress = state.progress + 1
-        # the reference at the post-step time depends only on (clip,
-        # progress), so it is gathered before physics and rides into K1
+    def _post_step_ref(self, state: EnvState, progress: torch.Tensor) -> tuple[torch.Tensor, dict]:
+        """(in-clip time [B], reference) at the post-step time; it depends only
+        on (clip, progress), so it is gathered before the physics."""
         t = self._motion_time(state.motion_id, state.start_time, progress)
-        ref = get_motion_state(self.motion, state.motion_id, t,
-                               self._cycle_offset(state.motion_id, state.start_time, progress))
+        return t, get_motion_state(self.motion, state.motion_id, t,
+                                   self._cycle_offset(state.motion_id, state.start_time, progress))
+
+    def _physics_step(self, physics: PhysicsState, pd_target: torch.Tensor) -> PhysicsState:
+        """K3, or K3-rows under each env's own model."""
+        rows = None if self.batched_model is None else self._model_rows(pd_target.shape[0])
+        return substep_cuda.physics_step_cuda(self.model, physics, pd_target, model_rows=rows)
+
+    def step(self, state: EnvState, actions: torch.Tensor) -> EnvState:
+        if not self._kernel_surface():
+            return self._step_general(state, actions)
+        progress = state.progress + 1
+        t, ref = self._post_step_ref(state, progress)
         pd_target = self.action_to_pd_target(actions)
         if self.batched_model is None and self._fused_step_ok():
-            physics, reward, reward_raw, dmean, dmax, amp_row = cuda_obs.step_reward_amp(
-                self.model, self.consts, state.physics, pd_target, ref
-            )
+            physics, *terms = cuda_obs.step_reward_amp(self.model, self.consts, state.physics, pd_target, ref)
         else:
-            B = actions.shape[0]
-            rows = None if self.batched_model is None else self._model_rows(B)
-            physics = substep_cuda.physics_step_cuda(self.model, state.physics, pd_target, model_rows=rows)
-            reward, reward_raw, dmean, dmax, amp_row = cuda_obs.reward_amp(self.consts, physics, ref,
-                                                                           *self._disc_parts(B))
+            physics = self._physics_step(state.physics, pd_target)
+            terms = cuda_obs.reward_amp(self.consts, physics, ref, *self._disc_parts(actions.shape[0]))
+        return self._finish_step(state, progress, t, ref, physics, pd_target, *terms, observe=self._observe)
+
+    def _step_general(self, state: EnvState, actions: torch.Tensor) -> EnvState:
+        """The step off the kernels' surface, valid on it too: K3 (or
+        K3-rows), then the imitation reward over the tracked bodies, the
+        reset bodies' distances and the AMP row in plain PyTorch, and
+        `_observe_general` of the merged state."""
+        progress = state.progress + 1
+        t, ref = self._post_step_ref(state, progress)
+        pd_target = self.action_to_pd_target(actions)
+        physics = self._physics_step(state.physics, pd_target)
+        e, tb = self.consts, self._track
+        reward, reward_raw = kernels.compute_imitation_reward(
+            physics.body_pos[:, tb], physics.body_rot[:, tb], physics.body_vel[:, tb], physics.body_ang_vel[:, tb],
+            ref["rg_pos"][:, tb], ref["rb_rot"][:, tb], ref["body_vel"][:, tb], ref["body_ang_vel"][:, tb],
+            k_pos=e.k_pos, k_rot=e.k_rot, k_vel=e.k_vel, k_ang_vel=e.k_ang_vel,
+            w_pos=e.w_pos, w_rot=e.w_rot, w_vel=e.w_vel, w_ang_vel=e.w_ang_vel,
+        )
+        rid = self.reset_body_ids
+        dist = torch.linalg.vector_norm(physics.body_pos[:, rid] - ref["rg_pos"][:, rid], dim=-1)
+        amp_row = cuda_obs.amp_row_plain(e, physics, *self._disc_parts(actions.shape[0]))
+        return self._finish_step(state, progress, t, ref, physics, pd_target, reward, reward_raw, dist.mean(dim=-1),
+                                 dist.amax(dim=-1), amp_row, observe=self._observe_general)
+
+    def _finish_step(self, state: EnvState, progress: torch.Tensor, t: torch.Tensor, ref: dict,
+                     physics: PhysicsState, pd_target: torch.Tensor, reward: torch.Tensor, reward_raw: torch.Tensor,
+                     dmean: torch.Tensor, dmax: torch.Tensor, amp_row: torch.Tensor, observe) -> EnvState:
+        """Everything after the reward terms: the power penalty, the far-goal
+        mode, termination, the history rolls, the auto-reset merge, the
+        observation (`observe` of the merged state), noise and occlusion."""
         cfg = self.config
         if cfg.power_reward:
             # the PD torque proxy kp (target - dof) - kd dof_vel of the env's model
@@ -399,21 +572,34 @@ class HumanoidImEnv:
             tau = (m.joint_kp.repeat_interleave(3, dim=-1) * (pd_target - dof_pos_from_state(physics))
                    - m.joint_kd.repeat_interleave(3, dim=-1) * dof_vel)
             reward = reward + kernels.compute_power_penalty(tau, dof_vel, cfg.power_coefficient)
+        far = None
+        if cfg.zero_out_far:
+            # a far env is rewarded for closing in on the reference root
+            d = self._far_distance(ref, physics)
+            far = d > cfg.zero_out_far_distance
+            reward = torch.where(far, torch.exp(-d * d), reward)
 
+        hist = state.self_obs_hist
+        if cfg.self_obs_v == 2:
+            hist = torch.cat([self._self_obs_single(physics)[:, None], hist[:, :-1]], dim=1)
         stepped = state.replace(
             physics=physics,
             progress=progress,
             amp_hist=torch.cat([amp_row[:, None], state.amp_hist[:, :-1]], dim=1),
+            self_obs_hist=hist,
         )
         if cfg.cycle_motion:
             pass_time = progress >= cfg.episode_length
         else:
             pass_time = t >= self.motion.motion_lengths[state.motion_id]
         reset, terminate = self._termination(stepped, dmean, dmax, pass_time)
+        if far is not None:
+            # the imitation termination is off in the far-goal mode
+            terminate = terminate & ~far
+            reset = pass_time | terminate
         merged = _select(reset, self._reset_states(reset), stepped)
-        return merged.replace(
-            obs=self._observe(merged), reward=reward, reward_raw=reward_raw, done=reset, terminate=terminate
-        )
+        return merged.replace(obs=self._perturb_obs(observe(merged)), reward=reward, reward_raw=reward_raw,
+                              done=reset, terminate=terminate)
 
     # ------------------------------------------------------------------ #
     # per-env body shapes

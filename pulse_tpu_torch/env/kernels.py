@@ -2,9 +2,9 @@
 over envs.
 
 Counterpart of the functions of `pulse_tpu/env/kernels.py` that the
-imitation hot path uses. Quaternions are xyzw; the humanoid starts upright.
-They are also the plain versions of kernels K1's epilogue and K2
-(`pulse_tpu_torch/env/cuda_obs.py`).
+imitation env uses (task obs v6-v9). Quaternions are xyzw; the humanoid
+starts upright. They are also the plain versions of kernels K1's epilogue
+and K2 (`pulse_tpu_torch/env/cuda_obs.py`).
 """
 
 from __future__ import annotations
@@ -82,6 +82,99 @@ def compute_imitation_observations_v6(
             diff_local_ang_vel.reshape(B, T, -1),
             local_ref_pos.reshape(B, T, -1),
             local_ref_rot.reshape(B, T, -1),
+        ],
+        dim=-1,
+    )
+    return obs.reshape(B, -1)
+
+
+def compute_imitation_observations_v7(
+    root_pos: torch.Tensor,      # [B, 3]
+    root_rot: torch.Tensor,      # [B, 4]
+    body_pos: torch.Tensor,      # [B, J, 3]
+    body_vel: torch.Tensor,      # [B, J, 3]
+    ref_body_pos: torch.Tensor,  # [B, T, J, 3]
+    ref_body_vel: torch.Tensor,  # [B, T, J, 3]
+) -> torch.Tensor:
+    """Position-only imitation obs: heading-local pos and vel diffs and ref
+    pos, per future step. -> [B, T*J*9]."""
+    B, T = ref_body_pos.shape[:2]
+    heading_inv = q.calc_heading_quat_inv(root_rot)[:, None, None, :]
+    obs = torch.cat(
+        [
+            q.quat_rotate(heading_inv, ref_body_pos - body_pos[:, None]).reshape(B, T, -1),
+            q.quat_rotate(heading_inv, ref_body_vel - body_vel[:, None]).reshape(B, T, -1),
+            q.quat_rotate(heading_inv, ref_body_pos - root_pos[:, None, None, :]).reshape(B, T, -1),
+        ],
+        dim=-1,
+    )
+    return obs.reshape(B, -1)
+
+
+def compute_imitation_observations_v8(
+    root_pos: torch.Tensor,          # [B, 3]
+    root_rot: torch.Tensor,          # [B, 4]
+    body_pos: torch.Tensor,          # [B, J, 3]
+    body_rot: torch.Tensor,          # [B, J, 4]
+    body_vel: torch.Tensor,          # [B, J, 3]
+    body_ang_vel: torch.Tensor,      # [B, J, 3]
+    ref_body_pos: torch.Tensor,      # [B, T, J, 3]
+    ref_body_rot: torch.Tensor,      # [B, T, J, 4]
+    ref_body_vel: torch.Tensor,      # [B, T, J, 3]
+    ref_body_ang_vel: torch.Tensor,  # [B, T, J, 3]
+) -> torch.Tensor:
+    """v8: heading-local diffs against the first future step only, then the
+    heading-local ref pos/rot/vel/ang vel of every step, each block over all
+    steps (the JAX package's layout for T > 1). -> [B, J*15 + T*J*15]."""
+    B = ref_body_pos.shape[0]
+    heading_inv1 = q.calc_heading_quat_inv(root_rot)[:, None, :]
+    heading1 = q.calc_heading_quat(root_rot)[:, None, :]
+    diff_rot = q.quat_mul(ref_body_rot[:, 0], q.quat_conjugate(body_rot))
+    hi1 = heading_inv1.expand_as(diff_rot)
+    diff_local_rot = q.quat_mul(q.quat_mul(hi1, diff_rot), heading1.expand_as(diff_rot))
+    heading_inv = heading_inv1[:, None]
+    parts = [
+        q.quat_rotate(heading_inv1, ref_body_pos[:, 0] - body_pos),
+        q.quat_to_tan_norm(diff_local_rot),
+        q.quat_rotate(heading_inv1, ref_body_vel[:, 0] - body_vel),
+        q.quat_rotate(heading_inv1, ref_body_ang_vel[:, 0] - body_ang_vel),
+        q.quat_rotate(heading_inv, ref_body_pos - root_pos[:, None, None, :]),
+        q.quat_to_tan_norm(q.quat_mul(heading_inv.expand_as(ref_body_rot), ref_body_rot)),
+        q.quat_rotate(heading_inv, ref_body_vel),
+        q.quat_rotate(heading_inv, ref_body_ang_vel),
+    ]
+    return torch.cat([p.reshape(B, -1) for p in parts], dim=-1)
+
+
+def compute_imitation_observations_v9(
+    root_pos: torch.Tensor,          # [B, 3]
+    root_rot: torch.Tensor,          # [B, 4]
+    body_pos: torch.Tensor,          # [B, J, 3]
+    body_rot: torch.Tensor,          # [B, J, 4]
+    body_vel: torch.Tensor,          # [B, J, 3]
+    body_ang_vel: torch.Tensor,      # [B, J, 3]
+    ref_body_pos: torch.Tensor,      # [B, T, J, 3]
+    ref_body_rot: torch.Tensor,      # [B, T, J, 4]
+    ref_root_vel: torch.Tensor,      # [B, T, 3]
+    ref_root_ang_vel: torch.Tensor,  # [B, T, 3]
+) -> torch.Tensor:
+    """v9: v6's pos/rot diffs and ref pos/rot, but velocity diffs of the
+    root only (body 0 of the given bodies). -> [B, T*(J*18+6)]."""
+    B, T = ref_body_pos.shape[:2]
+    heading_inv = q.calc_heading_quat_inv(root_rot)[:, None, None, :]
+    heading = q.calc_heading_quat(root_rot)[:, None, None, :]
+    diff_rot = q.quat_mul(ref_body_rot, q.quat_conjugate(body_rot[:, None]))
+    hi = heading_inv.expand_as(diff_rot)
+    diff_local_rot = q.quat_mul(q.quat_mul(hi, diff_rot), heading.expand_as(diff_rot))
+    heading_inv_root = heading_inv[:, 0]
+    obs = torch.cat(
+        [
+            q.quat_rotate(heading_inv, ref_body_pos - body_pos[:, None]).reshape(B, T, -1),
+            q.quat_to_tan_norm(diff_local_rot).reshape(B, T, -1),
+            q.quat_rotate(heading_inv_root, ref_root_vel - body_vel[:, None, 0]),
+            q.quat_rotate(heading_inv_root, ref_root_ang_vel - body_ang_vel[:, None, 0]),
+            q.quat_rotate(heading_inv, ref_body_pos - root_pos[:, None, None, :]).reshape(B, T, -1),
+            q.quat_to_tan_norm(q.quat_mul(hi, ref_body_rot)).reshape(B, T, -1),
         ],
         dim=-1,
     )

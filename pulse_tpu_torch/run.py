@@ -3,6 +3,7 @@
 Counterpart of `pulse_tpu/run.py`:
 
     python -m pulse_tpu_torch.run env=im_getup learning=im_ppo num_envs=3072
+    python -m pulse_tpu_torch.run env=im_vr learning=im_ppo num_envs=3072
     python -m pulse_tpu_torch.run env=im_vae learning=im_z_fit num_envs=3072 \
         learning.teacher_checkpoint=output/<exp>/ckpt
 
@@ -23,8 +24,10 @@ starts uniform.
 
 Ported: the HumanoidIm and HumanoidImGetup tasks (and their distillation
 names HumanoidImDistill and HumanoidImDistillGetup) with `agent: ppo` or
-`agent: distill`, and HumanoidIm with per-env body shapes (`env=im_shape`:
-isotropic scales, or SMPL-beta skeletons with `env.smpl_model_path`). Other
+`agent: distill`, every observation, state-init, far-goal, occlusion and
+noise option of theirs (`env=im_vr`: VR three-point tracking), and
+HumanoidIm with per-env body shapes (`env=im_shape`: isotropic scales, or
+SMPL-beta skeletons with `env.smpl_model_path`). Other
 tasks, agents and options raise NotImplementedError naming the ROADMAP item
 that ports them. The distill agent has no evaluator: `test=true` and
 `eval_frequency` raise with it.
@@ -112,18 +115,23 @@ def build_env_from_cfg(cfg, model, motion, device):
         enable_early_termination=bool(e["enable_early_termination"]),
         use_mean_termination=bool(e["use_mean_termination"]),
         num_traj_samples=int(e["num_traj_samples"]),
+        traj_sample_timestep=float(e["traj_sample_timestep"]),
         local_root_obs=bool(e["local_root_obs"]),
         root_height_obs=bool(e["root_height_obs"]),
         state_init=str(e["state_init"]),
+        hybrid_init_prob=float(e["hybrid_init_prob"]),
         episode_length=int(e["episode_length"]),
         power_reward=bool(e["power_reward"]),
         power_coefficient=float(e["power_coefficient"]),
         cycle_motion=bool(e["cycle_motion"]),
         obs_v=int(e.get("obs_v", 6)),
         self_obs_v=int(e.get("self_obs_v", 1)),
+        self_obs_hist_steps=int(e.get("self_obs_hist_steps", 5)),
         obs_noise_std=float(e.get("obs_noise_std", 0.0)),
         zero_out_far=bool(e.get("zero_out_far", False)),
+        zero_out_far_distance=float(e.get("zero_out_far_distance", 5.0)),
         occlusion_prob=float(e.get("occlusion_prob", 0.0)),
+        occlusion_frac=float(e.get("occlusion_frac", 0.25)),
         num_amp_obs_steps=int(e.get("num_amp_obs_steps", 10)),
         amp_obs_v=int(e.get("amp_obs_v", 1)),
         has_shape_obs=bool(e.get("has_shape_obs", False)),

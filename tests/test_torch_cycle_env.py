@@ -117,7 +117,8 @@ def stepped(spec, motions):
     st = env.reset_to(pre_ids, env._motion_time(pre_ids, pre_start, pre_prog))
     offset = env._cycle_offset(pre_ids, pre_start, pre_prog).numpy()
     offset[5, 0] += 0.5                                   # env 5 off its reference
-    d = {f.name: getattr(st, f.name).numpy() for f in dataclasses.fields(st) if f.name != "physics"}
+    d = {f.name: getattr(st, f.name).numpy() for f in dataclasses.fields(st)
+         if f.name != "physics" and getattr(st, f.name) is not None}
     d.update(physics={f.name: getattr(st.physics, f.name).numpy().copy() for f in dataclasses.fields(st.physics)},
              progress=progress, start_time=start)
     d["physics"]["root_pos"] += offset

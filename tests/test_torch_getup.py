@@ -85,7 +85,8 @@ def stepped():
     counter = np.where(np.isin(np.arange(B), [0, 1, 10]), 90, 0).astype(np.int32)
     start = st.start_time.numpy().copy()
     start[at_end] = motion.motion_lengths[ids[at_end]].numpy() - 1e-3
-    d = {f.name: getattr(st, f.name).numpy() for f in dataclasses.fields(st) if f.name != "physics"}
+    d = {f.name: getattr(st, f.name).numpy() for f in dataclasses.fields(st)
+         if f.name != "physics" and getattr(st, f.name) is not None}
     d.update(physics={f.name: getattr(st.physics, f.name).numpy().copy() for f in dataclasses.fields(st.physics)},
              progress=progress, start_time=start, recovery_counter=counter)
     d["physics"]["root_pos"][far, 0] += 0.5                      # 0.5 m off their reference

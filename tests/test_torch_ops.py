@@ -120,8 +120,8 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch, port):
 
 def test_unported_config_raises(port):
     _, model, motion, _ = port
-    with pytest.raises(NotImplementedError):
-        HumanoidImEnv(model, motion, EnvConfig(obs_v=7), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        HumanoidImEnv(model, motion, EnvConfig(control_mode="pd"), device="cpu")
 
 
 def _c_struct_words(src: str, name: str, consts: dict) -> int:

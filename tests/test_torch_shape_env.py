@@ -76,7 +76,8 @@ def stepped():
     progress[:4] = 25
     start = st.start_time.numpy().copy()
     start[4:7] = env.motion.motion_lengths[ids[4:7]].numpy() - 1e-3
-    d = {f.name: getattr(st, f.name).numpy() for f in dataclasses.fields(st) if f.name != "physics"}
+    d = {f.name: getattr(st, f.name).numpy() for f in dataclasses.fields(st)
+         if f.name != "physics" and getattr(st, f.name) is not None}
     d.update(physics={f.name: getattr(st.physics, f.name).numpy() for f in dataclasses.fields(st.physics)},
              progress=progress, start_time=start)
     actions = rng.uniform(-1, 1, (B, 69)).astype(np.float32)
