@@ -101,6 +101,29 @@ Phases, each printed as one JSON line:
   train_vr     the same training as train_im with env=im_vr (VR three-point
                tracking: Head, L_Hand, R_Hand): 32 K3 launches an epoch and
                none of K1, RA or K2; the observation 430 wide
+  train_amp_im `python -m pulse_tpu_torch.run env=im learning=im_amp
+               num_envs=3072` for 2 epochs: PPO on the 0.5/0.5 mix of the
+               imitation reward and the 1024-512 discriminator's style
+               reward on the 2320-wide AMP window. 32 launches of K1 and K2
+               an epoch (K2 once more at the reset), none of K3 or RA; the
+               discriminator changed; replay 512 and demo 4096 + 512 rows
+               more an epoch; amp_rms.count grown by 32 * 3072 + 512 an
+               epoch; the recorded AMP window of each epoch's last step the
+               env's amp_hist; the mix to 1e-6; the style reward finite and
+               >= 0, the accuracies in [0, 1]; rollout, GAE, update and the
+               discriminator's reward and update ms, device busy ms, kernels
+               and idle share of each (the style reward's device ms from
+               CUDA events, beside its bound and one trace's kernels)
+  train_amp    the same with env=amp (HumanoidAMPEnv, the self obs only, 358
+               wide; task reward exactly 1): 32 launches of K3 and RA an
+               epoch, no K1 and no K2, not even at the reset; RA's AMP row
+               on the run's last state against cuda_obs.amp_row_plain (0
+               outlier envs); terminations counted
+  train_amp_getup  env=amp_getup env.getup_update_epoch=1 for 3 epochs: 60
+               K3 launches at 256 envs (the settle), then 32 of K3 and RA an
+               epoch; in epochs 0-1 the style reward alone on fall resets
+               (fall_init_prob 1, recovery 0), in epoch 2 the 0.5/0.5 mix
+               and the configured probabilities
   The training phases time rollout, GAE and update (epochs after the first)
   and the training env steps/s; then K3's (3072 and 256 envs), K3-rows' and
   RA's ms and their plain versions', K3 and K3-rows at the chosen G and at
@@ -745,6 +768,7 @@ def main() -> int:
     # ---- training through the CLI's entry point ------------------------------ #
     from pulse_tpu_torch import run
     from pulse_tpu_torch.env.humanoid_im_getup import GetupConfig, fall_drop_start, ragdoll
+    from pulse_tpu_torch.learning.amp_agent import AMPAgent
     from pulse_tpu_torch.learning.ppo import PPOAgent, compute_gae
 
     def device_busy(fn) -> tuple:
@@ -759,38 +783,47 @@ def main() -> int:
     out_root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "output", "chip_smoke")
     per_epoch = HORIZON * N_ENVS
 
-    def train(exp: str, env_args: list, want_epoch: dict) -> tuple:
-        """run.main for TRAIN_EPOCHS epochs; returns (result, the run's launch
-        counts, its info dict) after the checks every training path shares."""
+    def train(exp: str, env_args: list, want_epoch: dict, learning: str = "im_ppo", epochs: int = TRAIN_EPOCHS,
+              on_epoch=None) -> tuple:
+        """run.main for `epochs` epochs; returns (result, the run's launch
+        counts, its info dict) after the checks every training path shares.
+        `on_epoch(agent, (ts, metrics))` runs after each epoch of an AMP
+        agent. For AMP the PPO checks read the train state's PPO half; the
+        rewards checked in [0, 1] are the env's (the task reward)."""
         epoch_launches = []
-        train_epoch = PPOAgent.train_epoch
+        ppo_epoch, amp_epoch = PPOAgent.train_epoch, AMPAgent.train_epoch
 
-        def counted_epoch(agent, ts):   # each epoch's launches, read around the trainer's own epoch
-            before = dict(_build.launches)
-            out = train_epoch(agent, ts)
-            epoch_launches.append({k: n - before[k] for k, n in _build.launches.items()})
-            return out
+        def counted(real, hook):
+            def counted_epoch(agent, ts):   # each epoch's launches, read around the trainer's own epoch
+                before = dict(_build.launches)
+                out = real(agent, ts)
+                epoch_launches.append({k: n - before[k] for k, n in _build.launches.items()})
+                if hook is not None:
+                    hook(agent, out)
+                return out
+            return counted_epoch
 
         torch.cuda.synchronize()
         _build.reset_launch_counts()
-        PPOAgent.train_epoch = counted_epoch
+        PPOAgent.train_epoch, AMPAgent.train_epoch = counted(ppo_epoch, None), counted(amp_epoch, on_epoch)
         t0 = time.perf_counter()
         try:
-            res = run.main([*env_args, "learning=im_ppo", f"num_envs={N_ENVS}", f"max_epochs={TRAIN_EPOCHS}",
+            res = run.main([*env_args, f"learning={learning}", f"num_envs={N_ENVS}", f"max_epochs={epochs}",
                             "log_frequency=1", "device=cuda", f"output_dir={out_root}", f"exp_name={exp}"])
         finally:
-            PPOAgent.train_epoch = train_epoch
+            PPOAgent.train_epoch, AMPAgent.train_epoch = ppo_epoch, amp_epoch
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = dict(_build.launches)
         ms = res.metrics
-        ts = res.train_state
+        ts = getattr(res.train_state, "ppo", res.train_state)
+        pagent = getattr(res.agent, "ppo", res.agent)
         # main's network before training: the same seed and widths
         fresh = ActorCritic(res.agent.env.obs_dim, res.agent.env.action_dim, device=dev, seed=0).state_dict()
         changed = [k for k, v in ts.network.state_dict().items() if not torch.equal(v, fresh[k])]
         timed = ms[1:]
-        epoch_s = [m["rollout_s"] + m["gae_s"] + m["update_s"] for m in timed]
-        rewards = res.agent._buffers.rewards
+        epoch_s = [sum(v for k, v in m.items() if k.endswith("_s")) for m in timed]
+        rewards = pagent._buffers.rewards
         info = {"phase": exp, "card": card, "envs": N_ENVS, "epochs": len(ms), "seconds_all": seconds,
                 "launches": counts, "launches_per_epoch": epoch_launches,
                 "losses": [{k: m[k] for k in ("a_loss", "c_loss", "b_loss")} for m in ms],
@@ -812,15 +845,19 @@ def main() -> int:
             fail(f"{exp}: launches per epoch {epoch_launches}, expected {want_epoch}")
         if not (0.0 <= info["reward_min"] and info["reward_max"] <= 1.0 and info["obs_finite"]):
             fail(f"{exp}: reward outside [0, 1] or non-finite obs")
-        # device time of one more rollout and update, from a profiler trace
-        # (after the checks; the profiler slows the host, so the idle share
-        # is taken against the unprofiled phase times above)
-        agent, ts = res.agent, res.train_state
+        # device time of one more rollout, GAE and update, from a profiler
+        # trace (after the checks; the profiler slows the host, so the idle
+        # share is taken against the unprofiled phase times above)
+        agent = pagent
         roll_busy, roll_kernels = device_busy(lambda: agent.rollout(ts))
-        adv, ret = compute_gae(agent.config, agent._buffers, agent._value(ts, ts.env_state.obs).detach())
+        last_v = agent._value(ts, ts.env_state.obs).detach()
+        gae_busy, gae_kernels = device_busy(lambda: compute_gae(agent.config, agent._buffers, last_v))
+        adv, ret = compute_gae(agent.config, agent._buffers, last_v)
         upd_busy, upd_kernels = device_busy(lambda: agent.update(ts, agent._buffers, adv, ret))
         info.update(rollout_device_busy_ms=roll_busy, rollout_device_kernels=roll_kernels,
                     rollout_device_idle_share=1.0 - roll_busy / median(info["rollout_ms"]),
+                    gae_device_busy_ms=gae_busy, gae_device_kernels=gae_kernels,
+                    gae_device_idle_share=1.0 - gae_busy / median(info["gae_ms"]),
                     update_device_busy_ms=upd_busy, update_device_kernels=upd_kernels,
                     update_device_idle_share=1.0 - upd_busy / median(info["update_ms"]))
         return res, counts, info
@@ -1203,6 +1240,160 @@ def main() -> int:
         fail(f"train_vr: launches {vr_launches} (expected {want_vr}), obs {venv.obs_dim} wide (expected 430), "
              f"kernel path {info['kernel_path']}")
     del res, venv
+
+    # ---- AMP: the discriminator, its reward mix and the pure-AMP envs --------- #
+    # run.main with learning=im_amp (PPO + the 1024-512 discriminator on the
+    # 2320-wide AMP window, amp_batch_size 512, buffers of 16384) on env=im
+    # (K1 -> K2), env=amp (K3 -> RA, the self obs in PyTorch, never K2) and
+    # env=amp_getup with the getup schedule flipping after epoch 1. Each
+    # epoch of an AMP agent is read by `amp_epoch`: the reward weights it
+    # ran with, the mix against them, the style reward's range, the env's
+    # getup probabilities and counters, the rollout's terminations, and
+    # whether the recorded AMP window of the last step is the env's history
+    from pulse_tpu_torch.learning.networks import Discriminator
+
+    def amp_epoch(rows):
+        def hook(agent, out):
+            ts_, m_ = out
+            r_ = agent.last_rewards
+            wt, wd = float(ts_.amp.task_reward_w), float(ts_.amp.disc_reward_w)
+            cfg_ = agent.env.config
+            rows.append({"task_w": wt, "disc_w": wd,
+                         "last_window_is_env_amp_hist": bool(torch.equal(agent.ppo.amp_obs[-1],
+                                                                         ts_.ppo.env_state.amp_hist.flatten(1))),
+                         "mix_max_abs_err": float((r_["mixed"] - (wt * r_["task"] + wd * r_["disc"])).abs().max()),
+                         "disc_reward_min": float(r_["disc"].min()), "disc_reward_max": float(r_["disc"].max()),
+                         "disc_reward_finite": bool(torch.isfinite(r_["disc"]).all()),
+                         "task_reward_min": float(r_["task"].min()), "task_reward_max": float(r_["task"].max()),
+                         "terminations": int(agent.ppo._buffers.terminates.sum()),
+                         "dones": int(agent.ppo._buffers.dones.sum()),
+                         "fall_init_prob": getattr(cfg_, "fall_init_prob", None),
+                         "recovery_episode_prob": getattr(cfg_, "recovery_episode_prob", None),
+                         "fall_resets": int(getattr(agent.env, "fall_resets", 0)),
+                         "grace_holds": int(getattr(agent.env, "grace_holds", 0))})
+        return hook
+
+    def train_amp(exp: str, env_args: list, want_epoch: dict, epochs: int) -> tuple:
+        """`train` with learning=im_amp, then the AMP gates every path shares:
+        the discriminator changed, the buffers and amp_rms grown by exactly
+        one update an epoch, the recorded AMP window of the last step the
+        env's, the mix, the style reward's range and the accuracies; then the
+        device time of the discriminator's reward over a rollout and of one
+        of its updates."""
+        rows = []
+        res_, counts_, info_ = train(exp, env_args, want_epoch, learning="im_amp", epochs=epochs,
+                                     on_epoch=amp_epoch(rows))
+        agent_, ts_ = res_.agent, res_.train_state
+        a_, pa_ = ts_.amp, agent_.ppo
+        acfg = agent_.amp.config
+        n_ = acfg.amp_batch_size
+        fresh_d = Discriminator(agent_.env.amp_obs_dim, acfg.disc_units, device=dev, seed=agent_.amp.seed).state_dict()
+        d_changed = sum(not torch.equal(v, fresh_d[k]) for k, v in a_.disc.state_dict().items())
+        ms_ = res_.metrics
+        timed_ = ms_[1:]
+        info_.update(
+            amp_obs_dim=agent_.env.amp_obs_dim, obs_dim=agent_.env.obs_dim, disc_units=list(acfg.disc_units),
+            amp_batch_size=n_, per_epoch=rows, disc_params_changed=d_changed,
+            replay_size=a_.replay_buffer.size, demo_size=a_.demo_buffer.size, amp_rms_count=float(a_.amp_rms.count),
+            **{k: [m[k] for m in ms_] for k in ("disc_loss", "disc_grad_pen", "disc_acc_agent", "disc_acc_demo",
+                                                "task_reward_mean", "disc_reward_mean")},
+            disc_reward_ms=[1e3 * m["disc_reward_s"] for m in timed_],
+            disc_update_ms=[1e3 * m["disc_update_s"] for m in timed_])
+        want_demo, want_count = acfg.amp_buffer_size // 4 + n_ * epochs, epochs * (per_epoch + n_)
+        if d_changed != len(fresh_d):
+            fail(f"{exp}: {d_changed} of {len(fresh_d)} discriminator tensors changed")
+        if (info_["replay_size"], info_["demo_size"]) != (n_ * epochs, want_demo):
+            fail(f"{exp}: replay {info_['replay_size']} / demo {info_['demo_size']} rows, expected "
+                 f"{n_ * epochs} / {want_demo}")
+        if abs(info_["amp_rms_count"] - want_count) > 1.0:
+            fail(f"{exp}: amp_rms.count {info_['amp_rms_count']}, expected {want_count}")
+        if not all(r["last_window_is_env_amp_hist"] for r in rows):
+            fail(f"{exp}: the recorded AMP window of the last step is not the env's amp_hist")
+        for i, row in enumerate(rows):
+            if row["mix_max_abs_err"] > 1e-6 or not row["disc_reward_finite"] or row["disc_reward_min"] < 0.0:
+                fail(f"{exp} epoch {i}: mix off by {row['mix_max_abs_err']} or style reward outside [0, inf): {row}")
+        for k in ("disc_loss", "disc_grad_pen"):
+            if not all(math.isfinite(v) for v in info_[k]):
+                fail(f"{exp}: non-finite {k} {info_[k]}")
+        if not all(0.0 <= v <= 1.0 for k in ("disc_acc_agent", "disc_acc_demo") for v in info_[k]):
+            fail(f"{exp}: accuracies outside [0, 1]")
+        # the style reward over the rollout is ~17 kernels, two of them fp32
+        # GEMMs: its device time from CUDA events around 5 calls (a
+        # one-call profiler trace was seen to lose its first kernels), its
+        # kernels by name from one trace, against the bound of its
+        # operations (2 * rows * the MLP's multiply-adds) and bytes
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_dr:
+            agent_.amp.disc_reward(a_, pa_.amp_obs)
+            torch.cuda.synchronize()
+        dr_trace = [(ev.name[:60], ev.time_range.elapsed_us()) for ev in prof_dr.events()
+                    if ev.device_type == torch.autograd.DeviceType.CUDA]
+        dr_ms = cuda_ms(lambda: agent_.amp.disc_reward(a_, pa_.amp_obs), 5)
+        rows_dr = pa_.amp_obs.shape[0] * pa_.amp_obs.shape[1]
+        widths = [agent_.env.amp_obs_dim, *acfg.disc_units, 1]
+        dr_flop = 2.0 * rows_dr * sum(i * o for i, o in zip(widths[:-1], widths[1:]))
+        dr_bound, dr_by = bound_ms(4.0 * rows_dr * (agent_.env.amp_obs_dim + 1), dr_flop)
+        du_busy, du_kernels = device_busy(lambda: agent_.amp.update(a_, pa_.amp_obs))
+        info_.update(disc_reward_device_ms=dr_ms, disc_reward_trace_us=dr_trace, disc_reward_flop=dr_flop,
+                     disc_reward_bound_ms=dr_bound, disc_reward_bound_by=dr_by,
+                     disc_reward_device_idle_share=1.0 - dr_ms / median(info_["disc_reward_ms"]),
+                     disc_update_device_busy_ms=du_busy, disc_update_device_kernels=du_kernels,
+                     disc_update_device_idle_share=1.0 - du_busy / median(info_["disc_update_ms"]))
+        return res_, counts_, info_, rows
+
+    want_ai = {"step_reward_amp": HORIZON, "observe": HORIZON, "physics_step": 0, "physics_step_rows": 0,
+               "reward_amp": 0}
+    res, amp_im_launches, info, rows = train_amp("train_amp_im", ["env=im"], want_ai, TRAIN_EPOCHS)
+    emit(info)
+    want_total = dict(want_ai, step_reward_amp=TRAIN_EPOCHS * HORIZON, observe=TRAIN_EPOCHS * HORIZON + 1)
+    if amp_im_launches != want_total or any((r["task_w"], r["disc_w"]) != (0.5, 0.5) for r in rows):
+        fail(f"train_amp_im: launches {amp_im_launches} (expected {want_total}), weights {rows}")
+    del res
+
+    want_a = {"step_reward_amp": 0, "observe": 0, "physics_step": HORIZON, "physics_step_rows": 0,
+              "reward_amp": HORIZON}
+    res, amp_launches, info, rows = train_amp("train_amp", ["env=amp"], want_a, TRAIN_EPOCHS)
+    aenv, ast = res.agent.env, res.train_state.ppo.env_state
+    # RA's AMP row on the run's last state against its plain version
+    with torch.no_grad():
+        t_a = aenv._motion_time(ast.motion_id, ast.start_time, ast.progress)
+        ref_a = get_motion_state(aenv.motion, ast.motion_id, t_a)
+        ra_row = cuda_obs.reward_amp(aenv.consts, ast.physics, ref_a)[-1]
+        plain_row = cuda_obs.amp_row_plain(aenv.consts, ast.physics)
+    ra_cmp = compare(ra_row, plain_row, K1_TOL["amp"], N_ENVS)
+    info.update(RA_amp_row_vs_plain=ra_cmp, env=type(aenv).__name__, kernel_path=aenv._kernel_surface(),
+                fused=aenv._fused_step_ok(), terminations=[r["terminations"] for r in rows])
+    emit(info)
+    want_total = {k: TRAIN_EPOCHS * n for k, n in want_a.items()}
+    if amp_launches != want_total or aenv.obs_dim != 358 or info["fused"] or not info["kernel_path"]:
+        fail(f"train_amp: launches {amp_launches} (expected {want_total}), obs {aenv.obs_dim} wide (expected "
+             f"358), K3 -> RA path {info['kernel_path'] and not info['fused']}")
+    if any((r["task_reward_min"], r["task_reward_max"]) != (1.0, 1.0) for r in rows):
+        fail(f"train_amp: task reward not 1: {rows}")
+    if ra_cmp["outlier_envs"]:
+        fail(f"train_amp: RA's AMP row, {ra_cmp['outlier_envs']} envs beyond {ra_cmp['tol']} of the plain row")
+    del res, aenv, ast
+
+    want_g = dict(want_a)
+    res, amp_getup_launches, info, rows = train_amp("train_amp_getup", ["env=amp_getup",
+                                                                        "env.getup_update_epoch=1"], want_g, 3)
+    genv = res.agent.env
+    settle = amp_getup_launches["physics_step"] - 3 * HORIZON
+    info.update(fall_settle_launches=settle, num_fall_states=genv.config.num_fall_states,
+                fall_resets=int(genv.fall_resets), grace_holds=int(genv.grace_holds))
+    emit(info)
+    gc_ = GetupConfig()
+    if settle != gc_.fall_settle_steps or amp_getup_launches["observe"] or amp_getup_launches["step_reward_amp"]:
+        fail(f"train_amp_getup: launches {amp_getup_launches}: expected {gc_.fall_settle_steps} settle K3, "
+             f"no K1 or K2")
+    early, late = rows[:2], rows[2]
+    if any((r["task_w"], r["disc_w"], r["fall_init_prob"], r["recovery_episode_prob"]) != (0.0, 1.0, 1.0, 0.0)
+           for r in early) or early[-1]["fall_resets"] == 0:
+        fail(f"train_amp_getup: epochs 0-1 not the style reward alone on fall resets: {early}")
+    if (late["task_w"], late["disc_w"], late["fall_init_prob"], late["recovery_episode_prob"]) != (
+            0.5, 0.5, gc_.fall_init_prob, gc_.recovery_episode_prob):
+        fail(f"train_amp_getup: epoch 2 not the configured mix and probabilities: {late}")
+    del res, genv
     shutil.rmtree(out_root, ignore_errors=True)
 
     # ---- K3's and RA's times on the kernel phase's inputs ---------------------- #
@@ -1345,18 +1536,25 @@ def main() -> int:
     src = "pulse_tpu_torch/csrc/"
     emit({"kernels": [
         {"name": "step_reward_amp", "route": "cuda", "source": src + "step_reward_amp.cu",
-         "replaces": "pulse_tpu/env/pallas_obs.py:376", "launches": im_launches["step_reward_amp"],
+         "replaces": "pulse_tpu/env/pallas_obs.py:376",
+         "launches": im_launches["step_reward_amp"] + amp_im_launches["step_reward_amp"],
+         "launches_by_phase": {"train_im": im_launches["step_reward_amp"],
+                               "train_amp_im": amp_im_launches["step_reward_amp"]},
          "max_abs_err": max_err["step_reward_amp"], "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": None},
         {"name": "observe", "route": "cuda", "source": src + "observe.cuh",
-         "replaces": "pulse_tpu/env/pallas_obs.py:558", "launches": im_launches["observe"],
+         "replaces": "pulse_tpu/env/pallas_obs.py:558",
+         "launches": im_launches["observe"] + amp_im_launches["observe"],
+         "launches_by_phase": {"train_im": im_launches["observe"], "train_amp_im": amp_im_launches["observe"]},
          "max_abs_err": max_err["observe"], "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": None},
         {"name": "physics_step", "route": "cuda", "source": src + "physics_step.cu",
          "replaces": "pulse_tpu/physics/substep_pallas.py:847",
-         "launches": getup_launches["physics_step"] + vr_launches["physics_step"],
+         "launches": sum(n["physics_step"] for n in (getup_launches, vr_launches, amp_launches,
+                                                     amp_getup_launches)),
          "launches_by_phase": {"train_getup": getup_launches["physics_step"],
-                               "train_vr": vr_launches["physics_step"]},
+                               "train_vr": vr_launches["physics_step"], "train_amp": amp_launches["physics_step"],
+                               "train_amp_getup": amp_getup_launches["physics_step"]},
          "max_abs_err": max_err["physics_step"], "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
          "bound_by": k3_by, "library_ms": None},
         {"name": "physics_step_rows", "route": "cuda", "source": src + "physics_step.cu",
@@ -1364,7 +1562,10 @@ def main() -> int:
          "max_abs_err": max_err["physics_step_rows"], "ms": k3r_ms, "plain_ms": k3r_plain_ms, "bound_ms": k3r_bound,
          "bound_by": k3r_by, "library_ms": None},
         {"name": "reward_amp", "route": "cuda", "source": src + "reward_amp.cu",
-         "replaces": "pulse_tpu/env/pallas_obs.py:309", "launches": getup_launches["reward_amp"],
+         "replaces": "pulse_tpu/env/pallas_obs.py:309",
+         "launches": sum(n["reward_amp"] for n in (getup_launches, amp_launches, amp_getup_launches)),
+         "launches_by_phase": {"train_getup": getup_launches["reward_amp"], "train_amp": amp_launches["reward_amp"],
+                               "train_amp_getup": amp_getup_launches["reward_amp"]},
          "max_abs_err": max_err["reward_amp"], "ms": ra_ms, "plain_ms": ra_plain_ms, "bound_ms": ra_bound,
          "bound_by": ra_by, "library_ms": None},
     ]})

@@ -664,9 +664,34 @@ class HumanoidImEnv:
         return self._shape_obs_table
 
     def _disc_parts(self, B: int) -> tuple:
-        """The AMP row's shape tails: ([B, 11] gender+betas or None, [B, 10]
-        limb weights or None)."""
-        rows = self._shape_obs(B)
+        """The AMP row's shape tails of the env's own shape rows: ([B, 11]
+        gender+betas or None, [B, 10] limb weights or None)."""
+        return self._disc_extra_parts(self._shape_obs(B))
+
+    def _disc_extra_parts(self, shape_obs) -> tuple:
+        """The AMP row's shape tails sliced from shape rows laid out as the
+        observation's ([gender, betas]? [limb weights]?): ([n, 11] or None,
+        [n, 10] or None) from per-sample rows [n, E] or one row [E] (as
+        [1, ...]); zeros for None."""
         cfg = self.config
+        if not (cfg.has_shape_obs_disc or cfg.has_limb_weight_obs):
+            return None, None
+        rows = torch.zeros(self.shape_obs_dim, device=self.device) if shape_obs is None else shape_obs
+        rows = rows if rows.ndim == 2 else rows[None]
         return (rows[:, :11] if cfg.has_shape_obs_disc else None,
                 rows[:, -10:] if cfg.has_limb_weight_obs else None)
+
+    def amp_obs_from_motion_state(self, st: dict, shape_obs=None) -> torch.Tensor:
+        """AMP rows [n, A] of a `get_motion_state` dict over n samples (the
+        demo fetch), their shape columns from `shape_obs`: per-sample rows
+        [n, E] (each demo its own clip's), one row [E] for all, or zeros."""
+        n = st["root_pos"].shape[0]
+        shape_p, limb_p = self._disc_extra_parts(shape_obs)
+        kw = dict(local_root_obs=self.config.local_root_obs, root_height_obs=self.config.root_height_obs,
+                  shape_params=None if shape_p is None else shape_p.expand(n, -1),
+                  limb_weight_params=None if limb_p is None else limb_p.expand(n, -1))
+        args = (st["root_pos"], st["root_rot"], st["root_vel"], st["root_ang_vel"], st["dof_pos"], st["dof_vel"],
+                st["rg_pos"][:, self.key_body_ids])
+        if self.config.amp_obs_v == 2:
+            return kernels.build_amp_observations_smpl_v2(*args, st["body_vel"][:, self.key_body_ids], **kw)
+        return kernels.build_amp_observations_smpl(*args, **kw)

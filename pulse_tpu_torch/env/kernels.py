@@ -2,9 +2,10 @@
 over envs.
 
 Counterpart of the functions of `pulse_tpu/env/kernels.py` that the
-imitation env uses (task obs v6-v9). Quaternions are xyzw; the humanoid
-starts upright. They are also the plain versions of kernels K1's epilogue
-and K2 (`pulse_tpu_torch/env/cuda_obs.py`).
+imitation env (task obs v6-v9) and the AMP envs (the generic fall check)
+use. Quaternions are xyzw; the humanoid starts upright. They are also the
+plain versions of kernels K1's epilogue and K2
+(`pulse_tpu_torch/env/cuda_obs.py`).
 """
 
 from __future__ import annotations
@@ -225,6 +226,26 @@ def compute_humanoid_im_reset(
     if not enable_early_termination:
         fallen = torch.zeros_like(fallen)
     return pass_time | fallen, fallen
+
+
+def compute_humanoid_reset(
+    progress: torch.Tensor,              # [B] int
+    contact_force: torch.Tensor,         # [B, J, 3]
+    body_pos: torch.Tensor,              # [B, J, 3]
+    non_contact_body_ids: torch.Tensor,  # [Jn] bodies that must not touch the ground
+    termination_height: float,
+    max_episode_length: int,
+    enable_early_termination: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Generic fall check: a non-foot body has a contact force above 0.1 and
+    a non-foot body is below the termination height, after the first step;
+    reset on a fall or at the episode's last step. -> (reset, fallen)."""
+    fall_contact = (contact_force[:, non_contact_body_ids].abs() > 0.1).flatten(1).any(dim=-1)
+    fall_height = (body_pos[:, non_contact_body_ids, 2] < termination_height).any(dim=-1)
+    fallen = fall_contact & fall_height & (progress > 1)
+    if not enable_early_termination:
+        fallen = torch.zeros_like(fallen)
+    return (progress >= max_episode_length - 1) | fallen, fallen
 
 
 def _amp_parts(root_pos, root_rot, root_vel, root_ang_vel, dof_pos, dof_vel, key_body_pos,

@@ -204,8 +204,13 @@ class PPOAgent:
             roll.rewards[t] = st.reward
             roll.dones[t] = st.done
             roll.terminates[t] = st.terminate
+            self._record_step(t, st)
         ts.env_state = st
         return ts, roll, self._value(ts, st.obs)
+
+    def _record_step(self, t: int, state) -> None:
+        """A hook for what a subclass keeps of step t's env state (after the
+        auto-reset merge); PPO keeps nothing more."""
 
     def update(self, ts: TrainState, roll: Rollout, advantages: torch.Tensor, returns: torch.Tensor):
         cfg = self.config

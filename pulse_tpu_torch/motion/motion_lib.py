@@ -5,7 +5,10 @@ query). All frames of all clips live concatenated in flat tensors with
 per-clip `length_starts`; a query is gathers plus lerp/slerp.
 
 Frame layout: gts/grs/gvs/gavs [F, J, 3|4] global body pos/rot/vel/ang vel,
-lrs [F, J, 4] local joint rotations, dvs [F, D] dof velocities.
+lrs [F, J, 4] local joint rotations, dvs [F, D] dof velocities. Per clip:
+shape_params [M, 11] (gender, 10 betas) and limb_weights [M, 10], the body
+shape the AMP demo rows carry in their shape channels (zeros for clips
+without shape data, as the synthetic ones).
 """
 
 from __future__ import annotations
@@ -39,6 +42,8 @@ class MotionData:
     motion_num_frames: torch.Tensor  # [M] long
     motion_dt: torch.Tensor       # [M]
     sampling_prob: torch.Tensor   # [M]
+    shape_params: torch.Tensor | None = None   # [M, 11] gender, betas
+    limb_weights: torch.Tensor | None = None   # [M, 10]
 
     @property
     def num_motions(self) -> int:
@@ -59,8 +64,10 @@ def build_motion_data(
     device=None,
 ) -> MotionData:
     """Build the flat store from per-clip {"fps", "local_rotation" [T, J, 4],
-    "root_translation" [T, 3]}. FK and velocities are computed on the host
-    in float32, one clip at a time, then uploaded once per field."""
+    "root_translation" [T, 3]} and optional "shape_params" [11] and
+    "limb_weights" [10] (zeros where absent). FK and velocities are
+    computed on the host in float32, one clip at a time, then uploaded once
+    per field."""
     device = resolve_device(device)
     fields: dict[str, list[torch.Tensor]] = {k: [] for k in ("gts", "grs", "gvs", "gavs", "lrs", "dvs")}
     nframes, fps_l = [], []
@@ -94,6 +101,8 @@ def build_motion_data(
         motion_num_frames=up(nframes_np, torch.long),
         motion_dt=up((1.0 / np.asarray(fps_l)).astype(np.float32)),
         sampling_prob=up(prob),
+        shape_params=up(np.stack([np.asarray(c.get("shape_params", np.zeros(11)), np.float32) for c in clips])),
+        limb_weights=up(np.stack([np.asarray(c.get("limb_weights", np.zeros(10)), np.float32) for c in clips])),
     )
 
 

@@ -4,14 +4,17 @@ Counterpart of `pulse_tpu/run.py`:
 
     python -m pulse_tpu_torch.run env=im_getup learning=im_ppo num_envs=3072
     python -m pulse_tpu_torch.run env=im_vr learning=im_ppo num_envs=3072
+    python -m pulse_tpu_torch.run env=amp learning=im_amp num_envs=3072
     python -m pulse_tpu_torch.run env=im_vae learning=im_z_fit num_envs=3072 \
         learning.teacher_checkpoint=output/<exp>/ckpt
 
 composes the YAML config tree (`utils/config.py`), builds the model, the
-synthetic motion clips, the env and the agent (PPO, or distillation of a
-frozen PPO teacher into a PulseVAE), and runs the epoch loop
-with JSONL metric lines every `log_frequency` epochs and `torch.save`
-checkpoints of the train state every `save_frequency` epochs and at the end.
+synthetic motion clips, the env and the agent (PPO, PPO with the AMP
+discriminator, or distillation of a frozen PPO teacher into a PulseVAE),
+and runs the epoch loop (calling the agent's `pre_epoch` schedule before
+each epoch where it has one) with JSONL metric lines every
+`log_frequency` epochs and `torch.save` checkpoints of the train state
+every `save_frequency` epochs and at the end.
 With `epoch` not 0 the latest checkpoint of the experiment is restored.
 `device=cpu` runs the kernels' plain PyTorch versions on the CPU.
 
@@ -23,13 +26,14 @@ hard-negative mining); the weights are not checkpointed, so a resumed run
 starts uniform.
 
 Ported: the HumanoidIm and HumanoidImGetup tasks (and their distillation
-names HumanoidImDistill and HumanoidImDistillGetup) with `agent: ppo` or
-`agent: distill`, every observation, state-init, far-goal, occlusion and
-noise option of theirs (`env=im_vr`: VR three-point tracking), and
-HumanoidIm with per-env body shapes (`env=im_shape`: isotropic scales, or
-SMPL-beta skeletons with `env.smpl_model_path`). Other
-tasks, agents and options raise NotImplementedError naming the ROADMAP item
-that ports them. The distill agent has no evaluator: `test=true` and
+names HumanoidImDistill and HumanoidImDistillGetup) and the pure-AMP tasks
+HumanoidAMP and HumanoidAMPGetup (`env=amp`, `env=amp_getup`), with
+`agent: ppo`, `agent: amp` (`learning=im_amp`) or `agent: distill`, every
+observation, state-init, far-goal, occlusion and noise option of theirs
+(`env=im_vr`: VR three-point tracking), and HumanoidIm with per-env body
+shapes (`env=im_shape`: isotropic scales, or SMPL-beta skeletons with
+`env.smpl_model_path`). Other tasks, agents and options raise
+NotImplementedError naming the ROADMAP item that ports them. The distill agent has no evaluator: `test=true` and
 `eval_frequency` raise with it.
 """
 
@@ -47,7 +51,6 @@ import torch
 
 # task -> the ROADMAP item that ports it
 _UNPORTED_TASKS = {
-    "HumanoidAMP": 10, "HumanoidAMPGetup": 10,
     "HumanoidImMCP": 10, "HumanoidImMCPGetup": 10, "HumanoidImMCPDemo": 15, "HumanoidImDemo": 15,
     "HumanoidImZ": 11,
     "HumanoidSpeed": 11, "HumanoidReach": 11, "HumanoidTraj": 11, "HumanoidStrike": 11,
@@ -93,13 +96,14 @@ def build_motion_from_cfg(cfg, spec, device):
 
 def build_env_from_cfg(cfg, model, motion, device):
     from pulse_tpu_torch.env.humanoid_im import DEFAULT_KEY_BODIES, DEFAULT_RESET_BODIES, EnvConfig, HumanoidImEnv
+    from pulse_tpu_torch.env.humanoid_amp_getup import HumanoidAMPEnv, HumanoidAMPGetupEnv
     from pulse_tpu_torch.env.humanoid_im_getup import GetupConfig, HumanoidImGetupEnv
 
     e = cfg["env"]
     task = e["task"]
     # the distillation tasks are the imitation envs under another name
-    getup = task in ("HumanoidImGetup", "HumanoidImDistillGetup")
-    if not getup and task not in ("HumanoidIm", "HumanoidImDistill"):
+    getup = task in ("HumanoidImGetup", "HumanoidImDistillGetup", "HumanoidAMPGetup")
+    if not getup and task not in ("HumanoidIm", "HumanoidImDistill", "HumanoidAMP"):
         if task in _UNPORTED_TASKS or task.endswith("Z"):
             raise _unported(f"task {task}", _UNPORTED_TASKS.get(task, 11))
         raise ValueError(f"unknown task {task!r}")
@@ -143,8 +147,12 @@ def build_env_from_cfg(cfg, model, motion, device):
         **{k: float(v) for k, v in (e.get("reward_specs") or {}).items()},
     )
     seed = int(cfg["seed"])
+    amp_kw = {"termination_height": float(e.get("termination_height", 0.15))}
     if not getup:
-        env = HumanoidImEnv(model, motion, EnvConfig(**common), device=device, seed=seed)
+        if task == "HumanoidAMP":
+            env = HumanoidAMPEnv(model, motion, EnvConfig(**common), device=device, seed=seed, **amp_kw)
+        else:
+            env = HumanoidImEnv(model, motion, EnvConfig(**common), device=device, seed=seed)
         if shape_variation:
             # per-env body shapes (PHC's has_shape_variation), drawn from a
             # stream of their own as the JAX package's seed + 7 key
@@ -165,6 +173,8 @@ def build_env_from_cfg(cfg, model, motion, device):
         fall_settle_steps=int(e.get("fall_settle_steps", 60)),
         **common,
     )
+    if task == "HumanoidAMPGetup":
+        return HumanoidAMPGetupEnv(model, motion, gc, device=device, seed=seed, **amp_kw)
     return HumanoidImGetupEnv(model, motion, gc, device=device, seed=seed)
 
 
@@ -175,8 +185,6 @@ def build_agent_from_cfg(cfg, env):
     l = cfg["learning"]
     kind = l["agent"]
     seed = int(cfg["seed"])
-    if kind == "amp":
-        raise _unported("the AMP agent", 9)
     if kind == "distill":
         from pulse_tpu_torch.learning.distill import DistillAgent, DistillConfig
         from pulse_tpu_torch.learning.networks import PulseVAE
@@ -206,7 +214,7 @@ def build_agent_from_cfg(cfg, env):
             seed=seed,
         )
         return DistillAgent(env, teacher, dc, net, seed=seed + 1)
-    if kind != "ppo":
+    if kind not in ("ppo", "amp"):
         raise ValueError(f"unknown agent {kind!r}")
     ppo_cfg = PPOConfig(
         num_envs=int(cfg["num_envs"]),
@@ -233,7 +241,26 @@ def build_agent_from_cfg(cfg, env):
         seed=seed,
     )
     # the agent's generator gets its own stream, apart from the env's
-    return PPOAgent(env, ppo_cfg, net, seed=seed + 1)
+    if kind == "ppo":
+        return PPOAgent(env, ppo_cfg, net, seed=seed + 1)
+    from pulse_tpu_torch.learning.amp import AMPConfig
+    from pulse_tpu_torch.learning.amp_agent import AMPAgent
+
+    amp_cfg = AMPConfig(
+        disc_units=tuple(l["disc_units"]),
+        disc_coef=float(l["disc_coef"]),
+        disc_logit_reg=float(l["disc_logit_reg"]),
+        disc_grad_penalty=float(l["disc_grad_penalty"]),
+        disc_reward_scale=float(l["disc_reward_scale"]),
+        disc_weight_decay=float(l["disc_weight_decay"]),
+        amp_batch_size=int(l["amp_batch_size"]),
+        amp_buffer_size=int(l["amp_buffer_size"]),
+        task_reward_w=float(l["task_reward_w"]),
+        disc_reward_w=float(l["disc_reward_w"]),
+    )
+    e = cfg["env"]
+    return AMPAgent(env, ppo_cfg, amp_cfg, net, getup_update_epoch=int(e.get("getup_update_epoch", 0)),
+                    shape_resampling_interval=int(e.get("shape_resampling_interval", 0)), seed=seed + 1)
 
 
 TEACHER_SEED = 7   # the JAX package's stand-in teacher is drawn from PRNGKey(7)
@@ -288,13 +315,23 @@ def _rms_dict(r) -> dict:
 
 def save_checkpoint(ckpt_dir: str, epoch: int, ts) -> str:
     """A PPO TrainState's or a DistillState's network, optimizer,
-    normalizers and epoch."""
+    normalizers and epoch; of an AMPTrainState its PPO state's, and under
+    "amp" the discriminator, its optimizer, `amp_rms`, both buffers and the
+    reward weights."""
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, f"epoch_{epoch}.pt")
-    state = {"network": ts.network.state_dict(), "optimizer": ts.optimizer.state_dict(),
-             "obs_rms": _rms_dict(ts.obs_rms), "epoch": ts.epoch}
-    if hasattr(ts, "value_rms"):
-        state["value_rms"] = _rms_dict(ts.value_rms)
+    inner = getattr(ts, "ppo", ts)
+    state = {"network": inner.network.state_dict(), "optimizer": inner.optimizer.state_dict(),
+             "obs_rms": _rms_dict(inner.obs_rms), "epoch": inner.epoch}
+    if hasattr(inner, "value_rms"):
+        state["value_rms"] = _rms_dict(inner.value_rms)
+    if hasattr(ts, "amp"):
+        a = ts.amp
+        state["amp"] = {"disc": a.disc.state_dict(), "optimizer": a.optimizer.state_dict(),
+                        "amp_rms": _rms_dict(a.amp_rms), "task_reward_w": a.task_reward_w,
+                        "disc_reward_w": a.disc_reward_w,
+                        **{k: {"data": b.data, "head": b.head, "size": b.size}
+                           for k, b in (("demo_buffer", a.demo_buffer), ("replay_buffer", a.replay_buffer))}}
     torch.save(state, path)
     return path
 
@@ -308,12 +345,24 @@ def latest_checkpoint(ckpt_dir: str) -> str | None:
 def restore_checkpoint(path: str, ts):
     from pulse_tpu_torch.learning.running_norm import RunningMeanStd
 
-    dev = ts.obs_rms.mean.device
+    inner = getattr(ts, "ppo", ts)
+    dev = inner.obs_rms.mean.device
     ck = torch.load(path, map_location=dev, weights_only=True)
-    ts.network.load_state_dict(ck["network"])
-    ts.optimizer.load_state_dict(ck["optimizer"])
+    inner.network.load_state_dict(ck["network"])
+    inner.optimizer.load_state_dict(ck["optimizer"])
     rms = {k: RunningMeanStd(**ck[k]) for k in ("obs_rms", "value_rms") if k in ck}
-    return dataclasses.replace(ts, epoch=int(ck["epoch"]), **rms)
+    inner = dataclasses.replace(inner, epoch=int(ck["epoch"]), **rms)
+    if not hasattr(ts, "amp"):
+        return inner
+    from pulse_tpu_torch.learning.amp import RingBuffer
+
+    a = ck["amp"]
+    ts.amp.disc.load_state_dict(a["disc"])
+    ts.amp.optimizer.load_state_dict(a["optimizer"])
+    amp = dataclasses.replace(ts.amp, amp_rms=RunningMeanStd(**a["amp_rms"]), task_reward_w=a["task_reward_w"],
+                              disc_reward_w=a["disc_reward_w"],
+                              **{k: RingBuffer(**a[k]) for k in ("demo_buffer", "replay_buffer")})
+    return dataclasses.replace(ts, ppo=inner, amp=amp)
 
 
 @dataclasses.dataclass
@@ -367,6 +416,8 @@ def main(argv=None):
     steps_per_epoch = int(cfg["num_envs"]) * int(cfg["learning"]["horizon_length"])
     history = []
     for epoch in range(epoch0, int(cfg["max_epochs"])):
+        if hasattr(agent, "pre_epoch"):
+            ts = agent.pre_epoch(ts, epoch)
         ts, metrics = agent.train_epoch(ts)
         metrics = {k: float(v) for k, v in metrics.items()}
         history.append(metrics)
@@ -408,7 +459,9 @@ class DeterministicPolicy:
 
 
 def _policy_fn(ts) -> DeterministicPolicy:
-    """The deterministic policy of a PPO train state."""
+    """The deterministic policy of a PPO train state (an AMP train state's
+    PPO state)."""
+    ts = getattr(ts, "ppo", ts)
     return DeterministicPolicy(ts.network, ts.obs_rms)
 
 

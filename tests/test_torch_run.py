@@ -10,9 +10,11 @@ policy and prints the EvalResult as JSON; `eval_frequency` evaluates
 during training and writes the PMCP weights of the failed clips into the
 motion store the resets sample from. `env=im_vae learning=im_z_fit`
 distills a PPO checkpoint into a narrow PulseVAE, checkpoints and resumes;
-it has no evaluator. Options the slice does not port raise
-NotImplementedError. The port's config dataclasses default as the JAX
-package's.
+it has no evaluator. `learning=im_amp` trains env=amp, env=amp_getup
+(with the getup schedule) and env=im with the AMP discriminator, resumes
+it with both buffers, and `test=true` evaluates an AMP checkpoint's PPO
+policy. Options the slice does not port raise NotImplementedError. The
+port's config dataclasses default as the JAX package's.
 
 One tiny `env=im` run in this process (`trained`) gives the checkpoint
 that test=true evaluates and that distillation takes as its teacher.
@@ -31,12 +33,14 @@ import pytest
 import torch
 
 from pulse_tpu.env import EnvConfig as JaxEnvConfig
+from pulse_tpu.learning.amp import AMPConfig as JaxAMPConfig
 from pulse_tpu.learning.distill import DistillConfig as JaxDistillConfig
 from pulse_tpu.learning.ppo import PPOConfig as JaxPPOConfig
 from pulse_tpu.physics import PhysicsConfig as JaxPhysicsConfig
 
 from pulse_tpu_torch import _build, run
 from pulse_tpu_torch.env.humanoid_im import EnvConfig
+from pulse_tpu_torch.learning.amp import AMPConfig
 from pulse_tpu_torch.learning.distill import DistillConfig
 from pulse_tpu_torch.learning.ppo import PPOConfig
 from pulse_tpu_torch.motion.motion_lib import build_motion_data, update_hard_sampling_weight
@@ -97,7 +101,7 @@ def test_main_runs_env_im_in_process(trained):
 
 @pytest.mark.parametrize("args", [
     ["env.task=HumanoidImZ"], ["env.task=HumanoidImMCP"],
-    ["env.task=HumanoidSpeedZ"], ["learning.agent=amp"],
+    ["env.task=HumanoidSpeedZ"], ["env=amp_getup", "learning=im_amp", "env.shape_variation=true"],
     [*DISTILL, "learning.teacher_composer_checkpoint=x.pth"],
     ["env.randomize=true"], ["env=im_getup", "env.shape_variation=true"], ["env.control_mode=pd"],
     ["env.motion_file=x.pkl"],
@@ -195,7 +199,7 @@ def test_distill_has_no_evaluator(args, tmp_path):
 
 @pytest.mark.parametrize("port_cls, jax_cls", [(EnvConfig, JaxEnvConfig), (PPOConfig, JaxPPOConfig),
                                                (PhysicsConfig, JaxPhysicsConfig),
-                                               (DistillConfig, JaxDistillConfig)])
+                                               (DistillConfig, JaxDistillConfig), (AMPConfig, JaxAMPConfig)])
 def test_config_defaults_match_jax(port_cls, jax_cls):
     """Every field both packages' config dataclasses have defaults alike, so
     the quality A/B's settings are the JAX arm's."""
@@ -207,3 +211,79 @@ def test_config_defaults_match_jax(port_cls, jax_cls):
         a, b = port[k], want[k]
         assert (tuple(a) if isinstance(a, (list, tuple)) else a) == (tuple(b) if isinstance(b, (list, tuple)) else b), k
 
+
+
+# --------------------------------------------------------------------------- #
+# AMP: env=amp, env=amp_getup and env=im with learning=im_amp
+# --------------------------------------------------------------------------- #
+
+AMP = ["learning=im_amp", "learning.amp_batch_size=8", "learning.amp_buffer_size=64", "learning.disc_units=[32]"]
+
+
+@pytest.mark.parametrize("env_args, task", [
+    (["env=amp"], "HumanoidAMPEnv"),
+    (["env=amp_getup", "env.num_fall_states=8", "env.fall_settle_steps=2", "env.getup_update_epoch=1"],
+     "HumanoidAMPGetupEnv"),
+    (["env=im"], "HumanoidImEnv"),
+])
+def test_cli_trains_amp(env_args, task, tmp_path):
+    """Two epochs of AMP training: the env the task names, the AMP metrics
+    logged, task reward 1 on the pure-AMP envs (the style reward alone in
+    the getup schedule's first epochs), buffers grown by amp_batch_size an
+    epoch, and the checkpoint holds the discriminator and both buffers."""
+    out = _cli([*env_args, *AMP, "max_epochs=3", "exp_name=a", *TINY], tmp_path)
+    assert "epoch=2" in out
+    rows = [json.loads(l) for l in (tmp_path / "a" / "metrics.jsonl").read_text().splitlines()]
+    assert [r["epoch"] for r in rows] == [0, 1, 2]
+    for k in ("disc_loss", "disc_grad_pen", "disc_acc_agent", "disc_acc_demo", "disc_reward_mean",
+              "task_reward_mean", "reward_mean", "disc_reward_s", "disc_update_s", "rollout_s", "a_loss"):
+        assert all(np.isfinite(r[k]) for r in rows), k
+    if task != "HumanoidImEnv":
+        assert all(r["task_reward_mean"] == 1.0 for r in rows)
+    else:
+        assert all(0.0 <= r["task_reward_mean"] <= 1.0 for r in rows)
+    for r in rows:
+        w = (0.0, 1.0) if "env.getup_update_epoch=1" in env_args and r["epoch"] <= 1 else (0.5, 0.5)
+        assert r["reward_mean"] == pytest.approx(w[0] * r["task_reward_mean"] + w[1] * r["disc_reward_mean"],
+                                                 rel=1e-5), r["epoch"]
+    ck = torch.load(tmp_path / "a" / "ckpt" / "epoch_3.pt", weights_only=True)
+    assert ck["epoch"] == 3 and ck["amp"]["replay_buffer"]["size"] == 3 * 8
+    assert ck["amp"]["demo_buffer"]["size"] == 64 // 4 + 3 * 8 and "logit.weight" in ck["amp"]["disc"]
+    assert float(ck["amp"]["amp_rms"]["count"]) == pytest.approx(3 * (8 * 4 + 8), abs=1e-3)
+    assert json.loads((tmp_path / "a" / "config.json").read_text())["learning"]["agent"] == "amp"
+
+
+@pytest.fixture(scope="module")
+def amp_trained(tmp_path_factory):
+    out = tmp_path_factory.mktemp("amp")
+    res = run.main(["env=amp", *AMP, "max_epochs=2", f"output_dir={out}", "exp_name=a", *TINY])
+    return out, res
+
+
+def test_amp_resume_restores_disc_and_buffers(amp_trained, capsys):
+    out, first = amp_trained
+    assert type(first.agent.env).__name__ == "HumanoidAMPEnv" and first.agent.env.obs_dim == 358
+    amp0 = first.train_state.amp
+    res = run.main(["env=amp", *AMP, "max_epochs=2", "epoch=-1", f"output_dir={out}", "exp_name=a", *TINY])
+    assert "restored" in capsys.readouterr().out and res.metrics == []   # nothing left to train
+    amp = res.train_state.amp
+    assert res.train_state.ppo.epoch == 2
+    for a, b in zip(amp0.disc.parameters(), amp.disc.parameters()):
+        assert torch.equal(a, b)
+    for name in ("demo_buffer", "replay_buffer"):
+        b0, b1 = getattr(amp0, name), getattr(amp, name)
+        assert (b0.head, b0.size) == (b1.head, b1.size) and torch.equal(b0.data, b1.data), name
+    assert torch.equal(amp0.amp_rms.mean, amp.amp_rms.mean) and float(amp0.amp_rms.count) == float(amp.amp_rms.count)
+    s0, s1 = amp0.optimizer.state_dict()["state"], amp.optimizer.state_dict()["state"]
+    assert s0.keys() == s1.keys() and all(torch.equal(s0[k]["exp_avg"], s1[k]["exp_avg"]) for k in s0)
+    assert torch.equal(first.train_state.ppo.obs_rms.mean, res.train_state.ppo.obs_rms.mean)
+
+
+def test_amp_test_true_evaluates_the_ppo_policy(amp_trained, capsys, monkeypatch):
+    _one_second_clips(monkeypatch)
+    out, _ = amp_trained
+    run.main(["env=amp", *AMP, "test=true", "epoch=-1", f"output_dir={out}", "exp_name=a", *TINY])
+    text = capsys.readouterr().out
+    assert "restored" in text and "epoch=" not in text
+    res = json.loads(text[text.index("{"):])
+    assert len(res["failed_motions"]) == 4 and res["per_motion_steps"] == [29.0] * 4
