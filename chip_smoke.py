@@ -124,6 +124,39 @@ Phases, each printed as one JSON line:
                epoch; in epochs 0-1 the style reward alone on fall resets
                (fall_init_prob 1, recovery 0), in epoch 2 the 0.5/0.5 mix
                and the configured probabilities
+  train_mcp    env=im_mcp learning=im_ppo for 2 epochs: the 2048-1536-1024
+               policy outputs 3 composer weights over 3 frozen 512-512 PNN
+               columns (seed + 13); 32 launches of K1 and K2 an epoch (K2
+               once more at the reset), none of K3 or RA; the PNN
+               bit-unchanged; the env's blend (under a bf16 autocast)
+               float32 and equal to compose_actions of the PNN run apart;
+               the blend's ms; ms and device-busy ms a step
+  train_mcp_getup  env=im_mcp_getup for 2 epochs: 60 K3 launches (the
+               settle), then 32 of K3, RA and K2 an epoch
+  train_dr     env=im learning=im_amp env.randomize=true
+               env.shape_resampling_interval=2 for 4 epochs: 32 launches of
+               K3-rows, RA and K2 an epoch, none of K1 or K3; the friction
+               rows of each epoch's K3-rows model rows in [0.7, 1.3] x the
+               base and distinct across envs, re-drawn before epoch 3 only
+               (the rows change); K3-rows on the re-drawn rows against
+               physics_step on the env's batched model (<= 1% outlier envs;
+               the pre-re-draw model's step differs in more envs than
+               that); one more step's obs equal to the DR noise recomputed
+               from the held and fresh draws on K2's clean obs
+  control_modes  8 steps each of isaac_pd, pd and force from the standing
+               reference state (velocities zeroed; the pose-holding action,
+               zero torque under force): isaac_pd K1 and K2 8 each, pd and
+               force no launch; isaac_pd keeps the mean body height within
+               5 mm, force loses more than 5 mm; the root and body height
+               changes (pd's too: the reference's explicit PD is unstable),
+               ms, device-busy ms and device kernels a step
+  perturb      HumanoidImPerturbEnv (proj_interval 8, early termination
+               off) for 24 policy-acting steps: every projectile relaunched
+               exactly where the pre-step progress is 7 mod 8 (some at 7,
+               15 and 23), some envs hit, no kernel launch; ms, device-busy
+               ms and kernels a step; physics_step_with_prop with the prop
+               out of reach against K3 on the same state (<= 1% outlier
+               envs, no contact)
   The training phases time rollout, GAE and update (epochs after the first)
   and the training env steps/s; then K3's (3072 and 256 envs), K3-rows' and
   RA's ms and their plain versions', K3 and K3-rows at the chosen G and at
@@ -177,6 +210,9 @@ GENERAL_STEPS = 8               # acting steps of each general-path option
 GENERAL_TOL = {"reward": 1e-5, "reward_raw": 1e-5, "amp_hist": 1e-5, "obs": 1e-4}
 GENERAL_EDGE = 1e-5             # done/terminate may differ within this of the threshold
 SETTLE_CHECK_STEP = 8           # the mid-settle step (in contact) where K3 is measured
+CONTROL_STEPS = 8               # steps of each control mode
+PROJ_INTERVAL = 8               # the perturb phase's steps between launches
+PERTURB_STEPS = 24              # the perturb phase's acting steps
 
 
 def emit(obj) -> None:
@@ -1273,16 +1309,22 @@ def main() -> int:
                          "grace_holds": int(getattr(agent.env, "grace_holds", 0))})
         return hook
 
-    def train_amp(exp: str, env_args: list, want_epoch: dict, epochs: int) -> tuple:
+    def train_amp(exp: str, env_args: list, want_epoch: dict, epochs: int, on_epoch=None) -> tuple:
         """`train` with learning=im_amp, then the AMP gates every path shares:
         the discriminator changed, the buffers and amp_rms grown by exactly
         one update an epoch, the recorded AMP window of the last step the
         env's, the mix, the style reward's range and the accuracies; then the
         device time of the discriminator's reward over a rollout and of one
-        of its updates."""
+        of its updates. `on_epoch(agent, out)` runs after each epoch too."""
         rows = []
-        res_, counts_, info_ = train(exp, env_args, want_epoch, learning="im_amp", epochs=epochs,
-                                     on_epoch=amp_epoch(rows))
+        hook_ = amp_epoch(rows)
+
+        def hooks(agent, out):
+            hook_(agent, out)
+            if on_epoch is not None:
+                on_epoch(agent, out)
+
+        res_, counts_, info_ = train(exp, env_args, want_epoch, learning="im_amp", epochs=epochs, on_epoch=hooks)
         agent_, ts_ = res_.agent, res_.train_state
         a_, pa_ = ts_.amp, agent_.ppo
         acfg = agent_.amp.config
@@ -1394,7 +1436,266 @@ def main() -> int:
             0.5, 0.5, gc_.fall_init_prob, gc_.recovery_episode_prob):
         fail(f"train_amp_getup: epoch 2 not the configured mix and probabilities: {late}")
     del res, genv
+
+    # ---- MCP: composer weights over frozen PNN primitives -------------------- #
+    # env=im_mcp: the policy (2048-1536-1024) outputs 3 composer weights; the
+    # env blends 3 frozen 512-512 PNN columns on the pre-step obs (float32,
+    # outside the policy's autocast) and steps K1 -> K2 as env=im does;
+    # env=im_mcp_getup the same on K3 -> RA -> K2
+    from pulse_tpu_torch.learning.pnn import PNN, compose_actions
+
+    def per_step(info_) -> dict:
+        """A training phase's ms and device-busy ms an env step (the
+        rollout's, policy included)."""
+        return {"ms_per_step": median(info_["rollout_ms"]) / HORIZON,
+                "device_busy_ms_per_step": info_["rollout_device_busy_ms"] / HORIZON}
+
+    want_mcp = {"step_reward_amp": HORIZON, "observe": HORIZON, "physics_step": 0, "physics_step_rows": 0,
+                "reward_amp": 0}
+    res, mcp_launches, info = train("train_mcp", ["env=im_mcp"], want_mcp)
+    menv, mst = res.agent.env, res.train_state.env_state
+    fresh_pnn = PNN(menv.obs_dim, 69, 3, (512, 512), device=dev, seed=run.PNN_SEED_OFFSET)   # cfg seed 0
+    pnn_same = all(torch.equal(a_, b_) for a_, b_ in zip(menv.pnn.state_dict().values(),
+                                                        fresh_pnn.state_dict().values()))
+    with torch.no_grad():
+        w_ = torch.rand(N_ENVS, 3, generator=g, device=dev) * 2.0 - 1.0
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            blend = menv.motor_actions(mst, w_)
+        prims = menv.pnn(mst.obs)
+        want_blend = torch.clamp(compose_actions(torch.softmax(w_ * menv.gate_temp, dim=-1), prims), -1.0, 1.0)
+        blend_ms = cuda_ms(lambda: menv.motor_actions(mst, w_), 20)
+    info.update(per_step(info), obs_dim=menv.obs_dim, action_dim=menv.action_dim, pnn_units=list(menv.pnn.units),
+                pnn_unchanged=pnn_same, blend_dtype=str(blend.dtype),
+                blend_vs_separate_pnn=float((blend - want_blend).abs().max()), blend_ms=blend_ms,
+                fused=menv._fused_step_ok())
+    emit(info)
+    want_total = dict(want_mcp, step_reward_amp=TRAIN_EPOCHS * HORIZON, observe=TRAIN_EPOCHS * HORIZON + 1)
+    if mcp_launches != want_total or menv.action_dim != 3 or res.train_state.network.mu.out_features != 3:
+        fail(f"train_mcp: launches {mcp_launches} (expected {want_total}), action_dim {menv.action_dim}")
+    if not pnn_same or blend.dtype != torch.float32 or info["blend_vs_separate_pnn"] > 1e-6:
+        fail(f"train_mcp: PNN unchanged {pnn_same}, blend {blend.dtype}, off by {info['blend_vs_separate_pnn']}")
+    del res, menv, mst, fresh_pnn
+
+    want_mg = {"step_reward_amp": 0, "observe": HORIZON, "physics_step": HORIZON, "physics_step_rows": 0,
+               "reward_amp": HORIZON}
+    res, mcp_getup_launches, info = train("train_mcp_getup", ["env=im_mcp_getup"], want_mg)
+    mgenv = res.agent.env
+    info.update(per_step(info), action_dim=mgenv.action_dim, fall_resets=int(mgenv.fall_resets),
+                grace_holds=int(mgenv.grace_holds))
+    emit(info)
+    want_total = {"step_reward_amp": 0, "observe": TRAIN_EPOCHS * HORIZON + 1,
+                  "physics_step": GetupConfig().fall_settle_steps + TRAIN_EPOCHS * HORIZON, "physics_step_rows": 0,
+                  "reward_amp": TRAIN_EPOCHS * HORIZON}
+    if mcp_getup_launches != want_total or mgenv.action_dim != 3:
+        fail(f"train_mcp_getup: launches {mcp_getup_launches} (expected {want_total})")
+    del res, mgenv
+
+    # ---- domain randomization: env=im learning=im_amp env.randomize=true ------ #
+    # im.yaml's randomization_params: obs and action noise with held
+    # correlated draws, per-env friction multipliers in [0.7, 1.3] on a
+    # batched model, so every step is K3-rows -> RA -> K2 (never K1), then the
+    # noise. shape_resampling_interval 2: the AMP agent re-draws the props
+    # before epoch 3 (epoch % 2 == 1 past epoch 1), so 4 epochs
+    from pulse_tpu_torch.env.domain_rand import apply_noise
+
+    DR_EPOCHS = 4
+    fric_rows = []
+
+    def record_friction(agent, out):
+        env_ = agent.env
+        lay = substep_cuda.model_rows_layout(env_.model.num_bodies, int(env_.model.cp_body.shape[0]))[0]
+        a_, b_ = lay["cp_friction"]
+        fric_rows.append((env_.batched_model, env_._model_rows(N_ENVS)[:, a_:b_].clone()))
+
+    want_dr = {"step_reward_amp": 0, "observe": HORIZON, "physics_step": 0, "physics_step_rows": HORIZON,
+               "reward_amp": HORIZON}
+    res, dr_launches, info, rows = train_amp("train_dr", ["env=im", "env.randomize=true",
+                                                          "env.shape_resampling_interval=2"], want_dr, DR_EPOCHS,
+                                             on_epoch=record_friction)
+    denv_, dst = res.agent.env, res.train_state.ppo.env_state
+    base_fric = denv_.model.cp_friction[None]
+    mults = [r / base_fric for _, r in fric_rows]
+    redraw_at = [i for i in range(1, DR_EPOCHS) if fric_rows[i][0] is not fric_rows[i - 1][0]]
+    with torch.no_grad():
+        # the kernel reads the re-drawn rows: K3-rows on the env's rows
+        # against physics_step on its batched model; the pre-re-draw model's
+        # step differs, so a stale rows cache would fail
+        pd_d = denv_.action_to_pd_target(0.3 * torch.randn(N_ENVS, 69, generator=g, device=dev))
+        k3r_dr = substep_cuda.physics_step_cuda(model, dst.physics, pd_d, model_rows=denv_._model_rows(N_ENVS))
+        plain_dr = physics_step(denv_.batched_model, dst.physics, pd_d)
+        old_dr = physics_step(fric_rows[1][0], dst.physics, pd_d)
+        # the noise: one more step with the draws recorded; its obs minus K2's
+        # clean obs of the merged state against the noise recomputed from
+        # the held draw, the fresh draw and the pre-step DR counter
+        drawn = {}
+        real_draw = denv_._dr_draw
+
+        def recording(name, shape, spec=None):
+            drawn[name] = real_draw(name, shape, spec)
+            return drawn[name]
+
+        denv_._dr_draw = recording
+        act_d = torch.clamp(policy_step(res.train_state.ppo.network, dst.obs, g,
+                                        obs_rms=res.train_state.ppo.obs_rms)[0], -1.0, 1.0)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        nxt = denv_.step(dst, act_d)
+        clean = denv_._observe(nxt)
+        torch.cuda.synchronize()
+        noise_launches = dict(_build.launches)
+        del denv_._dr_draw
+        spec_o = denv_.config.dr.observations
+        want_obs = apply_noise(spec_o, clean, nxt.dr_corr_obs, drawn["obs"], dst.dr_step)
+        noise_err = float((nxt.obs - want_obs).abs().max())
+    k3r_cmp = {f: compare(getattr(k3r_dr, f), getattr(plain_dr, f), K1_TOL[f], N_ENVS) for f in PHYS_FIELDS}
+    old_differ = envs_beyond(old_dr, plain_dr, N_ENVS)
+    info.update(per_step(info), epochs_run=DR_EPOCHS, redraw_before_epochs=redraw_at,
+                friction_mult_min=[float(m_.min()) for m_ in mults],
+                friction_mult_max=[float(m_.max()) for m_ in mults],
+                friction_distinct_envs=[int(m_[:, 0].unique().numel()) for m_ in mults],
+                rows_changed_at_redraw=[not torch.equal(fric_rows[i][1], fric_rows[i - 1][1]) for i in redraw_at],
+                K3rows_vs_plain_after_redraw=k3r_cmp, envs_where_old_props_step_differs=old_differ,
+                noise_vs_recomputed_max_abs=noise_err, noise_max_abs=float((nxt.obs - clean).abs().max()),
+                dr_step=int(dst.dr_step.max()), noise_step_launches=noise_launches,
+                fused=denv_._fused_step_ok(), kernel_path=denv_._kernel_surface())
+    emit(info)
+    want_total = {"step_reward_amp": 0, "observe": DR_EPOCHS * HORIZON + 1, "physics_step": 0,
+                  "physics_step_rows": DR_EPOCHS * HORIZON, "reward_amp": DR_EPOCHS * HORIZON}
+    if dr_launches != want_total or info["fused"] or not info["kernel_path"]:
+        fail(f"train_dr: launches {dr_launches} (expected {want_total}), K1 path {info['fused']}")
+    if (min(info["friction_mult_min"]) < 0.7 - 1e-6 or max(info["friction_mult_max"]) > 1.3 + 1e-6
+            or min(info["friction_distinct_envs"]) < N_ENVS // 2):
+        fail(f"train_dr: friction multipliers outside [0.7, 1.3] or alike across envs: {info}")
+    if redraw_at != [3] or not all(info["rows_changed_at_redraw"]) or torch.equal(fric_rows[3][1], fric_rows[1][1]):
+        fail(f"train_dr: the props were re-drawn before epochs {redraw_at} (expected [3]), rows changed "
+             f"{info['rows_changed_at_redraw']}")
+    if any(c["outlier_envs"] > OUTLIER_FRAC * N_ENVS for c in k3r_cmp.values()) or old_differ <= OUTLIER_FRAC * N_ENVS:
+        fail(f"train_dr: K3-rows on the re-drawn rows vs plain {k3r_cmp}; the old props' step differs in "
+             f"{old_differ} envs")
+    if noise_err > 1e-6 or info["noise_max_abs"] <= 1e-6:
+        fail(f"train_dr: obs noise off by {noise_err} (noise {info['noise_max_abs']})")
+    if noise_launches != {"step_reward_amp": 0, "observe": 2, "physics_step": 0, "physics_step_rows": 1,
+                          "reward_amp": 1}:
+        fail(f"train_dr: the noise step's launches {noise_launches}")
+    del res, denv_, dst, nxt, clean, k3r_dr, plain_dr, old_dr, fric_rows
     shutil.rmtree(out_root, ignore_errors=True)
+
+    # ---- control modes: isaac_pd, pd and force on the general step ------------ #
+    # From the standing reference state at clip time 0 (velocities zeroed),
+    # CONTROL_STEPS steps: isaac_pd and pd with the action whose PD target
+    # is the start pose, force with zero torque. isaac_pd keeps the body's
+    # height; the limp force-mode body sinks (its limbs first: the mean body
+    # height, not yet the root's). pd and force run plain PyTorch on the
+    # card (the JAX package runs them in XLA), so no kernel launches.
+    from pulse_tpu_torch.physics.state import dof_pos_from_state
+
+    cm_info = {"phase": "control_modes", "card": card, "envs": N_ENVS, "steps": CONTROL_STEPS}
+    for mode in ("isaac_pd", "pd", "force"):
+        cenv = HumanoidImEnv(model, motion, EnvConfig(control_mode=mode, enable_early_termination=False), device=dev,
+                             seed=0)
+        with torch.no_grad():
+            cst = cenv.reset_to(torch.arange(N_ENVS, device=dev) % 4, torch.zeros(N_ENVS, device=dev))
+            cst = cst.replace(physics=cst.physics.replace(root_vel6=torch.zeros_like(cst.physics.root_vel6),
+                                                          joint_omega=torch.zeros_like(cst.physics.joint_omega)))
+            hold = torch.clamp((dof_pos_from_state(cst.physics) - model.pd_action_offset) / model.pd_action_scale,
+                               -1.0, 1.0)
+            act_c = torch.zeros_like(hold) if mode == "force" else hold
+            z0, b0 = cst.physics.root_pos[:, 2].clone(), cst.physics.body_pos[..., 2].mean(dim=1)
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            for _ in range(CONTROL_STEPS):
+                cst = cenv.step(cst, act_c)
+            torch.cuda.synchronize()
+            step_ms = 1e3 * (time.perf_counter() - t0) / CONTROL_STEPS
+            c_launches = dict(_build.launches)
+            busy_c, kern_c = device_busy(lambda: cenv.step(cst, act_c))
+        finite = all(bool(torch.isfinite(getattr(cst.physics, f)).all()) for f in PHYS_FIELDS)
+        cm_info[mode] = {"root_dz_mean": float((cst.physics.root_pos[:, 2] - z0).mean()),
+                         "root_dz_min": float((cst.physics.root_pos[:, 2] - z0).min()),
+                         "body_dz_mean": float((cst.physics.body_pos[..., 2].mean(dim=1) - b0).mean()),
+                         "finite": finite, "ms_per_step": step_ms, "device_busy_ms_per_step": busy_c,
+                         "device_kernels_per_step": kern_c, "launches": c_launches,
+                         "kernel_path": cenv._kernel_surface()}
+        del cenv, cst
+    emit(cm_info)
+    want_c = {"step_reward_amp": CONTROL_STEPS, "observe": CONTROL_STEPS, "physics_step": 0, "physics_step_rows": 0,
+              "reward_amp": 0}
+    zero_c = {k: 0 for k in want_c}
+    if (cm_info["isaac_pd"]["launches"] != want_c or cm_info["pd"]["launches"] != zero_c
+            or cm_info["force"]["launches"] != zero_c or cm_info["pd"]["kernel_path"]
+            or cm_info["force"]["kernel_path"]):
+        fail(f"control_modes: launches or paths {cm_info}")
+    if not all(cm_info[m_]["finite"] for m_ in ("isaac_pd", "pd", "force")):
+        fail(f"control_modes: non-finite state {cm_info}")
+    if abs(cm_info["isaac_pd"]["body_dz_mean"]) > 0.005 or cm_info["force"]["body_dz_mean"] > -0.005:
+        fail(f"control_modes: isaac_pd should keep the body's height and force lose it: {cm_info}")
+
+    # ---- perturb: projectiles through HumanoidImPerturbEnv --------------------- #
+    from pulse_tpu_torch.env.humanoid_im_perturb import HumanoidImPerturbEnv, PerturbConfig
+    from pulse_tpu_torch.physics.prop import make_prop_state
+    from pulse_tpu_torch.physics.step import physics_step_with_prop
+
+    # early termination off, so that every env lives to relaunch at 7, 15 and
+    # 23 unless its clip ends
+    penv = HumanoidImPerturbEnv(model, motion, PerturbConfig(proj_interval=PROJ_INTERVAL,
+                                                             enable_early_termination=False), device=dev, seed=0)
+    pnet = ActorCritic(penv.obs_dim, penv.action_dim, device=dev, seed=0)
+    prms = RunningMeanStd.create(penv.obs_dim, device=dev)
+    relaunch_by_progress, wrong_relaunch, contact_envs = {}, 0, torch.zeros(N_ENVS, dtype=torch.bool, device=dev)
+    real_launch = penv._launch
+    with torch.no_grad():
+        pst, prop = penv.reset(N_ENVS)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(PERTURB_STEPS):
+            launched = {}
+
+            def launch(root_pos, launched=launched):
+                launched["prop"] = real_launch(root_pos)
+                return launched["prop"]
+
+            penv._launch = launch
+            pre = pst.progress.clone()
+            act_p = torch.clamp(policy_step(pnet, pst.obs, g, obs_rms=prms)[0], -1.0, 1.0)
+            pst, prop = penv.step((pst, prop), act_p)
+            mask = pre % PROJ_INTERVAL == PROJ_INTERVAL - 1
+            took = (prop.pos == launched["prop"].pos).all(dim=1) & (prop.lin_vel == launched["prop"].lin_vel).all(dim=1)
+            wrong_relaunch += int((took != mask).sum())
+            for p_ in pre[mask].unique().tolist():
+                relaunch_by_progress[p_] = relaunch_by_progress.get(p_, 0) + int((pre[mask] == p_).sum())
+            contact_envs |= penv.prop_contact.abs().sum(dim=1) > 0
+        torch.cuda.synchronize()
+        p_ms = 1e3 * (time.perf_counter() - t0) / PERTURB_STEPS
+        p_launches = dict(_build.launches)
+        penv._launch = real_launch
+        p_busy, p_kern = device_busy(lambda: penv.step((pst, prop), act_p))
+        # the coupled step with the prop parked out of reach against K3 on the
+        # same state and PD targets
+        parked = make_prop_state(torch.tensor([[200.0, 200.0, 0.3]], device=dev).expand(N_ENVS, 3).contiguous())
+        pd_p = penv.action_to_pd_target(act_p)
+        coupled, _, parked_contact = physics_step_with_prop(model, penv.proj_spec, pst.physics, parked, pd_p)
+        k3_p = substep_cuda.physics_step_cuda(model, pst.physics, pd_p)
+    coupled_cmp = {f: compare(getattr(coupled, f), getattr(k3_p, f), K1_TOL[f], N_ENVS) for f in PHYS_FIELDS}
+    p_info = {"phase": "perturb", "card": card, "envs": N_ENVS, "steps": PERTURB_STEPS,
+              "proj_interval": PROJ_INTERVAL, "relaunches_by_pre_step_progress": relaunch_by_progress,
+              "envs_relaunched_when_not_due_or_not_when_due": wrong_relaunch,
+              "envs_with_prop_contact": int(contact_envs.sum()), "resets": int(pst.done.sum()),
+              "ms_per_step": p_ms, "device_busy_ms_per_step": p_busy, "device_kernels_per_step": p_kern,
+              "launches": p_launches, "parked_prop_contact_max": float(parked_contact.abs().max()),
+              "coupled_parked_vs_K3": coupled_cmp, "obs_finite": bool(torch.isfinite(pst.obs).all())}
+    emit(p_info)
+    if wrong_relaunch or any(relaunch_by_progress.get(p_, 0) == 0 for p_ in (7, 15, 23)) or any(
+            p_ % PROJ_INTERVAL != PROJ_INTERVAL - 1 for p_ in relaunch_by_progress):
+        fail(f"perturb: relaunches {relaunch_by_progress}, {wrong_relaunch} env-steps off the schedule")
+    if not p_info["envs_with_prop_contact"] or not p_info["obs_finite"] or any(p_launches.values()):
+        fail(f"perturb: {p_info['envs_with_prop_contact']} envs hit, obs finite {p_info['obs_finite']}, "
+             f"launches {p_launches}")
+    if p_info["parked_prop_contact_max"] or any(c["outlier_envs"] > OUTLIER_FRAC * N_ENVS
+                                                for c in coupled_cmp.values()):
+        fail(f"perturb: the out-of-reach coupled step against K3: {coupled_cmp}")
+    del penv, pnet, pst, prop, coupled, k3_p
 
     # ---- K3's and RA's times on the kernel phase's inputs ---------------------- #
     with torch.no_grad():
@@ -1537,35 +1838,46 @@ def main() -> int:
     emit({"kernels": [
         {"name": "step_reward_amp", "route": "cuda", "source": src + "step_reward_amp.cu",
          "replaces": "pulse_tpu/env/pallas_obs.py:376",
-         "launches": im_launches["step_reward_amp"] + amp_im_launches["step_reward_amp"],
+         "launches": sum(n["step_reward_amp"] for n in (im_launches, amp_im_launches, mcp_launches)),
          "launches_by_phase": {"train_im": im_launches["step_reward_amp"],
-                               "train_amp_im": amp_im_launches["step_reward_amp"]},
+                               "train_amp_im": amp_im_launches["step_reward_amp"],
+                               "train_mcp": mcp_launches["step_reward_amp"]},
          "max_abs_err": max_err["step_reward_amp"], "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": None},
         {"name": "observe", "route": "cuda", "source": src + "observe.cuh",
          "replaces": "pulse_tpu/env/pallas_obs.py:558",
-         "launches": im_launches["observe"] + amp_im_launches["observe"],
-         "launches_by_phase": {"train_im": im_launches["observe"], "train_amp_im": amp_im_launches["observe"]},
+         "launches": sum(n["observe"] for n in (im_launches, amp_im_launches, mcp_launches, mcp_getup_launches,
+                                                 dr_launches)),
+         "launches_by_phase": {"train_im": im_launches["observe"], "train_amp_im": amp_im_launches["observe"],
+                               "train_mcp": mcp_launches["observe"], "train_mcp_getup": mcp_getup_launches["observe"],
+                               "train_dr": dr_launches["observe"]},
          "max_abs_err": max_err["observe"], "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": None},
         {"name": "physics_step", "route": "cuda", "source": src + "physics_step.cu",
          "replaces": "pulse_tpu/physics/substep_pallas.py:847",
          "launches": sum(n["physics_step"] for n in (getup_launches, vr_launches, amp_launches,
-                                                     amp_getup_launches)),
+                                                     amp_getup_launches, mcp_getup_launches)),
          "launches_by_phase": {"train_getup": getup_launches["physics_step"],
                                "train_vr": vr_launches["physics_step"], "train_amp": amp_launches["physics_step"],
-                               "train_amp_getup": amp_getup_launches["physics_step"]},
+                               "train_amp_getup": amp_getup_launches["physics_step"],
+                               "train_mcp_getup": mcp_getup_launches["physics_step"]},
          "max_abs_err": max_err["physics_step"], "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
          "bound_by": k3_by, "library_ms": None},
         {"name": "physics_step_rows", "route": "cuda", "source": src + "physics_step.cu",
-         "replaces": "pulse_tpu/physics/substep_pallas.py:744", "launches": shape_launches["physics_step_rows"],
+         "replaces": "pulse_tpu/physics/substep_pallas.py:744",
+         "launches": shape_launches["physics_step_rows"] + dr_launches["physics_step_rows"],
+         "launches_by_phase": {"train_shape": shape_launches["physics_step_rows"],
+                               "train_dr": dr_launches["physics_step_rows"]},
          "max_abs_err": max_err["physics_step_rows"], "ms": k3r_ms, "plain_ms": k3r_plain_ms, "bound_ms": k3r_bound,
          "bound_by": k3r_by, "library_ms": None},
         {"name": "reward_amp", "route": "cuda", "source": src + "reward_amp.cu",
          "replaces": "pulse_tpu/env/pallas_obs.py:309",
-         "launches": sum(n["reward_amp"] for n in (getup_launches, amp_launches, amp_getup_launches)),
+         "launches": sum(n["reward_amp"] for n in (getup_launches, amp_launches, amp_getup_launches,
+                                                   mcp_getup_launches, dr_launches)),
          "launches_by_phase": {"train_getup": getup_launches["reward_amp"], "train_amp": amp_launches["reward_amp"],
-                               "train_amp_getup": amp_getup_launches["reward_amp"]},
+                               "train_amp_getup": amp_getup_launches["reward_amp"],
+                               "train_mcp_getup": mcp_getup_launches["reward_amp"],
+                               "train_dr": dr_launches["reward_amp"]},
          "max_abs_err": max_err["reward_amp"], "ms": ra_ms, "plain_ms": ra_plain_ms, "bound_ms": ra_bound,
          "bound_by": ra_by, "library_ms": None},
     ]})

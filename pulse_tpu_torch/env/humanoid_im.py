@@ -1,8 +1,10 @@
 """HumanoidIm, the motion-imitation environment, batched over envs in
 PyTorch.
 
-Counterpart of `pulse_tpu/env/humanoid_im.py` for isaac_pd control without
-domain randomization: task obs v6-v9 over all bodies or a tracked subset
+Counterpart of `pulse_tpu/env/humanoid_im.py`: the isaac_pd, pd and force
+control modes, domain randomization (`env/domain_rand.py`: scheduled
+action and observation noise with held correlated draws, per-env friction,
+mass and gain multipliers), task obs v6-v9 over all bodies or a tracked subset
 (`track_bodies`, VR sparse tracking) with `num_traj_samples` future frames,
 self obs v1, v2 (a history of `self_obs_hist_steps` frames) and v3 (the
 ankles' contact forces), AMP obs v1/v2, the far-goal mode
@@ -10,24 +12,29 @@ ankles' contact forces), AMP obs v1/v2, the far-goal mode
 Random / Hybrid, PHC's per-env body shapes and shape channels, the cycled
 reference (`cycle_motion`: the clip time wraps, the reference is shifted
 by the clip's root travel per cycle, and episodes end at `episode_length`
-steps) and the power reward. Other control modes raise
-NotImplementedError.
+steps) and the power reward.
 
-One `step`: gather the reference at the post-step time, then
+One `step`: gather the reference at the post-step time; the action takes
+the DR action noise and then the `motor_actions` hook (identity here; the
+MCP envs blend frozen primitives there); then
 
-  * on the kernels' surface (`_kernel_surface`: obs v6 over all bodies with
-    one future frame, self obs v1, no far-goal mode)
+  * on the kernels' surface (`_kernel_surface`: isaac_pd, obs v6 over all
+    bodies with one future frame, self obs v1, no far-goal mode)
       - on the fused path (`_fused_step_ok`: no subclass overrides
-        termination or reset, no shape channels, one shared model) kernel
-        K1: physics, reward, termination distances, AMP row;
-      - with per-env body shapes (`enable_shape_variation`) kernel K3-rows
+        termination or reset, no shape channels, no domain randomization,
+        one shared model) kernel K1: physics, reward, termination
+        distances, AMP row;
+      - with per-env models (body shapes, `enable_shape_variation`, or
+        DR's physical props, `randomize_physical_props`) kernel K3-rows
         (the physics under each env's own model) and kernel RA (reward,
         distances, AMP row on the stepped state);
       - else kernel K3 (physics) and kernel RA, which together compute what
         K1 does;
-  * otherwise `_step_general`: K3 (or K3-rows), then the reward over the
-    tracked bodies, the distances and the AMP row in plain PyTorch (the
-    counterpart of the JAX package's per-env XLA `_finish_step`);
+  * otherwise `_step_general`: the physics (K3 or K3-rows under isaac_pd;
+    the pd and force modes' plain PyTorch steps, `physics/step.py`), then
+    the reward over the tracked bodies, the distances and the AMP row in
+    plain PyTorch (the counterpart of the JAX package's per-env XLA
+    `_finish_step`);
 
 then, with `power_reward`, the energy penalty of the stepped state added to
 the imitation reward; with `zero_out_far`, the location reward and no
@@ -35,7 +42,9 @@ termination for envs far from their reference; termination
 (`_termination`), the AMP and self-obs history rolls, the branch-free
 auto-reset merge with fresh states (`_reset_states`), the observation of
 the merged state (kernel K2 on the kernels' surface, `_observe_general`
-otherwise), and last obs noise and occlusion. With shape channels, each
+otherwise), then the refresh of DR's held draws every `frequency` steps
+and DR's observation noise, and last obs noise and occlusion. With shape
+channels, each
 env's shape row (gender, betas, limb weights; zeros until shapes are
 enabled) follows the self obs and is appended to every AMP row. Random
 draws come from the env's `torch.Generator`.
@@ -52,10 +61,12 @@ import torch
 from pulse_tpu_torch._device import resolve_device
 from pulse_tpu_torch.assets import load_smpl_humanoid
 from pulse_tpu_torch.env import cuda_obs, kernels
+from pulse_tpu_torch.env.domain_rand import DRConfig, apply_noise, draw_noise, randomize_model_props
 from pulse_tpu_torch.motion.motion_lib import MotionData, get_motion_state, sample_motions, sample_time
 from pulse_tpu_torch.ops import quat as q
 from pulse_tpu_torch.physics import shape_variation, substep_cuda
 from pulse_tpu_torch.physics.model import Model, batched_model_from_numpy
+from pulse_tpu_torch.physics.step import physics_step_pd_explicit, physics_step_torque
 from pulse_tpu_torch.physics.state import (
     PhysicsState, dof_pos_from_state, dof_vel_from_state, physics_state_from_numpy, state_from_kinematics,
     state_from_motion_ref,
@@ -75,7 +86,9 @@ STATE_INITS = ("Default", "Start", "Random", "Hybrid")
 class EnvConfig:
     """The knobs of env_im that shape the step (defaults = configs/env/im.yaml)."""
 
-    control_mode: str = "isaac_pd"
+    control_mode: str = "isaac_pd"    # isaac_pd | pd (explicit PD) | force (raw torques)
+    power_scale: float = 1.0
+    motor_effort: float = 500.0        # force: tau = action * motor_effort * power_scale
     termination_distance: float = 0.25
     enable_early_termination: bool = True
     use_mean_termination: bool = True
@@ -105,6 +118,7 @@ class EnvConfig:
     key_bodies: Sequence[str] = DEFAULT_KEY_BODIES
     reset_bodies: Sequence[str] = DEFAULT_RESET_BODIES
     track_bodies: Sequence[str] | None = None   # the task obs' and reward's bodies; None: all
+    dr: DRConfig | None = None         # domain randomization; None: off
     k_pos: float = 100.0
     k_rot: float = 10.0
     k_vel: float = 0.1
@@ -131,6 +145,11 @@ class EnvState:
     amp_hist: torch.Tensor     # [B, S, A] newest first
     recovery_counter: torch.Tensor  # [B] int32: steps of termination grace (getup)
     self_obs_hist: torch.Tensor | None = None  # [B, H, single] newest first (self obs v2)
+    # domain randomization: the held correlated draws and the per-env step
+    # counter of the schedules and refreshes (it counts across resets)
+    dr_corr_obs: torch.Tensor | None = None    # [B, obs_dim]
+    dr_corr_act: torch.Tensor | None = None    # [B, action_dim]
+    dr_step: torch.Tensor | None = None        # [B] int32
 
     @property
     def amp_obs(self) -> torch.Tensor:
@@ -144,11 +163,14 @@ def env_state_from_numpy(d: dict, device=None) -> EnvState:
     """Build an EnvState from numpy arrays keyed by field name, with
     d["physics"] a dict of PhysicsState fields (e.g. a JAX EnvState
     converted leaf by leaf). A missing recovery_counter is zeros, a missing
-    self_obs_hist None."""
+    self_obs_hist or DR field None."""
     def t(x, dtype):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
     B = np.asarray(d["progress"]).shape[0]
+
+    def opt(name, dtype):
+        return None if d.get(name) is None else t(d[name], dtype)
 
     return EnvState(
         physics=physics_state_from_numpy(d["physics"], device=device),
@@ -162,7 +184,10 @@ def env_state_from_numpy(d: dict, device=None) -> EnvState:
         terminate=t(d["terminate"], torch.bool),
         amp_hist=t(d["amp_hist"], torch.float32),
         recovery_counter=t(d.get("recovery_counter", np.zeros(B)), torch.int32),
-        self_obs_hist=None if d.get("self_obs_hist") is None else t(d["self_obs_hist"], torch.float32),
+        self_obs_hist=opt("self_obs_hist", torch.float32),
+        dr_corr_obs=opt("dr_corr_obs", torch.float32),
+        dr_corr_act=opt("dr_corr_act", torch.float32),
+        dr_step=opt("dr_step", torch.int32),
     )
 
 
@@ -217,6 +242,8 @@ class HumanoidImEnv:
         self._shape_obs_table = None                # [N, shape_obs_dim]
         self._model_rows_cache = None               # (batched model, its K3-rows rows)
         self._shape_args = None                     # enable_shape_variation's, for resample_shapes
+        self._prop_rand_base = None                 # the model DR's prop multipliers apply to
+        self._prop_rand_args = None                 # randomize_physical_props', for the re-draws
         # one frame of self obs: [v1's, ankle forces 6 and 6 zeros (v3)?, shape row?]
         self.self_obs_dim_single = (cuda_obs.self_obs_dim(J, cfg.root_height_obs) + 12 * (cfg.self_obs_v == 3)
                                     + self.shape_obs_dim)
@@ -244,39 +271,39 @@ class HumanoidImEnv:
         PMCP weights), with the per-env body shapes carried over. The new
         env draws from a fresh generator of the same seed."""
         new = type(self)(self.model, self.motion, config, device=self.device, seed=self.seed, **self._ctor_kwargs())
-        for attr in ("batched_model", "_shape_obs_table", "_model_rows_cache", "_shape_args"):
+        for attr in ("batched_model", "_shape_obs_table", "_model_rows_cache", "_shape_args", "_prop_rand_base",
+                     "_prop_rand_args"):
             setattr(new, attr, getattr(self, attr))
         if (new.obs_dim, new.amp_obs_dim) != (self.obs_dim, self.amp_obs_dim):
             raise ValueError("with_config must keep the obs and AMP obs widths")
         return new
 
     def _check_config(self) -> None:
-        """Raise on a config the port does not run (domain randomization is
-        not a field here: `run.py` raises on `env.randomize`)."""
+        """Raise on a config outside the env's options."""
         cfg = self.config
-        if cfg.control_mode in ("pd", "force"):
-            raise NotImplementedError(f"control_mode {cfg.control_mode} is not ported yet (ROADMAP queue 1, item 12)")
-        for name, allowed in (("control_mode", ("isaac_pd",)), ("state_init", STATE_INITS), ("obs_v", (6, 7, 8, 9)),
-                              ("self_obs_v", (1, 2, 3)), ("amp_obs_v", (1, 2))):
+        for name, allowed in (("control_mode", ("isaac_pd", "pd", "force")), ("state_init", STATE_INITS),
+                              ("obs_v", (6, 7, 8, 9)), ("self_obs_v", (1, 2, 3)), ("amp_obs_v", (1, 2))):
             if getattr(cfg, name) not in allowed:
                 raise ValueError(f"unsupported {name} {getattr(cfg, name)!r}")
 
     def _kernel_surface(self) -> bool:
-        """The step's reward and observation are K1's / RA's and K2's: task obs
-        v6 over all bodies with one future frame, self obs v1, no far-goal
-        mode (the JAX package's `_fused_step_ok` surface). Obs noise and
-        occlusion act on the final observation, so they ride this path."""
+        """The step's physics is K1's or K3's and its reward and observation
+        are K1's / RA's and K2's: isaac_pd, task obs v6 over all bodies with
+        one future frame, self obs v1, no far-goal mode (the JAX package's
+        `_fused_step_ok` surface). DR noise, obs noise and occlusion act on
+        the action and the final observation, so they ride this path."""
         cfg = self.config
-        return (cfg.obs_v == 6 and cfg.self_obs_v == 1 and cfg.num_traj_samples == 1 and self._all_tracked
-                and not cfg.zero_out_far)
+        return (cfg.control_mode == "isaac_pd" and cfg.obs_v == 6 and cfg.self_obs_v == 1
+                and cfg.num_traj_samples == 1 and self._all_tracked and not cfg.zero_out_far)
 
     def _fused_step_ok(self) -> bool:
-        """K1 may run the step (of a shared model): no shape channels, and no
-        subclass replaces a stage it fuses."""
+        """K1 may run the step (of a shared model): no shape channels, no
+        domain randomization, and no subclass replaces a stage it fuses."""
         t = type(self)
         return (
             self._kernel_surface()
             and self.shape_obs_dim == 0
+            and self.config.dr is None
             and t._termination is HumanoidImEnv._termination
             and t._reset_states is HumanoidImEnv._reset_states
         )
@@ -389,12 +416,33 @@ class HumanoidImEnv:
         return self._fresh(*self._sample_reset(mask.shape[0]))
 
     def reset_to(self, motion_ids: torch.Tensor, start_times: torch.Tensor) -> EnvState:
-        state = self._fresh(motion_ids, start_times)
+        state = self._with_dr(self._fresh(motion_ids, start_times))
         return state.replace(obs=self._observe(state))
 
     def reset(self, num_envs: int) -> EnvState:
-        state = self._reset_states(torch.ones(num_envs, dtype=torch.bool, device=self.device))
+        state = self._with_dr(self._reset_states(torch.ones(num_envs, dtype=torch.bool, device=self.device)))
         return state.replace(obs=self._observe(state))
+
+    def _with_dr(self, state: EnvState) -> EnvState:
+        """With domain randomization, the first held correlated draws and
+        the step counters at 0. Later resets keep an env's (the step's
+        refresh owns them)."""
+        if self.config.dr is None:
+            return state
+        B = state.motion_id.shape[0]
+        return state.replace(dr_corr_obs=self._dr_draw("corr_obs", (B, self.obs_dim)),
+                             dr_corr_act=self._dr_draw("corr_act", (B, self.action_dim)),
+                             dr_step=torch.zeros(B, dtype=torch.int32, device=self.device))
+
+    def _dr_draw(self, name: str, shape, spec=None) -> torch.Tensor:
+        """One DR draw from the env's generator: the fresh noise of `spec`
+        (standard normal, or uniform for a uniform spec), or without `spec`
+        a correlated standard-normal draw. `name` (corr_obs, corr_act, act,
+        obs) says which; a test can replace this method to feed given
+        draws."""
+        if spec is None:
+            return torch.randn(shape, generator=self.generator, device=self.device)
+        return draw_noise(spec, shape, self.generator)
 
     def _observe(self, state: EnvState) -> torch.Tensor:
         """The observation of a state: K2 on the kernels' surface, else
@@ -473,6 +521,35 @@ class HumanoidImEnv:
                                self._cycle_offset(state.motion_id, state.start_time, state.progress))
         return self._far_distance(ref, state.physics) > self.config.zero_out_far_distance
 
+    def _dr_obs(self, state: EnvState, merged: EnvState, obs: torch.Tensor) -> tuple[EnvState, torch.Tensor]:
+        """DR after the merge: the held correlated draws redrawn where the
+        pre-step counter is a multiple of `frequency` (else the pre-step
+        state's, whatever the merge picked), the counter advanced, and the
+        observation noise at the pre-step counter on `obs`."""
+        dr, B = self.config.dr, obs.shape[0]
+        refresh = (state.dr_step % dr.frequency == 0)[:, None]
+        corr_obs = torch.where(refresh, self._dr_draw("corr_obs", (B, self.obs_dim)), state.dr_corr_obs)
+        corr_act = torch.where(refresh, self._dr_draw("corr_act", (B, self.action_dim)), state.dr_corr_act)
+        merged = merged.replace(dr_corr_obs=corr_obs, dr_corr_act=corr_act, dr_step=state.dr_step + 1)
+        if dr.observations is not None:
+            obs = apply_noise(dr.observations, obs, corr_obs, self._dr_draw("obs", obs.shape, dr.observations),
+                              state.dr_step)
+        return merged, obs
+
+    def _dr_action_noise(self, state: EnvState, actions: torch.Tensor) -> torch.Tensor:
+        """DR's action noise, before the motor mapping."""
+        dr = self.config.dr
+        if dr is None or dr.actions is None:
+            return actions
+        return apply_noise(dr.actions, actions, state.dr_corr_act, self._dr_draw("act", actions.shape, dr.actions),
+                           state.dr_step)
+
+    def motor_actions(self, state: EnvState, actions: torch.Tensor) -> torch.Tensor:
+        """The policy's action in the motor action space: identity here. The
+        MCP envs blend their frozen primitives here; `step` and
+        `_step_general` both call it, so K1 runs their step too."""
+        return actions
+
     def _perturb_obs(self, obs: torch.Tensor) -> torch.Tensor:
         """A step's final observation with obs noise (std `obs_noise_std`),
         then occlusion: with probability `occlusion_prob` per env, a
@@ -518,33 +595,52 @@ class HumanoidImEnv:
         return t, get_motion_state(self.motion, state.motion_id, t,
                                    self._cycle_offset(state.motion_id, state.start_time, progress))
 
-    def _physics_step(self, physics: PhysicsState, pd_target: torch.Tensor) -> PhysicsState:
-        """K3, or K3-rows under each env's own model."""
+    def _physics_step(self, physics: PhysicsState, pd_target: torch.Tensor, actions: torch.Tensor) -> PhysicsState:
+        """One control period of the env's control mode: isaac_pd K3, or
+        K3-rows under each env's own model; pd and force the plain PyTorch
+        steps (force: tau = action * motor_effort * power_scale)."""
+        cfg = self.config
+        m = self.model if self.batched_model is None else self.batched_model
+        if cfg.control_mode == "force":
+            return physics_step_torque(m, physics, actions * (cfg.motor_effort * cfg.power_scale))
+        if cfg.control_mode == "pd":
+            return physics_step_pd_explicit(m, physics, pd_target)
         rows = None if self.batched_model is None else self._model_rows(pd_target.shape[0])
         return substep_cuda.physics_step_cuda(self.model, physics, pd_target, model_rows=rows)
+
+    def _motor_pd_target(self, state: EnvState, actions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(motor actions, PD targets) of the policy's actions: DR's action
+        noise, then `motor_actions`, then the PD map."""
+        actions = self.motor_actions(state, self._dr_action_noise(state, actions))
+        return actions, self.action_to_pd_target(actions)
 
     def step(self, state: EnvState, actions: torch.Tensor) -> EnvState:
         if not self._kernel_surface():
             return self._step_general(state, actions)
         progress = state.progress + 1
         t, ref = self._post_step_ref(state, progress)
-        pd_target = self.action_to_pd_target(actions)
+        actions, pd_target = self._motor_pd_target(state, actions)
         if self.batched_model is None and self._fused_step_ok():
             physics, *terms = cuda_obs.step_reward_amp(self.model, self.consts, state.physics, pd_target, ref)
         else:
-            physics = self._physics_step(state.physics, pd_target)
+            physics = self._physics_step(state.physics, pd_target, actions)
             terms = cuda_obs.reward_amp(self.consts, physics, ref, *self._disc_parts(actions.shape[0]))
         return self._finish_step(state, progress, t, ref, physics, pd_target, *terms, observe=self._observe)
 
     def _step_general(self, state: EnvState, actions: torch.Tensor) -> EnvState:
-        """The step off the kernels' surface, valid on it too: K3 (or
-        K3-rows), then the imitation reward over the tracked bodies, the
-        reset bodies' distances and the AMP row in plain PyTorch, and
-        `_observe_general` of the merged state."""
+        """The step off the kernels' surface, valid on it too: the control
+        mode's physics (`_physics_step`), then `_finish_general`."""
+        actions, pd_target = self._motor_pd_target(state, actions)
+        physics = self._physics_step(state.physics, pd_target, actions)
+        return self._finish_general(state, physics, pd_target)
+
+    def _finish_general(self, state: EnvState, physics: PhysicsState, pd_target: torch.Tensor) -> EnvState:
+        """Everything after the physics off the kernels' surface: the
+        imitation reward over the tracked bodies, the reset bodies'
+        distances and the AMP row in plain PyTorch, then `_finish_step`
+        with `_observe_general` of the merged state."""
         progress = state.progress + 1
         t, ref = self._post_step_ref(state, progress)
-        pd_target = self.action_to_pd_target(actions)
-        physics = self._physics_step(state.physics, pd_target)
         e, tb = self.consts, self._track
         reward, reward_raw = kernels.compute_imitation_reward(
             physics.body_pos[:, tb], physics.body_rot[:, tb], physics.body_vel[:, tb], physics.body_ang_vel[:, tb],
@@ -554,7 +650,7 @@ class HumanoidImEnv:
         )
         rid = self.reset_body_ids
         dist = torch.linalg.vector_norm(physics.body_pos[:, rid] - ref["rg_pos"][:, rid], dim=-1)
-        amp_row = cuda_obs.amp_row_plain(e, physics, *self._disc_parts(actions.shape[0]))
+        amp_row = cuda_obs.amp_row_plain(e, physics, *self._disc_parts(pd_target.shape[0]))
         return self._finish_step(state, progress, t, ref, physics, pd_target, reward, reward_raw, dist.mean(dim=-1),
                                  dist.amax(dim=-1), amp_row, observe=self._observe_general)
 
@@ -563,7 +659,8 @@ class HumanoidImEnv:
                      dmean: torch.Tensor, dmax: torch.Tensor, amp_row: torch.Tensor, observe) -> EnvState:
         """Everything after the reward terms: the power penalty, the far-goal
         mode, termination, the history rolls, the auto-reset merge, the
-        observation (`observe` of the merged state), noise and occlusion."""
+        observation (`observe` of the merged state), DR's refresh and noise,
+        obs noise and occlusion."""
         cfg = self.config
         if cfg.power_reward:
             # the PD torque proxy kp (target - dof) - kd dof_vel of the env's model
@@ -598,7 +695,10 @@ class HumanoidImEnv:
             terminate = terminate & ~far
             reset = pass_time | terminate
         merged = _select(reset, self._reset_states(reset), stepped)
-        return merged.replace(obs=self._perturb_obs(observe(merged)), reward=reward, reward_raw=reward_raw,
+        obs = observe(merged)
+        if cfg.dr is not None:
+            merged, obs = self._dr_obs(state, merged, obs)
+        return merged.replace(obs=self._perturb_obs(obs), reward=reward, reward_raw=reward_raw,
                               done=reset, terminate=terminate)
 
     # ------------------------------------------------------------------ #
@@ -632,10 +732,30 @@ class HumanoidImEnv:
 
     def resample_shapes(self) -> None:
         """Redraw every env's body shape in the mode enable_shape_variation
-        was called with, from the generator it drew from."""
+        was called with, from the generator it drew from; DR's physical
+        props are then re-drawn on the new shapes."""
         if self._shape_args is None:
             raise RuntimeError("resample_shapes before enable_shape_variation")
         self.enable_shape_variation(**self._shape_args)
+        self._prop_rand_base = None
+        if self._prop_rand_args is not None:
+            self.randomize_physical_props(**self._prop_rand_args)
+
+    def randomize_physical_props(self, num_envs: int, generator: torch.Generator | None = None) -> None:
+        """DR's per-env physical props: multipliers in the config's friction,
+        mass and gain ranges, drawn from `generator` (default: the env's),
+        on the pre-DR model (the per-env shapes or the shared model), so
+        that re-draws never compound. A no-op without prop ranges. The
+        batched model is a new object, so the K3-rows rows are rebuilt."""
+        dr = self.config.dr
+        if dr is None or not dr.has_props:
+            return
+        g = self.generator if generator is None else generator
+        if self._prop_rand_base is None:
+            self._prop_rand_base = self.model if self.batched_model is None else self.batched_model
+        self.batched_model = randomize_model_props(self._prop_rand_base, g, num_envs, dr.friction_range,
+                                                   dr.mass_range, dr.gain_range)
+        self._prop_rand_args = dict(num_envs=num_envs, generator=g)
 
     def set_shapes_from_numpy(self, leaves: dict, shape_table=None) -> None:
         """Per-env body shapes from numpy arrays: a batched model's leaves

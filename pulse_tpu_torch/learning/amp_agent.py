@@ -11,7 +11,9 @@ the recurrent rollout is not ported):
   * `pre_epoch` (between epochs): the getup schedule (task/style weights
     0/1 and every reset a fall state until `getup_update_epoch`, then
     0.5/0.5 and the env's configured probabilities) and, every
-    `shape_resampling_interval` epochs, new per-env body shapes;
+    `shape_resampling_interval` epochs, new per-env body shapes (with
+    domain randomization's physical props re-layered on them), or on an
+    env with DR's props alone, new prop multipliers;
   * `JointAMPDistillAgent`: one rollout feeds both the AMP update and a
     distillation (behaviour cloning + KL) step on the frozen teacher's
     actions for the rollout's observations.
@@ -27,6 +29,8 @@ import torch
 from pulse_tpu_torch.learning.amp import AMPConfig, AMPModule, AMPState
 from pulse_tpu_torch.learning.distill import DistillRollout, DistillState
 from pulse_tpu_torch.learning.ppo import PPOAgent, PPOConfig, TrainState, compute_gae
+
+PROP_REDRAW_SEED = 19   # the JAX package re-draws the props from PRNGKey(19) folded with the epoch
 
 
 @dataclasses.dataclass
@@ -94,11 +98,14 @@ class AMPAgent:
                 env.set_getup_phase(past)
         if (self.shape_resampling_interval and epoch > 1 and epoch % self.shape_resampling_interval == 1
                 and getattr(env, "batched_model", None) is not None):
-            if getattr(env, "_shape_args", None) is None:
-                raise NotImplementedError("re-drawing a batched model not made by enable_shape_variation (domain "
-                                          "randomization's physical props) is not ported yet (ROADMAP queue 1, "
-                                          "item 10)")
-            env.resample_shapes()
+            if getattr(env, "_shape_args", None) is not None:
+                # the shapes in their original mode, DR's props re-layered on them
+                env.resample_shapes()
+            elif getattr(env, "_prop_rand_args", None) is not None:
+                # DR alone: the prop multipliers re-drawn, from a stream of
+                # their own for each epoch
+                g = torch.Generator(device=env.device).manual_seed((PROP_REDRAW_SEED << 32) + epoch)
+                env.randomize_physical_props(env._prop_rand_args["num_envs"], generator=g)
         return ts
 
     def train_epoch(self, ts: AMPTrainState):

@@ -10,7 +10,8 @@ axis (`physics/model.py`) while the topology stays shared. Two sources:
     armature ~ s^2 and lengths ~ s;
   * `models_from_betas`: skeletons from SMPL shape betas (`smpl/`).
 
-Domain randomization of the physical properties is not ported yet.
+Domain randomization's physical props (`env/domain_rand.py`) scale the
+leaves of a batched model, or batch a shared one at scale 1 first.
 """
 
 from __future__ import annotations

@@ -5,6 +5,8 @@ Counterpart of `pulse_tpu/run.py`:
     python -m pulse_tpu_torch.run env=im_getup learning=im_ppo num_envs=3072
     python -m pulse_tpu_torch.run env=im_vr learning=im_ppo num_envs=3072
     python -m pulse_tpu_torch.run env=amp learning=im_amp num_envs=3072
+    python -m pulse_tpu_torch.run env=im_mcp learning=im_ppo num_envs=3072
+    python -m pulse_tpu_torch.run env=im learning=im_amp env.randomize=true num_envs=3072
     python -m pulse_tpu_torch.run env=im_vae learning=im_z_fit num_envs=3072 \
         learning.teacher_checkpoint=output/<exp>/ckpt
 
@@ -26,11 +28,16 @@ hard-negative mining); the weights are not checkpointed, so a resumed run
 starts uniform.
 
 Ported: the HumanoidIm and HumanoidImGetup tasks (and their distillation
-names HumanoidImDistill and HumanoidImDistillGetup) and the pure-AMP tasks
-HumanoidAMP and HumanoidAMPGetup (`env=amp`, `env=amp_getup`), with
-`agent: ppo`, `agent: amp` (`learning=im_amp`) or `agent: distill`, every
-observation, state-init, far-goal, occlusion and noise option of theirs
-(`env=im_vr`: VR three-point tracking), and HumanoidIm with per-env body
+names HumanoidImDistill and HumanoidImDistillGetup), the pure-AMP tasks
+HumanoidAMP and HumanoidAMPGetup (`env=amp`, `env=amp_getup`) and the MCP
+tasks HumanoidImMCP and HumanoidImMCPGetup (`env=im_mcp`,
+`env=im_mcp_getup`: composer weights over a frozen PNN, which without
+`env.pnn_checkpoint` is drawn fresh from the seed), with `agent: ppo`,
+`agent: amp` (`learning=im_amp`) or `agent: distill`, every observation,
+state-init, far-goal, occlusion and noise option of theirs (`env=im_vr`:
+VR three-point tracking), the isaac_pd, pd and force control modes
+(`env.control_mode`), domain randomization (`env.randomize=true` with
+`env.randomization_params`), and HumanoidIm with per-env body
 shapes (`env=im_shape`: isotropic scales, or SMPL-beta skeletons with
 `env.smpl_model_path`). Other tasks, agents and options raise
 NotImplementedError naming the ROADMAP item that ports them. The distill agent has no evaluator: `test=true` and
@@ -51,7 +58,7 @@ import torch
 
 # task -> the ROADMAP item that ports it
 _UNPORTED_TASKS = {
-    "HumanoidImMCP": 10, "HumanoidImMCPGetup": 10, "HumanoidImMCPDemo": 15, "HumanoidImDemo": 15,
+    "HumanoidImMCPDemo": 15, "HumanoidImDemo": 15,
     "HumanoidImZ": 11,
     "HumanoidSpeed": 11, "HumanoidReach": 11, "HumanoidTraj": 11, "HumanoidStrike": 11,
     "HumanoidPedestrianTerrain": 11,
@@ -94,26 +101,32 @@ def build_motion_from_cfg(cfg, spec, device):
     return build_motion_data(spec.skeleton, clips, device=device)
 
 
+def _build_dr(e):
+    """env.randomize + env.randomization_params -> DRConfig, or None."""
+    if not bool(e.get("randomize", False)):
+        return None
+    from pulse_tpu_torch.env.domain_rand import dr_config_from_dict
+
+    return dr_config_from_dict(dict(e.get("randomization_params") or {}))
+
+
 def build_env_from_cfg(cfg, model, motion, device):
     from pulse_tpu_torch.env.humanoid_im import DEFAULT_KEY_BODIES, DEFAULT_RESET_BODIES, EnvConfig, HumanoidImEnv
     from pulse_tpu_torch.env.humanoid_amp_getup import HumanoidAMPEnv, HumanoidAMPGetupEnv
     from pulse_tpu_torch.env.humanoid_im_getup import GetupConfig, HumanoidImGetupEnv
+    from pulse_tpu_torch.env.humanoid_im_mcp import HumanoidImMCPEnv, HumanoidImMCPGetupEnv
 
     e = cfg["env"]
     task = e["task"]
     # the distillation tasks are the imitation envs under another name
-    getup = task in ("HumanoidImGetup", "HumanoidImDistillGetup", "HumanoidAMPGetup")
-    if not getup and task not in ("HumanoidIm", "HumanoidImDistill", "HumanoidAMP"):
+    getup = task in ("HumanoidImGetup", "HumanoidImDistillGetup", "HumanoidAMPGetup", "HumanoidImMCPGetup")
+    if not getup and task not in ("HumanoidIm", "HumanoidImDistill", "HumanoidAMP", "HumanoidImMCP"):
         if task in _UNPORTED_TASKS or task.endswith("Z"):
             raise _unported(f"task {task}", _UNPORTED_TASKS.get(task, 11))
         raise ValueError(f"unknown task {task!r}")
-    if bool(e.get("randomize", False)):
-        raise _unported("domain randomization (env.randomize, env/domain_rand.py)", 10)
     shape_variation = bool(e.get("shape_variation", False))
     if shape_variation and getup:
         raise _unported("shape variation with HumanoidImGetup", 12)
-    if str(e.get("control_mode", "isaac_pd")) != "isaac_pd":
-        raise _unported(f"control_mode {e['control_mode']}", 12)
     common = dict(
         termination_distance=float(e["termination_distance"]),
         enable_early_termination=bool(e["enable_early_termination"]),
@@ -128,6 +141,8 @@ def build_env_from_cfg(cfg, model, motion, device):
         power_reward=bool(e["power_reward"]),
         power_coefficient=float(e["power_coefficient"]),
         cycle_motion=bool(e["cycle_motion"]),
+        control_mode=str(e.get("control_mode", "isaac_pd")),
+        power_scale=float(e.get("power_scale", 1.0)),
         obs_v=int(e.get("obs_v", 6)),
         self_obs_v=int(e.get("self_obs_v", 1)),
         self_obs_hist_steps=int(e.get("self_obs_hist_steps", 5)),
@@ -144,15 +159,20 @@ def build_env_from_cfg(cfg, model, motion, device):
         key_bodies=tuple(e["key_bodies"]) if e.get("key_bodies") else DEFAULT_KEY_BODIES,
         reset_bodies=tuple(e["reset_bodies"]) if e.get("reset_bodies") else DEFAULT_RESET_BODIES,
         track_bodies=tuple(e["track_bodies"]) if e.get("track_bodies") else None,
+        dr=_build_dr(e),
         **{k: float(v) for k, v in (e.get("reward_specs") or {}).items()},
     )
     seed = int(cfg["seed"])
     amp_kw = {"termination_height": float(e.get("termination_height", 0.15))}
     if not getup:
+        ec = EnvConfig(**common)
         if task == "HumanoidAMP":
-            env = HumanoidAMPEnv(model, motion, EnvConfig(**common), device=device, seed=seed, **amp_kw)
+            env = HumanoidAMPEnv(model, motion, ec, device=device, seed=seed, **amp_kw)
+        elif task == "HumanoidImMCP":
+            env = HumanoidImMCPEnv(model, motion, ec, device=device, seed=seed,
+                                   pnn=build_pnn_from_cfg(cfg, model, motion, ec, device))
         else:
-            env = HumanoidImEnv(model, motion, EnvConfig(**common), device=device, seed=seed)
+            env = HumanoidImEnv(model, motion, ec, device=device, seed=seed)
         if shape_variation:
             # per-env body shapes (PHC's has_shape_variation), drawn from a
             # stream of their own as the JAX package's seed + 7 key
@@ -164,7 +184,7 @@ def build_env_from_cfg(cfg, model, motion, device):
             env.enable_shape_variation(int(cfg["num_envs"]), smpl_model=smpl,
                                        beta_std=float(e.get("shape_beta_std", 1.0)),
                                        generator=torch.Generator(device=env.device).manual_seed(seed + 7))
-        return env
+        return _randomize_props(cfg, env)
     gc = GetupConfig(
         recovery_steps=int(e.get("recovery_steps", 90)),
         recovery_episode_prob=float(e.get("recovery_episode_prob", 0.3)),
@@ -174,8 +194,38 @@ def build_env_from_cfg(cfg, model, motion, device):
         **common,
     )
     if task == "HumanoidAMPGetup":
-        return HumanoidAMPGetupEnv(model, motion, gc, device=device, seed=seed, **amp_kw)
-    return HumanoidImGetupEnv(model, motion, gc, device=device, seed=seed)
+        env = HumanoidAMPGetupEnv(model, motion, gc, device=device, seed=seed, **amp_kw)
+    elif task == "HumanoidImMCPGetup":
+        env = HumanoidImMCPGetupEnv(model, motion, gc, device=device, seed=seed,
+                                    pnn=build_pnn_from_cfg(cfg, model, motion, gc, device))
+    else:
+        env = HumanoidImGetupEnv(model, motion, gc, device=device, seed=seed)
+    return _randomize_props(cfg, env)
+
+
+def _randomize_props(cfg, env):
+    """DR's per-env physical props (after any shape variation), drawn from
+    a stream of their own, as the JAX package's seed + 11 key."""
+    if env.config.dr is not None:
+        env.randomize_physical_props(int(cfg["num_envs"]),
+                                     generator=torch.Generator(device=env.device).manual_seed(int(cfg["seed"]) + 11))
+    return env
+
+
+def build_pnn_from_cfg(cfg, model, motion, env_config, device):
+    """The frozen PNN primitives of the MCP envs: a fresh
+    PNN(obs -> 69 dof, `env.num_prim` columns of `learning.pnn_units`,
+    default 512-512) drawn from seed + PNN_SEED_OFFSET stands in. Importing a
+    reference `.pth` (`env.pnn_checkpoint`) raises."""
+    from pulse_tpu_torch.env.humanoid_im import HumanoidImEnv
+    from pulse_tpu_torch.learning.pnn import PNN
+
+    e, l = cfg["env"], cfg["learning"]
+    if e.get("pnn_checkpoint", "") or l.get("teacher_pnn_checkpoint", ""):
+        raise _unported("env.pnn_checkpoint (the .pth PNN importer)", 11)
+    probe = HumanoidImEnv(model, motion, env_config, device=device)
+    return PNN(probe.obs_dim, probe.action_dim, int(e.get("num_prim", 3)), tuple(l.get("pnn_units", (512, 512))),
+               device=device, seed=int(cfg["seed"]) + PNN_SEED_OFFSET)
 
 
 def build_agent_from_cfg(cfg, env):
@@ -264,6 +314,7 @@ def build_agent_from_cfg(cfg, env):
 
 
 TEACHER_SEED = 7   # the JAX package's stand-in teacher is drawn from PRNGKey(7)
+PNN_SEED_OFFSET = 13   # and its stand-in PNN primitives from PRNGKey(seed + 13)
 
 
 def build_teacher_from_cfg(cfg, env) -> "DeterministicPolicy":

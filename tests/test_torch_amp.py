@@ -380,9 +380,13 @@ def test_shape_resample_schedule(env):
     assert torch.equal(senv.batched_model.body_mass, before)
     agent.pre_epoch(ts, 11)         # epoch % 10 == 1
     assert not torch.equal(senv.batched_model.body_mass, before)
-    senv._shape_args = None         # a batched model from elsewhere (domain randomization)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        agent.pre_epoch(ts, 21)
+    # a batched model neither from shape variation nor from domain
+    # randomization's props is left as it is, as in the JAX package (the
+    # props' re-draw: tests/test_torch_domain_rand.py)
+    senv._shape_args = None
+    kept = senv.batched_model
+    agent.pre_epoch(ts, 21)
+    assert senv.batched_model is kept
 
 
 def test_recurrent_network_raises(env):

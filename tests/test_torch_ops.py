@@ -119,9 +119,14 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch, port):
 
 
 def test_unported_config_raises(port):
+    """Shape variation with the getup env is not ported (item 12); an
+    unknown control mode is refused."""
     _, model, motion, _ = port
+    genv = HumanoidImGetupEnv(model, motion, GetupConfig(num_fall_states=2, fall_settle_steps=1), device="cpu")
     with pytest.raises(NotImplementedError, match="item 12"):
-        HumanoidImEnv(model, motion, EnvConfig(control_mode="pd"), device="cpu")
+        genv.enable_shape_variation(4)
+    with pytest.raises(ValueError, match="control_mode"):
+        HumanoidImEnv(model, motion, EnvConfig(control_mode="torque"), device="cpu")
 
 
 def _c_struct_words(src: str, name: str, consts: dict) -> int:

@@ -13,8 +13,11 @@ distills a PPO checkpoint into a narrow PulseVAE, checkpoints and resumes;
 it has no evaluator. `learning=im_amp` trains env=amp, env=amp_getup
 (with the getup schedule) and env=im with the AMP discriminator, resumes
 it with both buffers, and `test=true` evaluates an AMP checkpoint's PPO
-policy. Options the slice does not port raise NotImplementedError. The
-port's config dataclasses default as the JAX package's.
+policy. `env=im_mcp` and `env=im_mcp_getup` (composer weights over a
+fresh frozen PNN), `env.randomize=true` (with PPO, and with AMP re-drawing
+the props) and `env.control_mode=pd|force` train in process. Options the
+slice does not port raise NotImplementedError. The port's config
+dataclasses default as the JAX package's.
 
 One tiny `env=im` run in this process (`trained`) gives the checkpoint
 that test=true evaluates and that distillation takes as its teacher.
@@ -39,9 +42,10 @@ from pulse_tpu.learning.ppo import PPOConfig as JaxPPOConfig
 from pulse_tpu.physics import PhysicsConfig as JaxPhysicsConfig
 
 from pulse_tpu_torch import _build, run
-from pulse_tpu_torch.env.humanoid_im import EnvConfig
+from pulse_tpu_torch.env.humanoid_im import EnvConfig, HumanoidImEnv
 from pulse_tpu_torch.learning.amp import AMPConfig
 from pulse_tpu_torch.learning.distill import DistillConfig
+from pulse_tpu_torch.learning.pnn import PNN
 from pulse_tpu_torch.learning.ppo import PPOConfig
 from pulse_tpu_torch.motion.motion_lib import build_motion_data, update_hard_sampling_weight
 from pulse_tpu_torch.motion.synthetic import make_synthetic_clips
@@ -100,10 +104,11 @@ def test_main_runs_env_im_in_process(trained):
 
 
 @pytest.mark.parametrize("args", [
-    ["env.task=HumanoidImZ"], ["env.task=HumanoidImMCP"],
+    ["env.task=HumanoidImZ"], ["env.task=HumanoidImMCPDemo"],
     ["env.task=HumanoidSpeedZ"], ["env=amp_getup", "learning=im_amp", "env.shape_variation=true"],
     [*DISTILL, "learning.teacher_composer_checkpoint=x.pth"],
-    ["env.randomize=true"], ["env=im_getup", "env.shape_variation=true"], ["env.control_mode=pd"],
+    ["env=im_mcp", "env.pnn_checkpoint=x.pth"], ["env=im_getup", "env.shape_variation=true"],
+    ["env=im_mcp_getup", "env.pnn_checkpoint=x.pth"],
     ["env.motion_file=x.pkl"],
 ])
 def test_unported_options_raise(args, tmp_path):
@@ -287,3 +292,45 @@ def test_amp_test_true_evaluates_the_ppo_policy(amp_trained, capsys, monkeypatch
     assert "restored" in text and "epoch=" not in text
     res = json.loads(text[text.index("{"):])
     assert len(res["failed_motions"]) == 4 and res["per_motion_steps"] == [29.0] * 4
+
+
+# --------------------------------------------------------------------------- #
+# MCP, domain randomization and the pd / force control modes
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("args, epochs", [
+    (["env=im_mcp"], 2),
+    (["env=im_mcp_getup", "env.num_fall_states=8", "env.fall_settle_steps=2"], 2),
+    (["env=im", "env.randomize=true"], 2),
+    (["env=im", "env.randomize=true", *AMP, "env.shape_resampling_interval=2"], 4),
+    (["env=im", "env.control_mode=pd"], 2),
+    (["env=im", "env.control_mode=force"], 2),
+], ids=["mcp", "mcp_getup", "dr_ppo", "dr_amp", "pd", "force"])
+def test_cli_trains_mcp_dr_and_control_modes(args, epochs, tmp_path, monkeypatch):
+    """Each trains `epochs` epochs in process with finite losses. MCP: the
+    policy's action is the 3 composer weights and the frozen PNN (512-512
+    from seed + PNN_SEED_OFFSET) is bit-unchanged. DR: the env's batched model carries
+    per-env friction multipliers in [0.7, 1.3], and the AMP agent re-draws
+    them before epoch 3 (epoch % 2 == 1 past epoch 1) from the pre-DR
+    model. pd / force: the control mode reaches the env, off the kernels'
+    surface."""
+    redraws = []
+    real = HumanoidImEnv.randomize_physical_props
+    monkeypatch.setattr(HumanoidImEnv, "randomize_physical_props",
+                        lambda self, *a, **k: (redraws.append(1), real(self, *a, **k))[1])
+    res = run.main([*args, f"max_epochs={epochs}", f"output_dir={tmp_path}", "exp_name=x", *TINY])
+    env, ms = res.agent.env, res.metrics
+    assert len(ms) == epochs and all(np.isfinite(m["a_loss"]) and np.isfinite(m["reward_mean"]) for m in ms)
+    if "mcp" in args[0]:
+        assert type(env).__name__ == ("HumanoidImMCPGetupEnv" if "getup" in args[0] else "HumanoidImMCPEnv")
+        assert env.action_dim == 3 and env.pnn.units == (512, 512)
+        fresh = PNN(env.obs_dim, 69, 3, (512, 512), device="cpu", seed=run.PNN_SEED_OFFSET)   # cfg seed 0
+        assert all(torch.equal(a, b) for a, b in zip(env.pnn.state_dict().values(), fresh.state_dict().values()))
+        assert res.train_state.network.mu.out_features == 3
+    if "env.randomize=true" in args:
+        m = env.batched_model.cp_friction[:, 0] / env.model.cp_friction[0]
+        assert ((m >= 0.7) & (m <= 1.3)).all() and m.unique().numel() == 8
+        assert env._prop_rand_base is env.model and env.config.dr.frequency == 600
+        assert len(redraws) == (2 if "learning=im_amp" in args else 1)
+    if "env.control_mode=pd" in args or "env.control_mode=force" in args:
+        assert env.config.control_mode == args[1].split("=")[1] and not env._kernel_surface()
