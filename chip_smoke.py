@@ -150,6 +150,27 @@ Phases, each printed as one JSON line:
                5 mm, force loses more than 5 mm; the root and body height
                changes (pd's too: the reference's explicit PD is unstable),
                ms, device-busy ms and device kernels a step
+  train_speed_z  `python -m pulse_tpu_torch.run env=speed_z
+               learning=pulse_z_task num_envs=3072
+               env.z_checkpoint=<distill's ckpt/>` for 2 epochs: PPO
+               (1024-512) over 32-d latents that the distill phase's frozen
+               PulseVAE decodes (float32), the 1024-512 discriminator; 32
+               K3 launches an epoch and nothing else; the VAE bit-unchanged,
+               the policy and discriminator changed, the task reward in
+               [0, 1], some terminations; K3 on the run's last state against
+               physics_step (<= 1% outlier envs); then test=true on the run's
+               checkpoint: task_eval over one 300-step episode at 3072 envs
+               (300 K3 launches), finite return, length, terminate rate; ms,
+               device-busy ms and device kernels a step, the idle share, the
+               training env steps/s and the decode's ms alone
+  train_reach_z  the same with env=reach_z (R_Hand)
+  z_im_traj    8 policy-acting steps of env=im_z (K1 and K2 8 each) and of
+               env=traj_z (K3 8; obs 378) on the same checkpoint
+  plain_arm    one env=im step with env.use_pallas_physics false (no launch)
+               and true (K1, K2) from one reset: physics within K1's
+               tolerances in all but 1% of the envs, elsewhere the same
+               flags, reward within 1e-4 and obs within 5e-3 (the stepped
+               velocities' tolerance: the obs reads them)
   perturb      HumanoidImPerturbEnv (proj_interval 8, early termination
                off) for 24 policy-acting steps: every projectile relaunched
                exactly where the pre-step progress is 7 mod 8 (some at 7,
@@ -855,7 +876,10 @@ def main() -> int:
         ts = getattr(res.train_state, "ppo", res.train_state)
         pagent = getattr(res.agent, "ppo", res.agent)
         # main's network before training: the same seed and widths
-        fresh = ActorCritic(res.agent.env.obs_dim, res.agent.env.action_dim, device=dev, seed=0).state_dict()
+        units = {t: [m_.out_features for m_ in getattr(ts.network, t) if isinstance(m_, torch.nn.Linear)]
+                 for t in ("actor", "critic")}
+        fresh = ActorCritic(res.agent.env.obs_dim, res.agent.env.action_dim, actor_units=units["actor"],
+                            critic_units=units["critic"], device=dev, seed=0).state_dict()
         changed = [k for k, v in ts.network.state_dict().items() if not torch.equal(v, fresh[k])]
         timed = ms[1:]
         epoch_s = [sum(v for k, v in m.items() if k.endswith("_s")) for m in timed]
@@ -1309,8 +1333,10 @@ def main() -> int:
                          "grace_holds": int(getattr(agent.env, "grace_holds", 0))})
         return hook
 
-    def train_amp(exp: str, env_args: list, want_epoch: dict, epochs: int, on_epoch=None) -> tuple:
-        """`train` with learning=im_amp, then the AMP gates every path shares:
+    def train_amp(exp: str, env_args: list, want_epoch: dict, epochs: int, on_epoch=None,
+                  learning: str = "im_amp") -> tuple:
+        """`train` with learning=im_amp (or another AMP config), then the AMP
+        gates every path shares:
         the discriminator changed, the buffers and amp_rms grown by exactly
         one update an epoch, the recorded AMP window of the last step the
         env's, the mix, the style reward's range and the accuracies; then the
@@ -1324,7 +1350,7 @@ def main() -> int:
             if on_epoch is not None:
                 on_epoch(agent, out)
 
-        res_, counts_, info_ = train(exp, env_args, want_epoch, learning="im_amp", epochs=epochs, on_epoch=hooks)
+        res_, counts_, info_ = train(exp, env_args, want_epoch, learning=learning, epochs=epochs, on_epoch=hooks)
         agent_, ts_ = res_.agent, res_.train_state
         a_, pa_ = ts_.amp, agent_.ppo
         acfg = agent_.amp.config
@@ -1578,6 +1604,146 @@ def main() -> int:
                           "reward_amp": 1}:
         fail(f"train_dr: the noise step's launches {noise_launches}")
     del res, denv_, dst, nxt, clean, k3r_dr, plain_dr, old_dr, fric_rows
+
+    # ---- PULSE stage 3: task policies in the distilled latent space ---------- #
+    # run.main with learning=pulse_z_task (PPO with a 1024-512 policy over
+    # 32-d latents, the 1024-512 discriminator, 0.5/0.5 task/style) on
+    # env=speed_z and env=reach_z, the frozen PulseVAE and obs_rms read from
+    # the distill phase's checkpoint. Each step: the frozen prior and decoder
+    # (float32, autocast off), K3, then the task's reward, self obs, AMP row,
+    # fall check and resets in plain PyTorch. Then test=true on each run's
+    # checkpoint (task_eval at N_ENVS envs over one 300-step episode: 300 K3
+    # launches), and 8 acting steps each of env=im_z (K1 -> K2) and
+    # env=traj_z (K3)
+    from pulse_tpu_torch.env.humanoid_z import ZActionWrapper
+    from pulse_tpu_torch.utils.config import load_config
+
+    z_ckpt = os.path.join(out_root, "distill", "ckpt")
+    z_sd = torch.load(run.latest_checkpoint(z_ckpt), map_location=dev, weights_only=True)["network"]
+    want_z = {"step_reward_amp": 0, "observe": 0, "physics_step": HORIZON, "physics_step_rows": 0, "reward_amp": 0}
+    z_steps = 8
+
+    def decode_ms(zenv, st) -> float:
+        """The frozen decode alone (prior, shift, decoder) at N_ENVS envs."""
+        z_ = torch.rand(N_ENVS, zenv.action_dim, generator=g, device=dev) * 2.0 - 1.0
+        return cuda_ms(lambda: zenv.decode_z(st.obs[:, : zenv.frozen.network.self_obs_dim], z_), 20)
+
+    def train_z(exp: str, env_name: str) -> tuple:
+        """train_amp on a Z task env, the Z gates, then test=true."""
+        z_args = [f"env={env_name}", f"env.z_checkpoint={z_ckpt}"]
+        res_, counts_, info_, rows_ = train_amp(exp, z_args, want_z, TRAIN_EPOCHS, learning="pulse_z_task")
+        zenv, zts = res_.agent.env, res_.train_state.ppo
+        zst = zts.env_state
+        frozen_same = all(torch.equal(v, z_sd[k]) for k, v in zenv.frozen.network.state_dict().items())
+        with torch.no_grad():
+            pd_ = zenv.action_to_pd_target(0.3 * torch.randn(N_ENVS, zenv.env.action_dim, generator=g, device=dev))
+            k3_ = substep_cuda.physics_step_cuda(zenv.model, zst.physics, pd_)
+            plain_ = physics_step(zenv.model, zst.physics, pd_)
+            dec_ms = decode_ms(zenv, zst)
+        k3_cmp = {f: compare(getattr(k3_, f), getattr(plain_, f), K1_TOL[f], N_ENVS) for f in PHYS_FIELDS}
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0_ = time.perf_counter()
+        ev = run.main([*z_args, "learning=pulse_z_task", f"num_envs={N_ENVS}", "test=true", "epoch=-1",
+                       "device=cuda", f"output_dir={out_root}", f"exp_name={exp}"])
+        torch.cuda.synchronize()
+        ev_s, ev_launches = time.perf_counter() - t0_, dict(_build.launches)
+        ev_steps = int(zenv.config.episode_length)
+        info_.update(per_step(info_), device_kernels_per_step=info_["rollout_device_kernels"] / HORIZON,
+                     env=type(zenv.env).__name__, action_dim=zenv.action_dim,
+                     policy_units=[m_.out_features for m_ in zts.network.actor if isinstance(m_, torch.nn.Linear)],
+                     frozen_vae_unchanged=frozen_same, decode_ms=dec_ms,
+                     terminations=[r["terminations"] for r in rows_], K3_vs_plain_last_state=k3_cmp,
+                     task_eval={"envs": N_ENVS, "steps": ev_steps, "seconds": ev_s, "ms_per_step": 1e3 * ev_s / ev_steps,
+                                "launches": ev_launches, **dataclasses.asdict(ev)})
+        emit(info_)
+        want_ev = {k: (ev_steps if k == "physics_step" else 0) for k in want_z}
+        if (counts_ != {k: TRAIN_EPOCHS * n for k, n in want_z.items()} or not isinstance(zenv, ZActionWrapper)
+                or zenv.action_dim != 32 or zts.network.mu.out_features != 32):
+            fail(f"{exp}: launches {counts_}, action_dim {zenv.action_dim}")
+        if not frozen_same:
+            fail(f"{exp}: the frozen PulseVAE changed in training")
+        if not sum(info_["terminations"]):
+            fail(f"{exp}: no termination in {TRAIN_EPOCHS} epochs")
+        if any(c["outlier_envs"] > OUTLIER_FRAC * N_ENVS for c in k3_cmp.values()):
+            fail(f"{exp}: K3 on the run's last state against physics_step: {k3_cmp}")
+        if ev_launches != want_ev or not all(math.isfinite(getattr(ev, k)) for k in
+                                             ("return_mean", "length_mean", "terminate_rate", "reward_per_step")):
+            fail(f"{exp}: test=true launches {ev_launches} (expected {want_ev}), result {ev}")
+        return counts_, ev_launches
+
+    speedz_launches, speedz_eval_launches = train_z("train_speed_z", "speed_z")
+    reachz_launches, reachz_eval_launches = train_z("train_reach_z", "reach_z")
+
+    zi = {"phase": "z_im_traj", "card": card, "envs": N_ENVS, "steps": z_steps}
+    for env_name, want_ in (("im_z", dict(want_z, step_reward_amp=z_steps, observe=z_steps, physics_step=0)),
+                            ("traj_z", dict(want_z, physics_step=z_steps))):
+        zcfg = load_config([f"env={env_name}", "learning=pulse_z_task", f"env.z_checkpoint={z_ckpt}",
+                            f"num_envs={N_ENVS}", "device=cuda"])
+        zspec, zmodel = run.build_model_from_cfg(zcfg, dev)
+        zenv = run.build_env_from_cfg(zcfg, zmodel, run.build_motion_from_cfg(zcfg, zspec, dev), dev)
+        znet = ActorCritic(zenv.obs_dim, zenv.action_dim, actor_units=(1024, 512), critic_units=(1024, 512),
+                           device=dev, seed=0)
+        zrms = RunningMeanStd.create(zenv.obs_dim, device=dev)
+        with torch.no_grad():
+            zst = zenv.reset(N_ENVS)
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            for _ in range(z_steps):
+                act_z = torch.clamp(policy_step(znet, zst.obs, g, obs_rms=zrms)[0], -1.0, 1.0)
+                zst = zenv.step(zst, act_z)
+            torch.cuda.synchronize()
+            z_ms = 1e3 * (time.perf_counter() - t0) / z_steps
+            z_launches = dict(_build.launches)
+            z_busy, z_kern = device_busy(lambda: zenv.step(zst, act_z))
+            z_dec = decode_ms(zenv, zst)
+        zi[env_name] = {"env": type(zenv.env).__name__, "obs_dim": zenv.obs_dim, "action_dim": int(act_z.shape[1]),
+                        "launches": z_launches, "ms_per_step": z_ms, "device_busy_ms_per_step": z_busy,
+                        "device_kernels_per_step": z_kern, "decode_ms": z_dec,
+                        "obs_finite": bool(torch.isfinite(zst.obs).all()), "resets": int(zst.done.sum())}
+        if (z_launches != want_ or act_z.shape[1] != 32 or zenv.obs_dim != {"im_z": 934, "traj_z": 378}[env_name]
+                or not zi[env_name]["obs_finite"]):
+            fail(f"z_im_traj {env_name}: {zi[env_name]} (launches expected {want_})")
+        del zenv, zst, znet
+    emit(zi)
+    im_z_launches, traj_z_launches = zi["im_z"]["launches"], zi["traj_z"]["launches"]
+
+    # ---- env.use_pallas_physics=false: the plain versions in the kernels' place #
+    # one env=im step from the same reset state (one generator seed) with the
+    # key false (no launch) and true (K1, K2): the physics within K1_TOL in
+    # all but 1% of the envs, and in the others the flags alike, the reward
+    # within K1's 1e-4 and the observation within the stepped velocities'
+    # 5e-3 (it reads them: K2's 1e-3 holds for one input state, not for two
+    # states 5e-3 apart)
+    pa = {}
+    with torch.no_grad():
+        for kernels_on in (False, True):
+            aenv_ = HumanoidImEnv(model, motion, EnvConfig(use_pallas_physics=kernels_on), device=dev, seed=0)
+            ast_ = aenv_.reset(N_ENVS)
+            act_a = 0.5 * torch.randn(N_ENVS, 69, generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            nxt_ = aenv_.step(ast_, act_a)
+            torch.cuda.synchronize()
+            pa[kernels_on] = (nxt_, dict(_build.launches), 1e3 * (time.perf_counter() - t0))
+    (plain_st, plain_l, plain_ms_), (kern_st, kern_l, kern_ms_) = pa[False], pa[True]
+    bad_ = torch.zeros(N_ENVS, dtype=torch.bool, device=dev)
+    for f in PHYS_FIELDS:
+        bad_ |= (getattr(plain_st.physics, f) - getattr(kern_st.physics, f)).abs().reshape(N_ENVS, -1).amax(1) > K1_TOL[f]
+    ok_ = ~bad_
+    pa_info = {"phase": "plain_arm", "card": card, "envs": N_ENVS, "launches_plain": plain_l, "launches_kernels": kern_l,
+               "step_ms_plain": plain_ms_, "step_ms_kernels": kern_ms_, "physics_outlier_envs": int(bad_.sum()),
+               "flags_differ": int((plain_st.done[ok_] != kern_st.done[ok_]).sum()),
+               "reward_max_abs": float((plain_st.reward - kern_st.reward)[ok_].abs().max()),
+               "obs_max_abs": float((plain_st.obs - kern_st.obs)[ok_].abs().max())}
+    emit(pa_info)
+    if (any(plain_l.values()) or kern_l["step_reward_amp"] != 1 or kern_l["observe"] != 1
+            or pa_info["physics_outlier_envs"] > OUTLIER_FRAC * N_ENVS or pa_info["flags_differ"]
+            or pa_info["reward_max_abs"] > K1_TOL["reward"] or pa_info["obs_max_abs"] > K1_TOL["body_vel"]):
+        fail(f"plain_arm: {pa_info}")
+    del pa, plain_st, kern_st, aenv_, ast_, nxt_
     shutil.rmtree(out_root, ignore_errors=True)
 
     # ---- control modes: isaac_pd, pd and force on the general step ------------ #
@@ -1838,29 +2004,37 @@ def main() -> int:
     emit({"kernels": [
         {"name": "step_reward_amp", "route": "cuda", "source": src + "step_reward_amp.cu",
          "replaces": "pulse_tpu/env/pallas_obs.py:376",
-         "launches": sum(n["step_reward_amp"] for n in (im_launches, amp_im_launches, mcp_launches)),
+         "launches": sum(n["step_reward_amp"] for n in (im_launches, amp_im_launches, mcp_launches, im_z_launches)),
          "launches_by_phase": {"train_im": im_launches["step_reward_amp"],
                                "train_amp_im": amp_im_launches["step_reward_amp"],
-                               "train_mcp": mcp_launches["step_reward_amp"]},
+                               "train_mcp": mcp_launches["step_reward_amp"],
+                               "z_im_traj": im_z_launches["step_reward_amp"]},
          "max_abs_err": max_err["step_reward_amp"], "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": None},
         {"name": "observe", "route": "cuda", "source": src + "observe.cuh",
          "replaces": "pulse_tpu/env/pallas_obs.py:558",
          "launches": sum(n["observe"] for n in (im_launches, amp_im_launches, mcp_launches, mcp_getup_launches,
-                                                 dr_launches)),
+                                                 dr_launches, im_z_launches)),
          "launches_by_phase": {"train_im": im_launches["observe"], "train_amp_im": amp_im_launches["observe"],
                                "train_mcp": mcp_launches["observe"], "train_mcp_getup": mcp_getup_launches["observe"],
-                               "train_dr": dr_launches["observe"]},
+                               "train_dr": dr_launches["observe"], "z_im_traj": im_z_launches["observe"]},
          "max_abs_err": max_err["observe"], "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": None},
         {"name": "physics_step", "route": "cuda", "source": src + "physics_step.cu",
          "replaces": "pulse_tpu/physics/substep_pallas.py:847",
          "launches": sum(n["physics_step"] for n in (getup_launches, vr_launches, amp_launches,
-                                                     amp_getup_launches, mcp_getup_launches)),
+                                                     amp_getup_launches, mcp_getup_launches, speedz_launches,
+                                                     speedz_eval_launches, reachz_launches, reachz_eval_launches,
+                                                     traj_z_launches)),
          "launches_by_phase": {"train_getup": getup_launches["physics_step"],
                                "train_vr": vr_launches["physics_step"], "train_amp": amp_launches["physics_step"],
                                "train_amp_getup": amp_getup_launches["physics_step"],
-                               "train_mcp_getup": mcp_getup_launches["physics_step"]},
+                               "train_mcp_getup": mcp_getup_launches["physics_step"],
+                               "train_speed_z": speedz_launches["physics_step"],
+                               "train_speed_z_test_true": speedz_eval_launches["physics_step"],
+                               "train_reach_z": reachz_launches["physics_step"],
+                               "train_reach_z_test_true": reachz_eval_launches["physics_step"],
+                               "z_im_traj": traj_z_launches["physics_step"]},
          "max_abs_err": max_err["physics_step"], "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
          "bound_by": k3_by, "library_ms": None},
         {"name": "physics_step_rows", "route": "cuda", "source": src + "physics_step.cu",

@@ -47,7 +47,9 @@ and DR's observation noise, and last obs noise and occlusion. With shape
 channels, each
 env's shape row (gender, betas, limb weights; zeros until shapes are
 enabled) follows the self obs and is appended to every AMP row. Random
-draws come from the env's `torch.Generator`.
+draws come from the env's `torch.Generator`. With `use_pallas_physics`
+false each kernel's plain version runs in its place, also on the card (the
+JAX package's XLA arm).
 """
 
 from __future__ import annotations
@@ -66,7 +68,7 @@ from pulse_tpu_torch.motion.motion_lib import MotionData, get_motion_state, samp
 from pulse_tpu_torch.ops import quat as q
 from pulse_tpu_torch.physics import shape_variation, substep_cuda
 from pulse_tpu_torch.physics.model import Model, batched_model_from_numpy
-from pulse_tpu_torch.physics.step import physics_step_pd_explicit, physics_step_torque
+from pulse_tpu_torch.physics.step import physics_step, physics_step_pd_explicit, physics_step_torque
 from pulse_tpu_torch.physics.state import (
     PhysicsState, dof_pos_from_state, dof_vel_from_state, physics_state_from_numpy, state_from_kinematics,
     state_from_motion_ref,
@@ -87,6 +89,7 @@ class EnvConfig:
     """The knobs of env_im that shape the step (defaults = configs/env/im.yaml)."""
 
     control_mode: str = "isaac_pd"    # isaac_pd | pd (explicit PD) | force (raw torques)
+    use_pallas_physics: bool = True    # the CUDA kernels; False: their plain versions (the JAX package's XLA arm)
     power_scale: float = 1.0
     motor_effort: float = 500.0        # force: tau = action * motor_effort * power_scale
     termination_distance: float = 0.25
@@ -192,10 +195,12 @@ def env_state_from_numpy(d: dict, device=None) -> EnvState:
 
 
 def _select(mask: torch.Tensor, a, b):
-    """Field-wise where(mask, a, b) over (nested) state dataclasses; a field
-    that is None in both stays None."""
+    """Field-wise where(mask, a, b) over (nested) state dataclasses and dicts
+    of tensors; a field that is None in both stays None."""
     if a is None:
         return None
+    if isinstance(a, dict):
+        return {k: _select(mask, a[k], b[k]) for k in a}
     if dataclasses.is_dataclass(a):
         return type(a)(**{f.name: _select(mask, getattr(a, f.name), getattr(b, f.name)) for f in dataclasses.fields(a)})
     return torch.where(mask.reshape(mask.shape + (1,) * (a.ndim - 1)), a, b)
@@ -216,7 +221,7 @@ class HumanoidImEnv:
         self._check_config()
         if cfg.has_shape_obs_disc and not cfg.has_shape_obs:
             raise ValueError("has_shape_obs_disc requires has_shape_obs")
-        if self.device.type == "cuda" and not substep_cuda.supported(model):
+        if self.device.type == "cuda" and cfg.use_pallas_physics and not substep_cuda.supported(model):
             raise NotImplementedError("model outside the CUDA kernel's surface")
         self.seed = seed
         self.generator = torch.Generator(device=self.device)
@@ -454,7 +459,8 @@ class HumanoidImEnv:
         t_next = self._motion_time(state.motion_id, state.start_time, state.progress) + self.model.config.control_dt
         ref = get_motion_state(self.motion, state.motion_id, t_next,
                                self._cycle_offset(state.motion_id, state.start_time, state.progress))
-        return cuda_obs.observe(self.consts, state.physics, ref, self._shape_obs(state.motion_id.shape[0]))
+        observe = cuda_obs.observe if self.config.use_pallas_physics else cuda_obs.observe_plain
+        return observe(self.consts, state.physics, ref, self._shape_obs(state.motion_id.shape[0]))
 
     def _self_obs_single(self, physics: PhysicsState) -> torch.Tensor:
         """One frame of self obs [B, self_obs_dim_single]: v1's, then (v3)
@@ -605,6 +611,8 @@ class HumanoidImEnv:
             return physics_step_torque(m, physics, actions * (cfg.motor_effort * cfg.power_scale))
         if cfg.control_mode == "pd":
             return physics_step_pd_explicit(m, physics, pd_target)
+        if not cfg.use_pallas_physics:
+            return physics_step(m, physics, pd_target)
         rows = None if self.batched_model is None else self._model_rows(pd_target.shape[0])
         return substep_cuda.physics_step_cuda(self.model, physics, pd_target, model_rows=rows)
 
@@ -620,11 +628,14 @@ class HumanoidImEnv:
         progress = state.progress + 1
         t, ref = self._post_step_ref(state, progress)
         actions, pd_target = self._motor_pd_target(state, actions)
+        kernels_on = self.config.use_pallas_physics
         if self.batched_model is None and self._fused_step_ok():
-            physics, *terms = cuda_obs.step_reward_amp(self.model, self.consts, state.physics, pd_target, ref)
+            step_reward_amp = cuda_obs.step_reward_amp if kernels_on else cuda_obs.step_reward_amp_plain
+            physics, *terms = step_reward_amp(self.model, self.consts, state.physics, pd_target, ref)
         else:
             physics = self._physics_step(state.physics, pd_target, actions)
-            terms = cuda_obs.reward_amp(self.consts, physics, ref, *self._disc_parts(actions.shape[0]))
+            reward_amp = cuda_obs.reward_amp if kernels_on else cuda_obs.reward_amp_plain
+            terms = reward_amp(self.consts, physics, ref, *self._disc_parts(actions.shape[0]))
         return self._finish_step(state, progress, t, ref, physics, pd_target, *terms, observe=self._observe)
 
     def _step_general(self, state: EnvState, actions: torch.Tensor) -> EnvState:

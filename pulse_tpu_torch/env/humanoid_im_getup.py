@@ -9,7 +9,8 @@ such episodes, and a `recovery_episode_prob` share of the others, get
 The fall states are made once, when the env is built: random poses dropped
 from `fall_drop_height` and run for `fall_settle_steps` control steps as a
 ragdoll (gains off, light damping). On the card those steps are K3
-launches at B = `num_fall_states`. Because this env overrides termination
+launches at B = `num_fall_states` (plain steps with `use_pallas_physics`
+false). Because this env overrides termination
 and reset, its step runs K3 → RA instead of K1 (`HumanoidImEnv.step`).
 """
 
@@ -23,6 +24,7 @@ from pulse_tpu_torch.env.humanoid_im import EnvConfig, EnvState, HumanoidImEnv, 
 from pulse_tpu_torch.ops import quat as q
 from pulse_tpu_torch.physics import substep_cuda
 from pulse_tpu_torch.physics.state import PhysicsState, refresh_kinematics, state_from_kinematics
+from pulse_tpu_torch.physics.step import physics_step
 
 FALL_STATE_SEED = 42   # the JAX package draws its fall poses from PRNGKey(42)
 
@@ -86,8 +88,9 @@ class HumanoidImGetupEnv(HumanoidImEnv):
         st = fall_drop_start(m, cfg.num_fall_states, cfg.fall_drop_height, self.device)
         rag = ragdoll(m)
         pd = torch.zeros(cfg.num_fall_states, m.num_dof, device=self.device)
+        step = substep_cuda.physics_step_cuda if cfg.use_pallas_physics else physics_step
         for _ in range(cfg.fall_settle_steps):
-            st = substep_cuda.physics_step_cuda(rag, st, pd)
+            st = step(rag, st, pd)
         st = st.replace(root_vel6=torch.zeros_like(st.root_vel6), joint_omega=torch.zeros_like(st.joint_omega))
         return refresh_kinematics(m, st)
 

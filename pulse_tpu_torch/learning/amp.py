@@ -154,12 +154,15 @@ class AMPModule:
         [limb weights]?) from the store's per-clip shape params; None when
         the AMP rows carry no shape channels."""
         cfg, m = self.env.config, self.env.motion
-        if not (cfg.has_shape_obs_disc or cfg.has_limb_weight_obs):
+        # a task env's config has none of the flags
+        shape_disc, limb, shape = (getattr(cfg, k, False) for k in ("has_shape_obs_disc", "has_limb_weight_obs",
+                                                                     "has_shape_obs"))
+        if not (shape_disc or limb):
             return None
         parts = []
-        if cfg.has_shape_obs:
+        if shape:
             parts.append(m.shape_params[flat_ids])
-        if cfg.has_limb_weight_obs:
+        if limb:
             parts.append(m.limb_weights[flat_ids])
         return torch.cat(parts, dim=-1)
 

@@ -1,4 +1,5 @@
-"""CLI entry point: config-driven PPO training and PULSE distillation.
+"""CLI entry point: config-driven PPO / AMP training, PULSE distillation and
+downstream tasks in PULSE's latent space.
 
 Counterpart of `pulse_tpu/run.py`:
 
@@ -9,6 +10,8 @@ Counterpart of `pulse_tpu/run.py`:
     python -m pulse_tpu_torch.run env=im learning=im_amp env.randomize=true num_envs=3072
     python -m pulse_tpu_torch.run env=im_vae learning=im_z_fit num_envs=3072 \
         learning.teacher_checkpoint=output/<exp>/ckpt
+    python -m pulse_tpu_torch.run env=speed_z learning=pulse_z_task num_envs=3072 \
+        env.z_checkpoint=output/<distill exp>/ckpt
 
 composes the YAML config tree (`utils/config.py`), builds the model, the
 synthetic motion clips, the env and the agent (PPO, PPO with the AMP
@@ -18,11 +21,14 @@ each epoch where it has one) with JSONL metric lines every
 `log_frequency` epochs and `torch.save` checkpoints of the train state
 every `save_frequency` epochs and at the end.
 With `epoch` not 0 the latest checkpoint of the experiment is restored.
-`device=cpu` runs the kernels' plain PyTorch versions on the CPU.
+`device=cpu` runs the kernels' plain PyTorch versions on the CPU, and
+`env.use_pallas_physics=false` runs them on the card.
 
 `test=true` evaluates the (restored) policy instead of training: `im_eval`
-over every clip with early termination off, printed as JSON. With
-`eval_frequency=N` the same eval runs every N epochs of training, and the
+over every clip with early termination off on an imitation env, the
+episode returns of `task_eval` on a task env, printed as JSON. With
+`eval_frequency=N` im_eval runs every N epochs of training on an
+imitation env, and the
 clips it failed become the only ones the env's resets sample (PMCP
 hard-negative mining); the weights are not checkpointed, so a resumed run
 starts uniform.
@@ -39,7 +45,12 @@ VR three-point tracking), the isaac_pd, pd and force control modes
 (`env.control_mode`), domain randomization (`env.randomize=true` with
 `env.randomization_params`), and HumanoidIm with per-env body
 shapes (`env=im_shape`: isotropic scales, or SMPL-beta skeletons with
-`env.smpl_model_path`). Other tasks, agents and options raise
+`env.smpl_model_path`); PULSE's downstream tasks HumanoidSpeed,
+HumanoidReach and HumanoidTraj (`env=speed`, `env=reach`, `env=traj`),
+and with latent actions decoded by a frozen PulseVAE their Z names and
+HumanoidImZ (`env=speed_z`, ..., `env=im_z`; `env.z_checkpoint` one of the
+port's distillation runs, else a fresh PulseVAE from seed 0), trained
+with `learning=pulse_z_task`. Other tasks, agents and options raise
 NotImplementedError naming the ROADMAP item that ports them. The distill agent has no evaluator: `test=true` and
 `eval_frequency` raise with it.
 """
@@ -59,13 +70,14 @@ import torch
 # task -> the ROADMAP item that ports it
 _UNPORTED_TASKS = {
     "HumanoidImMCPDemo": 15, "HumanoidImDemo": 15,
-    "HumanoidImZ": 11,
-    "HumanoidSpeed": 11, "HumanoidReach": 11, "HumanoidTraj": 11, "HumanoidStrike": 11,
-    "HumanoidPedestrianTerrain": 11,
+    "HumanoidStrike": "11b", "HumanoidStrikeZ": "11b",
+    "HumanoidPedestrianTerrain": "11b", "HumanoidPedestrianTerrainZ": "11b",
 }
+# the downstream task envs, and their latent-action (Z) names
+_TASK_ENVS = ("HumanoidSpeed", "HumanoidReach", "HumanoidTraj")
 
 
-def _unported(what: str, item: int) -> NotImplementedError:
+def _unported(what: str, item) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, item {item})")
 
 
@@ -118,11 +130,14 @@ def build_env_from_cfg(cfg, model, motion, device):
 
     e = cfg["env"]
     task = e["task"]
-    # the distillation tasks are the imitation envs under another name
+    if task in _UNPORTED_TASKS:
+        raise _unported(f"task {task}", _UNPORTED_TASKS[task])
+    if task.removesuffix("Z") in _TASK_ENVS:
+        return build_task_env_from_cfg(cfg, model, motion, device)
+    # the distillation tasks are the imitation envs under another name;
+    # HumanoidImZ is HumanoidIm with latent actions
     getup = task in ("HumanoidImGetup", "HumanoidImDistillGetup", "HumanoidAMPGetup", "HumanoidImMCPGetup")
-    if not getup and task not in ("HumanoidIm", "HumanoidImDistill", "HumanoidAMP", "HumanoidImMCP"):
-        if task in _UNPORTED_TASKS or task.endswith("Z"):
-            raise _unported(f"task {task}", _UNPORTED_TASKS.get(task, 11))
+    if not getup and task not in ("HumanoidIm", "HumanoidImDistill", "HumanoidAMP", "HumanoidImMCP", "HumanoidImZ"):
         raise ValueError(f"unknown task {task!r}")
     shape_variation = bool(e.get("shape_variation", False))
     if shape_variation and getup:
@@ -142,6 +157,7 @@ def build_env_from_cfg(cfg, model, motion, device):
         power_coefficient=float(e["power_coefficient"]),
         cycle_motion=bool(e["cycle_motion"]),
         control_mode=str(e.get("control_mode", "isaac_pd")),
+        use_pallas_physics=bool(e.get("use_pallas_physics", True)),
         power_scale=float(e.get("power_scale", 1.0)),
         obs_v=int(e.get("obs_v", 6)),
         self_obs_v=int(e.get("self_obs_v", 1)),
@@ -184,7 +200,8 @@ def build_env_from_cfg(cfg, model, motion, device):
             env.enable_shape_variation(int(cfg["num_envs"]), smpl_model=smpl,
                                        beta_std=float(e.get("shape_beta_std", 1.0)),
                                        generator=torch.Generator(device=env.device).manual_seed(seed + 7))
-        return _randomize_props(cfg, env)
+        env = _randomize_props(cfg, env)
+        return wrap_env_z(cfg, env) if task == "HumanoidImZ" else env
     gc = GetupConfig(
         recovery_steps=int(e.get("recovery_steps", 90)),
         recovery_episode_prob=float(e.get("recovery_episode_prob", 0.3)),
@@ -212,6 +229,70 @@ def _randomize_props(cfg, env):
     return env
 
 
+def build_task_env_from_cfg(cfg, model, motion, device):
+    """A speed, reach or traj env (`env=speed` ...), wrapped with the frozen
+    PULSE decoder for the Z names (`env=speed_z` ...)."""
+    from pulse_tpu_torch.env.humanoid_task import HumanoidReachEnv, HumanoidSpeedEnv, HumanoidTrajEnv, TaskConfig
+
+    e = cfg["env"]
+    task = e["task"]
+    kw = dict(episode_length=int(e["episode_length"]), termination_height=float(e.get("termination_height", 0.15)),
+              enable_early_termination=bool(e["enable_early_termination"]))
+    base = task.removesuffix("Z")
+    if base == "HumanoidSpeed":
+        kw.update(tar_speed_min=float(e.get("tar_speed_min", 0.0)), tar_speed_max=float(e.get("tar_speed_max", 5.0)))
+    elif base == "HumanoidReach":
+        kw.update(reach_body=str(e.get("reach_body", "R_Hand")))
+    cls = {"HumanoidSpeed": HumanoidSpeedEnv, "HumanoidReach": HumanoidReachEnv, "HumanoidTraj": HumanoidTrajEnv}[base]
+    env = cls(model, motion, TaskConfig(**kw), device=device, seed=int(cfg["seed"]))
+    return wrap_env_z(cfg, env) if task.endswith("Z") else env
+
+
+def _pulse_vae_from_state_dict(sd: dict, device):
+    """A PulseVAE at the widths of one of the port's checkpoints' state
+    dicts, its weights loaded."""
+    from pulse_tpu_torch.learning.networks import PulseVAE
+
+    def units(prefix):   # the Linear layers of an MLP tower, in order
+        return [w.shape[0] for k, w in sd.items()
+                if k.startswith(prefix + ".") and k.endswith(".weight") and k.count(".") == prefix.count(".") + 2]
+
+    net = PulseVAE(sd["encoder.trunk.0.weight"].shape[1], sd["decoder.out.weight"].shape[0],
+                   latent_dim=sd["encoder.z_mu.weight"].shape[0], self_obs_dim=sd["prior.trunk.0.weight"].shape[1],
+                   encoder_units=units("encoder.trunk"), prior_units=units("prior.trunk"),
+                   decoder_units=units("decoder.trunk"), critic_units=units("critic"), device=device)
+    net.load_state_dict(sd)
+    return net
+
+
+def wrap_env_z(cfg, env):
+    """Wrap an env with the frozen PULSE decoder (PHC's HumanoidZ mixin).
+    `env.z_checkpoint` is one of the port's distillation runs: its `ckpt/`
+    directory, whose latest `epoch_N.pt` is read, or one such file; the
+    PulseVAE takes the checkpoint's widths (its obs width is the
+    distillation env's) and its `obs_rms`. Without a checkpoint a fresh
+    PulseVAE from seed 0 and unit stats stand in, as in the JAX package. A
+    reference `.pth` raises."""
+    from pulse_tpu_torch.env.humanoid_z import FrozenZModel, ZActionWrapper
+    from pulse_tpu_torch.learning.networks import PulseVAE
+    from pulse_tpu_torch.learning.running_norm import RunningMeanStd
+
+    e = cfg["env"]
+    ckpt = str(e.get("z_checkpoint", "") or "")
+    if ckpt.endswith(".pth"):
+        raise _unported("env.z_checkpoint of a reference .pth (the .pth importers)", "11b")
+    if ckpt:
+        path, ck = _load_run_checkpoint(ckpt, env.device)
+        net = _pulse_vae_from_state_dict(ck["network"], env.device)
+        obs_rms = RunningMeanStd(**ck["obs_rms"])
+        print(f"frozen z model restored from {path}")
+    else:
+        net = PulseVAE(env.obs_dim, env.action_dim, latent_dim=int(e.get("embedding_size", 32)),
+                       self_obs_dim=env.self_obs_dim, device=env.device, seed=0)
+        obs_rms = RunningMeanStd.create(env.obs_dim, device=env.device)
+    return ZActionWrapper(env, FrozenZModel(net, obs_rms))
+
+
 def build_pnn_from_cfg(cfg, model, motion, env_config, device):
     """The frozen PNN primitives of the MCP envs: a fresh
     PNN(obs -> 69 dof, `env.num_prim` columns of `learning.pnn_units`,
@@ -222,7 +303,7 @@ def build_pnn_from_cfg(cfg, model, motion, env_config, device):
 
     e, l = cfg["env"], cfg["learning"]
     if e.get("pnn_checkpoint", "") or l.get("teacher_pnn_checkpoint", ""):
-        raise _unported("env.pnn_checkpoint (the .pth PNN importer)", 11)
+        raise _unported("env.pnn_checkpoint (the .pth PNN importer)", "11b")
     probe = HumanoidImEnv(model, motion, env_config, device=device)
     return PNN(probe.obs_dim, probe.action_dim, int(e.get("num_prim", 3)), tuple(l.get("pnn_units", (512, 512))),
                device=device, seed=int(cfg["seed"]) + PNN_SEED_OFFSET)
@@ -331,13 +412,10 @@ def build_teacher_from_cfg(cfg, env) -> "DeterministicPolicy":
     l = cfg["learning"]
     for key in ("teacher_pnn_checkpoint", "teacher_composer_checkpoint"):
         if l.get(key, ""):
-            raise _unported(f"learning.{key} (PNN and composer teachers from .pth checkpoints)", 11)
+            raise _unported(f"learning.{key} (PNN and composer teachers from .pth checkpoints)", "11b")
     ckpt = str(l.get("teacher_checkpoint", "") or "")
     if ckpt:
-        path = latest_checkpoint(ckpt) if os.path.isdir(ckpt) else ckpt
-        if path is None:
-            raise FileNotFoundError(f"no epoch_N.pt checkpoint in {ckpt}")
-        ck = torch.load(path, map_location=env.device, weights_only=True)
+        path, ck = _load_run_checkpoint(ckpt, env.device)
         sd = ck["network"]
         units = {tower: [w.shape[0] for k, w in sd.items() if k.startswith(tower + ".") and k.endswith(".weight")]
                  for tower in ("actor", "critic")}
@@ -385,6 +463,15 @@ def save_checkpoint(ckpt_dir: str, epoch: int, ts) -> str:
                            for k, b in (("demo_buffer", a.demo_buffer), ("replay_buffer", a.replay_buffer))}}
     torch.save(state, path)
     return path
+
+
+def _load_run_checkpoint(ckpt: str, device) -> tuple[str, dict]:
+    """(path, contents) of one of the port's checkpoints: the latest
+    `epoch_N.pt` of a run's `ckpt/` directory, or the file itself."""
+    path = latest_checkpoint(ckpt) if os.path.isdir(ckpt) else ckpt
+    if path is None:
+        raise FileNotFoundError(f"no epoch_N.pt checkpoint in {ckpt}")
+    return path, torch.load(path, map_location=device, weights_only=True)
 
 
 def latest_checkpoint(ckpt_dir: str) -> str | None:
@@ -436,6 +523,8 @@ def main(argv=None):
         # (its policy calls PulseVAE without z_noise and unpacks its dict)
         raise NotImplementedError("test=true and eval_frequency evaluate a PPO policy; the distill agent has no "
                                   "evaluator")
+    if cfg.get("use_wandb", False):
+        raise ValueError("use_wandb=true: the port logs metrics to metrics.jsonl only (no wandb sink)")
     device = resolve_device(cfg["device"])
 
     out_dir = os.path.join(cfg["output_dir"], cfg["exp_name"])
@@ -486,7 +575,7 @@ def main(argv=None):
         # eval feedback, im_amp.py:136-242): the new weights are written
         # into the motion store the env's resets sample from
         ef = int(cfg.get("eval_frequency", 0))
-        if ef > 0 and epoch > epoch0 and epoch % ef == 0:
+        if ef > 0 and epoch > epoch0 and epoch % ef == 0 and hasattr(env, "reset_to"):
             from pulse_tpu_torch.motion.motion_lib import update_hard_sampling_weight
 
             result = run_eval(cfg, env, ts)
@@ -517,14 +606,19 @@ def _policy_fn(ts) -> DeterministicPolicy:
 
 
 def run_eval(cfg, env, ts):
-    """im_eval of the train state's policy over every clip (success rate and
-    MPJPE, ≙ im_amp_players.py), `num_envs` clips a batch, printed as JSON.
-    Early termination is switched off, so that mid-clip auto-resets do not
-    pollute the accumulation (failure is latched separately)."""
-    from pulse_tpu_torch.eval import im_eval
+    """`test=true`. An imitation env (one with `reset_to`, also Z-wrapped):
+    im_eval of the train state's policy over every clip (success rate and
+    MPJPE, ≙ im_amp_players.py), `num_envs` clips a batch, with early
+    termination switched off, so that mid-clip auto-resets do not pollute
+    the accumulation (failure is latched separately). A task env:
+    task_eval's episode returns over one episode length at `num_envs` envs.
+    The result is printed as JSON."""
+    from pulse_tpu_torch.eval import im_eval, task_eval
 
     if not hasattr(env, "reset_to"):
-        raise _unported("the episode-return eval of task envs (eval/task_eval.py)", 11)
+        result = task_eval(env, _policy_fn(ts), batch_size=int(cfg["num_envs"]))
+        print(json.dumps(dataclasses.asdict(result), indent=2))
+        return result
     if env.config.enable_early_termination:
         env = env.with_config(dataclasses.replace(env.config, enable_early_termination=False))
     result = im_eval(env, _policy_fn(ts), batch_size=int(cfg["num_envs"]))

@@ -18,7 +18,8 @@ hooks) against the JAX package's on the CPU, the JAX draws fed to the port.
     JAX step's draws (action noise, refreshed correlated draws, obs noise)
     fed to the port. The JAX step runs in one jit. Tolerances: the held
     draws and DR steps exactly; the physics as chip_smoke.py's K1_TOL; obs
-    and reward 1e-3, as they read the stepped velocities, whose float
+    3e-4 and reward 3.5e-4, about twice their measured maxima of 1.53e-4
+    and 1.68e-4, as they read the stepped velocities, whose float
     rounding reaches 1e-4 here (a body's angular velocity in env 1; its
     positions agree to 3e-7), while the noise is 4e-3 to 2e-2 wide in
     envs 1-3 (none in env 0, at schedule step 0).
@@ -223,8 +224,9 @@ def test_dr_step_matches_jax(stepped):
         np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(want, f)), err_msg=f)
         np.testing.assert_array_equal(getattr(got, f).numpy()[refresh], draws[f[3:]].numpy()[refresh])
         np.testing.assert_array_equal(getattr(got, f).numpy()[~refresh], d[f][~refresh])
-    np.testing.assert_allclose(got.obs.numpy(), np.asarray(want.obs), atol=1e-3, rtol=0)
-    np.testing.assert_allclose(got.reward.numpy(), np.asarray(want.reward), atol=1e-3, rtol=0)
+    # about twice the measured maxima: obs 1.53e-4, reward 1.68e-4
+    np.testing.assert_allclose(got.obs.numpy(), np.asarray(want.obs), atol=3e-4, rtol=0)
+    np.testing.assert_allclose(got.reward.numpy(), np.asarray(want.reward), atol=3.5e-4, rtol=0)
     for f, tol in STATE_TOL.items():
         np.testing.assert_allclose(getattr(got.physics, f).numpy(), np.asarray(getattr(want.physics, f)), atol=tol,
                                    rtol=0, err_msg=f)

@@ -13,9 +13,10 @@ against the JAX package's on the CPU.
     from flax, composer weights in [-1, 1], gate_temp 2; the port's plain
     versions of its kernel path (K1 -> K2, and K3 -> RA -> K2 on the getup
     env). No env resets. Tolerances: flags and progress exactly; the
-    blended motor action 1e-5; obs and reward 1e-3 (they read the stepped
-    velocities' float rounding, 1e-4, as in
-    tests/test_torch_domain_rand.py); the physics as chip_smoke.py's
+    blended motor action 1e-5; obs 4e-4 and reward 8e-4, about twice
+    their measured maxima of 2.04e-4 and 3.76e-4 (they read the stepped
+    velocities' float rounding, as in tests/test_torch_domain_rand.py);
+    the physics as chip_smoke.py's
     K1_TOL in every env. In the same jit, one step of the plain env in the
     force mode (power_scale 0.5, tau = action x 500 x 0.5, with the power
     reward, which still reads the PD-target convention), the same
@@ -201,8 +202,9 @@ def test_env_step_matches_jax(stepped, name):
     assert not np.asarray(want.done).any()
     for f in ("done", "terminate", "progress", "motion_id"):
         np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(want, f)), err_msg=f)
-    np.testing.assert_allclose(got.obs.numpy(), np.asarray(want.obs), atol=1e-3, rtol=0)
-    np.testing.assert_allclose(got.reward.numpy(), np.asarray(want.reward), atol=1e-3, rtol=0)
+    # about twice the measured maxima over the three envs: obs 2.04e-4, reward 3.76e-4 (force)
+    np.testing.assert_allclose(got.obs.numpy(), np.asarray(want.obs), atol=4e-4, rtol=0)
+    np.testing.assert_allclose(got.reward.numpy(), np.asarray(want.reward), atol=8e-4, rtol=0)
     for f, tol in STATE_TOL.items():
         np.testing.assert_allclose(getattr(got.physics, f).numpy(), np.asarray(getattr(want.physics, f)), atol=tol,
                                    rtol=0, err_msg=f)

@@ -22,8 +22,9 @@ Tolerances (max abs, per field): accelerations 1e-3 relative to the
 field's largest entry; torques 1e-3; the stepped state as chip_smoke.py's
 K1_TOL (positions and rotations 2e-4 to 3e-4, velocities 5e-3, contact
 forces 1.0 N), the prop's state likewise and its contact and reaction
-forces 1.0 N; the perturb step's obs and reward 1e-3 (they read the
-stepped velocities' float rounding, as in tests/test_torch_domain_rand.py),
+forces 1.0 N; the perturb step's obs and reward 4e-4, about twice their
+measured maxima of 2.02e-4 and 1.95e-4 (they read the stepped
+velocities' float rounding, as in tests/test_torch_domain_rand.py),
 its flags exactly; the launch 1e-5. The compliant contacts flip on float
 noise, so the contact-bearing steps allow one outlier env; the
 contact-free ones none.
@@ -316,8 +317,9 @@ def test_perturb_step_matches_jax(perturb, jax_outputs):
     assert not want.done.any()
     for f in ("done", "terminate", "progress"):
         np.testing.assert_array_equal(getattr(got, f).numpy(), getattr(want, f), err_msg=f)
-    np.testing.assert_allclose(got.obs.numpy(), want.obs, atol=1e-3, rtol=0)
-    np.testing.assert_allclose(got.reward.numpy(), want.reward, atol=1e-3, rtol=0)
+    # about twice the measured maxima: obs 2.02e-4, reward 1.95e-4
+    np.testing.assert_allclose(got.obs.numpy(), want.obs, atol=4e-4, rtol=0)
+    np.testing.assert_allclose(got.reward.numpy(), want.reward, atol=4e-4, rtol=0)
     bad = np.zeros(NP, bool)
     for f, t in STATE_TOL.items():
         bad |= np.abs(getattr(got.physics, f).numpy() - getattr(want.physics, f)).reshape(NP, -1).max(axis=1) > t

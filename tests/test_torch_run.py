@@ -104,8 +104,9 @@ def test_main_runs_env_im_in_process(trained):
 
 
 @pytest.mark.parametrize("args", [
-    ["env.task=HumanoidImZ"], ["env.task=HumanoidImMCPDemo"],
-    ["env.task=HumanoidSpeedZ"], ["env=amp_getup", "learning=im_amp", "env.shape_variation=true"],
+    ["env.task=HumanoidStrikeZ"], ["env.task=HumanoidImMCPDemo"],
+    ["env.task=HumanoidPedestrianTerrain"], ["env=speed_z", "env.z_checkpoint=x.pth"],
+    ["env=amp_getup", "learning=im_amp", "env.shape_variation=true"],
     [*DISTILL, "learning.teacher_composer_checkpoint=x.pth"],
     ["env=im_mcp", "env.pnn_checkpoint=x.pth"], ["env=im_getup", "env.shape_variation=true"],
     ["env=im_mcp_getup", "env.pnn_checkpoint=x.pth"],
@@ -334,3 +335,136 @@ def test_cli_trains_mcp_dr_and_control_modes(args, epochs, tmp_path, monkeypatch
         assert len(redraws) == (2 if "learning=im_amp" in args else 1)
     if "env.control_mode=pd" in args or "env.control_mode=force" in args:
         assert env.config.control_mode == args[1].split("=")[1] and not env._kernel_surface()
+
+
+# --------------------------------------------------------------------------- #
+# PULSE stage 3: the task envs and their latent-action (Z) forms
+# --------------------------------------------------------------------------- #
+
+Z_TASK = ["learning=pulse_z_task", "learning.amp_batch_size=8", "learning.amp_buffer_size=64",
+          "learning.disc_units=[32]", *TINY]
+
+
+@pytest.fixture(scope="module")
+def distilled(trained, tmp_path_factory):
+    """The checkpoint directory of a one-epoch tiny distillation from the
+    env=im run's policy."""
+    out = tmp_path_factory.mktemp("distilled")
+    run.main([*DISTILL, f"learning.teacher_checkpoint={trained[0] / 'im' / 'ckpt'}", "max_epochs=1",
+              f"output_dir={out}", "exp_name=d"])
+    return out / "d" / "ckpt"
+
+
+@pytest.mark.parametrize("env_name, task, obs_dim", [
+    ("speed_z", "HumanoidSpeedEnv", 361), ("reach_z", "HumanoidReachEnv", 361), ("traj_z", "HumanoidTrajEnv", 378),
+    ("im_z", "HumanoidImEnv", 934),
+])
+def test_cli_trains_z_tasks_on_a_distill_checkpoint(distilled, env_name, task, obs_dim, tmp_path, capsys):
+    """Two epochs of `learning=pulse_z_task` (PPO + AMP on the task reward)
+    with the policy acting in the 32-d latent space of the distillation
+    run's frozen PulseVAE: the wrapped env the task names, the
+    checkpoint's widths (64-unit encoder, 32 prior, 64 decoder) and
+    obs_rms, the prior and decoder bit-unchanged by training, the task
+    reward in [0, 1], finite losses."""
+    res = run.main([f"env={env_name}", f"env.z_checkpoint={distilled}", "max_epochs=2", f"output_dir={tmp_path}",
+                    *Z_TASK])
+    assert f"frozen z model restored from {distilled / 'epoch_1.pt'}" in capsys.readouterr().out
+    env = res.agent.env
+    assert type(env).__name__ == "ZActionWrapper" and type(env.env).__name__ == task
+    assert env.action_dim == 32 and env.obs_dim == obs_dim and res.train_state.ppo.network.mu.out_features == 32
+    ck = torch.load(distilled / "epoch_1.pt", weights_only=True)
+    net = env.frozen.network
+    assert net.encoder.trunk[0].in_features == 934 and net.prior.trunk[0].out_features == 32
+    sd = net.state_dict()
+    assert all(torch.equal(sd[k], v) for k, v in ck["network"].items())
+    assert torch.equal(env.frozen.obs_rms.var, ck["obs_rms"]["var"]) and env.frozen.obs_rms.frozen
+    assert len(res.metrics) == 2
+    for m in res.metrics:
+        assert all(np.isfinite(m[k]) for k in ("a_loss", "c_loss", "disc_loss", "reward_mean"))
+        assert 0.0 <= m["task_reward_mean"] <= 1.0
+
+
+def test_z_without_checkpoint_draws_a_fresh_decoder(tmp_path):
+    res = run.main(["env=speed_z", "max_epochs=1", f"output_dir={tmp_path}", *Z_TASK])
+    net = res.agent.env.frozen.network
+    from pulse_tpu_torch.learning.networks import PulseVAE
+
+    fresh = PulseVAE(361, 69, latent_dim=32, self_obs_dim=358, device="cpu", seed=0).state_dict()
+    assert all(torch.equal(v, fresh[k]) for k, v in net.state_dict().items())
+    assert torch.equal(res.agent.env.frozen.obs_rms.var, torch.ones(361))
+
+
+@pytest.mark.parametrize("env_name", ["speed_z", "im_z"])
+def test_z_test_true_prints_the_eval_result(distilled, env_name, tmp_path, capsys, monkeypatch):
+    """test=true on a task env prints task_eval's TaskEvalResult over one
+    episode length; on env=im_z the wrapper reaches im_eval's motion sweep
+    (reset_to through the wrapper, early termination off by with_config)
+    and prints an EvalResult."""
+    _one_second_clips(monkeypatch)
+    args = [f"env={env_name}", f"env.z_checkpoint={distilled}", f"output_dir={tmp_path}", "max_epochs=1", *Z_TASK,
+            *(["env.episode_length=12"] if env_name == "speed_z" else [])]
+    run.main(args)
+    capsys.readouterr()
+    run.main([*args, "test=true", "epoch=-1"])
+    out = capsys.readouterr().out
+    assert "restored" in out and "epoch=" not in out
+    res = json.loads(out[out.index("{"):])
+    if env_name == "speed_z":
+        assert set(res) == {"episodes", "return_mean", "return_std", "length_mean", "terminate_rate",
+                            "reward_per_step"}
+        assert res["episodes"] >= 8 and 0.0 <= res["terminate_rate"] <= 1.0 and 0 < res["length_mean"] <= 12
+        assert all(np.isfinite(v) for v in res.values())
+    else:
+        assert len(res["failed_motions"]) == 4 and res["per_motion_steps"] == [29.0] * 4
+
+
+def test_task_eval_statistics_on_a_scripted_env():
+    """Returns banked at done, the terminate rate over episodes done, the
+    reward per step the mean of the steps' means, the env's generator
+    re-seeded."""
+    from types import SimpleNamespace
+
+    from pulse_tpu_torch.eval import task_eval
+
+    rewards = torch.tensor([[1.0, 0.5], [2.0, 0.5], [3.0, 0.5], [4.0, 0.5], [5.0, 0.5], [6.0, 0.5]])
+    dones = torch.tensor([[0, 0], [0, 0], [1, 0], [0, 1], [0, 0], [1, 0]], dtype=torch.bool)
+    terms = torch.tensor([[0, 0], [0, 0], [1, 0], [0, 0], [0, 0], [0, 0]], dtype=torch.bool)
+
+    class Scripted:
+        config = SimpleNamespace(episode_length=6)
+
+        def __init__(self):
+            self.generator, self.t, self.seen = torch.Generator().manual_seed(99), 0, []
+
+        def reset(self, n):
+            self.first_draw = float(torch.rand(1, generator=self.generator))
+            return SimpleNamespace(obs=torch.zeros(n, 3), reward=torch.zeros(n))
+
+        def step(self, st, action):
+            self.seen.append(action)
+            t, self.t = self.t, self.t + 1
+            return SimpleNamespace(obs=st.obs + 1, reward=rewards[t], done=dones[t], terminate=terms[t])
+
+    env = Scripted()
+    res = task_eval(env, lambda obs: obs[:, :1], batch_size=2, seed=4)
+    assert env.t == 6 and [float(a[0, 0]) for a in env.seen] == [0, 1, 2, 3, 4, 5]
+    assert env.first_draw == float(torch.rand(1, generator=torch.Generator().manual_seed(4)))
+    returns, lengths = np.array([6.0, 15.0, 2.0]), np.array([3, 3, 4])
+    assert res.episodes == 3 and res.terminate_rate == pytest.approx(1 / 3)
+    assert res.return_mean == pytest.approx(returns.mean()) and res.return_std == pytest.approx(returns.std(), rel=1e-5)
+    assert res.length_mean == pytest.approx(lengths.mean())
+    assert res.reward_per_step == pytest.approx(float(rewards.mean(dim=1).mean()))
+
+
+def test_use_wandb_raises(tmp_path):
+    with pytest.raises(ValueError, match="wandb"):
+        run.main(["use_wandb=true", "device=cpu", f"output_dir={tmp_path}"])
+
+
+def test_eval_frequency_skips_a_task_env(tmp_path, monkeypatch):
+    """The JAX package's eval_frequency evaluates only envs with reset_to:
+    a task env trains on, unevaluated."""
+    evals = []
+    monkeypatch.setattr(run, "run_eval", lambda *a: evals.append(a))
+    res = run.main(["env=speed", "eval_frequency=1", "max_epochs=3", f"output_dir={tmp_path}", *Z_TASK])
+    assert len(res.metrics) == 3 and evals == []
