@@ -166,6 +166,23 @@ Phases, each printed as one JSON line:
   train_reach_z  the same with env=reach_z (R_Hand)
   z_im_traj    8 policy-acting steps of env=im_z (K1 and K2 8 each) and of
                env=traj_z (K3 8; obs 378) on the same checkpoint
+  pulse_stages `python -m pulse_tpu_torch.bench_pulse` (bench_pulse.main) at
+               2048 envs and full widths, 2 epochs a stage: the teacher, the
+               float32 student, 300 prior-sampling steps at 256 envs,
+               speed_z and reach_z, their im_evals and task_evals; exact
+               launches in each stage (K1 and K2 in the teacher, the
+               student, the evals and prior sampling, K3 only in the Z
+               stages, no RA or K3-rows); every key of
+               quality/pulse_stages_r5.json, seven targets, finite metrics
+               (the targets' verdicts are recorded, not gated); the
+               student's action within 1e-4 of a float64 copy (its bf16
+               form misses that); the frozen PulseVAE bit-unchanged after
+               the Z training; each stage's seconds and env steps/s; then
+               K1 -> K2 on the student's last rollout state (2048 envs) and
+               on prior sampling's last state (256, cycled reference), and
+               K3 on each Z task's last training state, against their plain
+               versions within K1's / K2's tolerances in all but 1% of the
+               envs
   plain_arm    one env=im step with env.use_pallas_physics false (no launch)
                and true (K1, K2) from one reset: physics within K1's
                tolerances in all but 1% of the envs, elsewhere the same
@@ -209,6 +226,8 @@ HORIZON = 32
 WINDOWS = 4                     # timed windows of HORIZON steps per regime
 TRAIN_EPOCHS = 2
 DISTILL_EPOCHS = 3
+PULSE_ENVS = 2048               # the PULSE harness's own batch
+PULSE_EPOCHS = 2                # its epochs a stage here
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_FP32_OPS_PER_S = 67e12     # fp32 outside the tensor cores, H100 SXM
 L2_BYTES = 50 * 2**20           # H100 SXM L2
@@ -1709,6 +1728,164 @@ def main() -> int:
     emit(zi)
     im_z_launches, traj_z_launches = zi["im_z"]["launches"], zi["traj_z"]["launches"]
 
+    # ---- pulse_stages: the PULSE three-stage quality harness ------------------ #
+    # bench_pulse.main at PULSE_ENVS envs and full widths, PULSE_EPOCHS epochs
+    # a stage, the full 300 prior steps at 256 envs and the full evals. The
+    # launches are read by stage around the trainers' epochs, the evals and
+    # prior sampling: K1 and K2 in the teacher, the student, both im_evals
+    # (max_steps each, K2 once more at reset_to) and prior sampling, K2 once
+    # at each imitation env reset; K3 only in the Z stages; no RA, no
+    # K3-rows. Then K1 -> K2 on the student's last rollout state and on
+    # prior sampling's last state, and K3 on each Z task's last training
+    # state, against their plain versions
+    import copy
+    import importlib
+
+    from pulse_tpu_torch import bench_pulse
+    from pulse_tpu_torch.env.humanoid_task import HumanoidSpeedEnv
+    from pulse_tpu_torch.learning.distill import DistillAgent
+
+    im_eval_mod = importlib.import_module("pulse_tpu_torch.eval.im_eval")
+    task_eval_mod = importlib.import_module("pulse_tpu_torch.eval.task_eval")
+    pulse_out = os.path.join(out_root, "pulse_stages")
+    by_stage, seen, ev_calls, last = {}, {}, [], {}
+
+    def counted_call(real, label_of):
+        def call(*a, **k):
+            before = dict(_build.launches)
+            out = real(*a, **k)
+            label = label_of(*a)
+            last[label] = (a, out)
+            acc = by_stage.setdefault(label, dict.fromkeys(before, 0))
+            for k_, n in _build.launches.items():
+                acc[k_] += n - before[k_]
+            return out
+        return call
+
+    def distill_label(agent, ds):
+        seen["student"] = agent
+        return "student"
+
+    def z_label(agent, ts):
+        seen["frozen"] = agent.env.frozen
+        return "speed_z" if isinstance(agent.env.env, HumanoidSpeedEnv) else "reach_z"
+
+    def im_eval_label(env_, *a):
+        ev_calls.append(math.ceil(float(env_.motion.motion_lengths.max()) / env_.model.config.control_dt))
+        return ("teacher_eval", "student_eval")[len(ev_calls) - 1]
+
+    patched = [(PPOAgent, "train_epoch", lambda agent, ts: "teacher"), (DistillAgent, "train_epoch", distill_label),
+               (AMPAgent, "train_epoch", z_label), (im_eval_mod, "im_eval", im_eval_label),
+               (task_eval_mod, "task_eval",
+                lambda env_, *a: "speed_z_eval" if isinstance(env_.env, HumanoidSpeedEnv) else "reach_z_eval"),
+               (bench_pulse, "sample_prior", lambda *a: "prior")]
+    originals = [(o_, n_, getattr(o_, n_)) for o_, n_, _ in patched]
+    for o_, n_, label_of in patched:
+        setattr(o_, n_, counted_call(getattr(o_, n_), label_of))
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        report = bench_pulse.main([f"--envs={PULSE_ENVS}", f"--teacher_epochs={PULSE_EPOCHS}",
+                                   f"--distill_epochs={PULSE_EPOCHS}", f"--task_epochs={PULSE_EPOCHS}",
+                                   f"--out={pulse_out}"])
+    finally:
+        for o_, n_, real in originals:
+            setattr(o_, n_, real)
+    torch.cuda.synchronize()
+    pulse_s = time.perf_counter() - t0
+    pulse_launches = dict(_build.launches)
+    by_stage["resets"] = {k: n - sum(b[k] for b in by_stage.values()) for k, n in pulse_launches.items()}
+    zero = dict.fromkeys(pulse_launches, 0)
+    im_epoch = dict(zero, step_reward_amp=PULSE_EPOCHS * HORIZON, observe=PULSE_EPOCHS * HORIZON)
+    z_epoch = dict(zero, physics_step=PULSE_EPOCHS * HORIZON)
+    prior_steps = report["prior_sampling"]["steps"]
+    want_stage = {"teacher": im_epoch, "student": im_epoch, "speed_z": z_epoch, "reach_z": z_epoch,
+                  "speed_z_eval": dict(zero, physics_step=300), "reach_z_eval": dict(zero, physics_step=300),
+                  "prior": dict(zero, step_reward_amp=prior_steps, observe=prior_steps),
+                  # the teacher's and the student's agent.init and prior sampling's reset: one K2 each
+                  "resets": dict(zero, observe=3)}
+    for label, n_steps in zip(("teacher_eval", "student_eval"), ev_calls):
+        want_stage[label] = dict(zero, step_reward_amp=n_steps, observe=n_steps + 1)
+    # the student float32 on the card: its action_mu on the last rollout's
+    # obs against a float64 copy, and against the same weights in bf16
+    sagent = seen["student"]
+    snet = sagent.network
+    snap = torch.load(os.path.join(pulse_out, "student.pt"), map_location=dev, weights_only=True)
+    with torch.no_grad():
+        obs_n = RunningMeanStd(**snap["obs_rms"]).normalize(sagent._buffers.obs[-1])
+        z0 = torch.zeros(obs_n.shape[0], snet.latent_dim, device=dev)
+        mu32 = snet.latent_action(obs_n, z0)["action_mu"].double()
+        mu64 = copy.deepcopy(snet).double().latent_action(obs_n.double(), z0.double())["action_mu"]
+        mu16 = copy.deepcopy(snet).set_full_precision(False).latent_action(obs_n, z0)["action_mu"].double()
+    err32, err16 = float((mu32 - mu64).abs().max()), float((mu16 - mu64).abs().max())
+    fsd = seen["frozen"].network.state_dict()
+    frozen_same = all(torch.equal(fsd[k], v) for k, v in snap["network"].items())
+    metrics = {sec: report[sec] for sec in ("teacher", "student", "prior_sampling", "speed_z", "reach_z")}
+    r5 = json.loads(bench_pulse.R5.read_text())
+    emit({"phase": "pulse_stages", "card": card, "envs": PULSE_ENVS, "epochs": report["epochs"],
+          "seconds_all": pulse_s, "launches": pulse_launches, "launches_by_stage": by_stage, **metrics,
+          "timing": report["timing"], "targets": {k: t["pass"] for k, t in report["targets"].items()},
+          "student_full_precision": snet.full_precision, "student_f32_vs_f64_max_abs": err32,
+          "student_bf16_vs_f64_max_abs": err16, "frozen_vae_unchanged": frozen_same})
+    if by_stage != want_stage:
+        fail(f"pulse_stages: launches by stage {by_stage}, expected {want_stage}")
+    if not set(r5) <= set(report) or len(report["targets"]) != 7:
+        fail(f"pulse_stages: report keys {sorted(report)}, targets {sorted(report['targets'])}")
+    if not (all(math.isfinite(v) for m in metrics.values() for v in m.values())
+            and report["prior_sampling"]["finite"]):
+        fail(f"pulse_stages: non-finite metrics {metrics}")
+    if not (snet.full_precision and err32 <= 1e-4 < err16):
+        fail(f"pulse_stages: the student against float64: {err32} (bf16 {err16}); full precision "
+             f"{snet.full_precision}")
+    if not frozen_same:
+        fail("pulse_stages: the frozen PulseVAE changed in the Z training")
+
+    def k1_k2_vs_plain(env_, st) -> dict:
+        """K1 -> K2 on an imitation env's state against their plain
+        versions, on the inputs its step gives them (the reference at the
+        post-step time, then at the next control time, cycle offset included)
+        and random actions."""
+        n = st.motion_id.shape[0]
+        progress = st.progress + 1
+        with torch.no_grad():
+            _, ref_ = env_._post_step_ref(st, progress)
+            pd_ = env_.action_to_pd_target(0.3 * torch.randn(n, env_.action_dim, generator=g, device=dev))
+            k1_ = cuda_obs.step_reward_amp(env_.model, env_.consts, st.physics, pd_, ref_)
+            p1_ = cuda_obs.step_reward_amp_plain(env_.model, env_.consts, st.physics, pd_, ref_)
+            t_next = env_._motion_time(st.motion_id, st.start_time, progress) + env_.model.config.control_dt
+            ref_n = get_motion_state(env_.motion, st.motion_id, t_next,
+                                     env_._cycle_offset(st.motion_id, st.start_time, progress))
+            k2_ = cuda_obs.observe(env_.consts, k1_[0], ref_n, env_._shape_obs(n))
+            p2_ = cuda_obs.observe_plain(env_.consts, k1_[0], ref_n, env_._shape_obs(n))
+        cmp_ = {f: compare(getattr(k1_[0], f), getattr(p1_[0], f), K1_TOL[f], n) for f in PHYS_FIELDS}
+        cmp_.update({nm: compare(a, b, K1_TOL[nm], n) for nm, a, b in zip(names, k1_[1:], p1_[1:])})
+        cmp_["obs"] = compare(k2_, p2_, K2_TOL, n)
+        return cmp_
+
+    def k3_vs_plain(zenv, st) -> dict:
+        """K3 on a Z task env's state against physics_step, random actions."""
+        n = st.obs.shape[0]
+        with torch.no_grad():
+            pd_ = zenv.action_to_pd_target(0.3 * torch.randn(n, zenv.env.action_dim, generator=g, device=dev))
+            k3_ = substep_cuda.physics_step_cuda(zenv.model, st.physics, pd_)
+            plain_ = physics_step(zenv.model, st.physics, pd_)
+        return {f: compare(getattr(k3_, f), getattr(plain_, f), K1_TOL[f], n) for f in PHYS_FIELDS}
+
+    (s_agent, _), (s_ds, _) = last["student"]
+    (p_env, *_), p_state = last["prior"]
+    vs_plain = {"student_last_rollout_K1_K2": (PULSE_ENVS, k1_k2_vs_plain(s_agent.env, s_ds.env_state)),
+                "prior_last_K1_K2": (p_state.obs.shape[0], k1_k2_vs_plain(p_env, p_state))}
+    for stage in ("speed_z", "reach_z"):
+        (z_agent, _), (z_ts, _) = last[stage]
+        vs_plain[f"{stage}_last_K3"] = (PULSE_ENVS, k3_vs_plain(z_agent.env, z_ts.ppo.env_state))
+    emit({"phase": "pulse_stages_vs_plain", "card": card,
+          **{k: {"envs": n, **c} for k, (n, c) in vs_plain.items()}})
+    for k, (n, c) in vs_plain.items():
+        if n != {"prior_last_K1_K2": 256}.get(k, PULSE_ENVS) or any(
+                v["outlier_envs"] > OUTLIER_FRAC * n for v in c.values()):
+            fail(f"pulse_stages: {k} at {n} envs against the plain versions: {c}")
+
     # ---- env.use_pallas_physics=false: the plain versions in the kernels' place #
     # one env=im step from the same reset state (one generator seed) with the
     # key false (no launch) and true (K1, K2): the physics within K1_TOL in
@@ -2004,20 +2181,23 @@ def main() -> int:
     emit({"kernels": [
         {"name": "step_reward_amp", "route": "cuda", "source": src + "step_reward_amp.cu",
          "replaces": "pulse_tpu/env/pallas_obs.py:376",
-         "launches": sum(n["step_reward_amp"] for n in (im_launches, amp_im_launches, mcp_launches, im_z_launches)),
+         "launches": sum(n["step_reward_amp"] for n in (im_launches, amp_im_launches, mcp_launches, im_z_launches,
+                                                         pulse_launches)),
          "launches_by_phase": {"train_im": im_launches["step_reward_amp"],
                                "train_amp_im": amp_im_launches["step_reward_amp"],
                                "train_mcp": mcp_launches["step_reward_amp"],
-                               "z_im_traj": im_z_launches["step_reward_amp"]},
+                               "z_im_traj": im_z_launches["step_reward_amp"],
+                               "pulse_stages": pulse_launches["step_reward_amp"]},
          "max_abs_err": max_err["step_reward_amp"], "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": None},
         {"name": "observe", "route": "cuda", "source": src + "observe.cuh",
          "replaces": "pulse_tpu/env/pallas_obs.py:558",
          "launches": sum(n["observe"] for n in (im_launches, amp_im_launches, mcp_launches, mcp_getup_launches,
-                                                 dr_launches, im_z_launches)),
+                                                 dr_launches, im_z_launches, pulse_launches)),
          "launches_by_phase": {"train_im": im_launches["observe"], "train_amp_im": amp_im_launches["observe"],
                                "train_mcp": mcp_launches["observe"], "train_mcp_getup": mcp_getup_launches["observe"],
-                               "train_dr": dr_launches["observe"], "z_im_traj": im_z_launches["observe"]},
+                               "train_dr": dr_launches["observe"], "z_im_traj": im_z_launches["observe"],
+                               "pulse_stages": pulse_launches["observe"]},
          "max_abs_err": max_err["observe"], "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": None},
         {"name": "physics_step", "route": "cuda", "source": src + "physics_step.cu",
@@ -2025,7 +2205,7 @@ def main() -> int:
          "launches": sum(n["physics_step"] for n in (getup_launches, vr_launches, amp_launches,
                                                      amp_getup_launches, mcp_getup_launches, speedz_launches,
                                                      speedz_eval_launches, reachz_launches, reachz_eval_launches,
-                                                     traj_z_launches)),
+                                                     traj_z_launches, pulse_launches)),
          "launches_by_phase": {"train_getup": getup_launches["physics_step"],
                                "train_vr": vr_launches["physics_step"], "train_amp": amp_launches["physics_step"],
                                "train_amp_getup": amp_getup_launches["physics_step"],
@@ -2034,7 +2214,8 @@ def main() -> int:
                                "train_speed_z_test_true": speedz_eval_launches["physics_step"],
                                "train_reach_z": reachz_launches["physics_step"],
                                "train_reach_z_test_true": reachz_eval_launches["physics_step"],
-                               "z_im_traj": traj_z_launches["physics_step"]},
+                               "z_im_traj": traj_z_launches["physics_step"],
+                               "pulse_stages": pulse_launches["physics_step"]},
          "max_abs_err": max_err["physics_step"], "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
          "bound_by": k3_by, "library_ms": None},
         {"name": "physics_step_rows", "route": "cuda", "source": src + "physics_step.cu",

@@ -8,9 +8,8 @@ The self obs is normalized with the frozen running stats of the
 distillation (their first `self_obs_dim` entries).
 
 The decode runs in float32 with autocast off, as the JAX package's
-`wrap_env_z` builds its PulseVAE without a compute dtype: the prior's and
-the decoder's layers are called directly, so that their modules' own bf16
-autocast on CUDA does not apply. The PulseVAE is not trained.
+`wrap_env_z` builds its PulseVAE without a compute dtype: `FrozenZModel`
+switches its PulseVAE to `full_precision`. The PulseVAE is not trained.
 """
 
 from __future__ import annotations
@@ -25,15 +24,15 @@ from pulse_tpu_torch.learning.running_norm import RunningMeanStd, running_mean_s
 
 @dataclasses.dataclass
 class FrozenZModel:
-    """The frozen PulseVAE (only its prior and decoder are read) and the
-    running stats over the full distillation obs."""
+    """The frozen PulseVAE (only its prior and decoder are read), switched to
+    full precision, and the running stats over the full distillation obs."""
 
     network: PulseVAE
     obs_rms: RunningMeanStd
     use_vae_prior: bool = True
 
     def __post_init__(self):
-        self.network.requires_grad_(False).eval()
+        self.network.requires_grad_(False).eval().set_full_precision(True)
         self.obs_rms = self.obs_rms.freeze()
 
 
@@ -72,12 +71,11 @@ class ZActionWrapper:
     def decode_z(self, self_obs_raw: torch.Tensor, action_z: torch.Tensor) -> torch.Tensor:
         """Latents [B, L] -> motor actions [B, A] (unclipped), float32."""
         net = self.frozen.network
-        with torch.autocast(self_obs_raw.device.type, enabled=False):
-            self_obs = self._self_rms.normalize(self_obs_raw.float())
-            z = action_z.float()
-            if self.frozen.use_vae_prior:
-                z = net.prior.mu(net.prior.trunk(self_obs)) + z
-            return net.decoder.out(net.decoder.trunk(torch.cat([self_obs, z], dim=-1)))
+        self_obs = self._self_rms.normalize(self_obs_raw.float())
+        z = action_z.float()
+        if self.frozen.use_vae_prior:
+            z = net.prior(self_obs)[0] + z
+        return net.decoder(self_obs, z)
 
     def reset(self, num_envs: int):
         return self.env.reset(num_envs)

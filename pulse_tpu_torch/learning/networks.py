@@ -13,13 +13,18 @@ Counterpart of `MLP`, `ActorCritic`, `Discriminator`, `Encoder`, `Prior`,
     a critic tower that distillation does not train.
 
 On CUDA the MLP trunks of the policy and the VAE run under bf16 autocast;
-parameters and every head stay float32. On the CPU everything is float32.
+parameters and every head stay float32 (the VAE's heads compute in their
+weights' dtype, so that a float64 copy runs in float64). On the CPU
+everything is float32. `PulseVAE(full_precision=True)` (the JAX package's
+`PulseVAE(dtype=None)`) computes everything in float32 with autocast off,
+on CUDA too.
 Initialization is flax's default (lecun-normal kernels, zero biases), but
 for the discriminator's logit layer (uniform, fan-in variance 1).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Sequence
 
@@ -52,8 +57,18 @@ class MLP(nn.Sequential):
         super().__init__(*layers)
 
 
-def _autocast(x: torch.Tensor):
+def _autocast(x: torch.Tensor, full_precision: bool = False):
+    """bf16 autocast of an MLP trunk on CUDA; with full_precision autocast
+    off on the tensor's device, an enclosing one's too."""
+    if full_precision:
+        return torch.autocast(x.device.type, enabled=False)
     return torch.autocast("cuda", dtype=torch.bfloat16, enabled=x.is_cuda)
+
+
+def _heads(x: torch.Tensor, full_precision: bool):
+    """The float32 heads after a trunk: with full_precision autocast off,
+    an enclosing one's too."""
+    return torch.autocast(x.device.type, enabled=False) if full_precision else contextlib.nullcontext()
 
 
 def _flax_init_(module: nn.Module, seed: int, scale_of=lambda lin: 1.0) -> None:
@@ -138,18 +153,20 @@ class Encoder(nn.Module):
     unactivated `z_proj` to 5 latent widths, then the two heads."""
 
     def __init__(self, obs_dim: int, latent_dim: int = 32, units: Sequence[int] = (2048, 1536, 1024),
-                 activation: str = "silu"):
+                 activation: str = "silu", full_precision: bool = False):
         super().__init__()
+        self.full_precision = full_precision
         self.trunk = MLP(obs_dim, units, activation)
         self.z_proj = nn.Linear(units[-1], 5 * latent_dim)
         self.z_mu = nn.Linear(5 * latent_dim, latent_dim)
         self.z_logvar = nn.Linear(5 * latent_dim, latent_dim)
 
     def forward(self, obs: torch.Tensor):
-        with _autocast(obs):
+        with _autocast(obs, self.full_precision):
             h = self.trunk(obs)
-        h = self.z_proj(h.float())
-        return self.z_mu(h), self.z_logvar(h)
+        with _heads(obs, self.full_precision):
+            h = self.z_proj(h.to(self.z_proj.weight.dtype))
+            return self.z_mu(h), self.z_logvar(h)
 
 
 class Prior(nn.Module):
@@ -157,37 +174,42 @@ class Prior(nn.Module):
     (PULSE's clamped prior)."""
 
     def __init__(self, self_obs_dim: int, latent_dim: int = 32, units: Sequence[int] = (1024, 512),
-                 activation: str = "silu"):
+                 activation: str = "silu", full_precision: bool = False):
         super().__init__()
+        self.full_precision = full_precision
         self.trunk = MLP(self_obs_dim, units, activation)
         self.mu = nn.Linear(units[-1], latent_dim)
         self.logvar = nn.Linear(units[-1], latent_dim)
 
     def forward(self, self_obs: torch.Tensor):
-        with _autocast(self_obs):
-            h = self.trunk(self_obs).float()
-        return self.mu(h), torch.clamp(self.logvar(h), -8.0, 2.0)
+        with _autocast(self_obs, self.full_precision):
+            h = self.trunk(self_obs).to(self.mu.weight.dtype)
+        with _heads(self_obs, self.full_precision):
+            return self.mu(h), torch.clamp(self.logvar(h), -8.0, 2.0)
 
 
 class Decoder(nn.Module):
     """[self obs, z] -> action."""
 
     def __init__(self, self_obs_dim: int, latent_dim: int, action_dim: int,
-                 units: Sequence[int] = (1024, 1024, 512), activation: str = "silu"):
+                 units: Sequence[int] = (1024, 1024, 512), activation: str = "silu", full_precision: bool = False):
         super().__init__()
+        self.full_precision = full_precision
         self.trunk = MLP(self_obs_dim + latent_dim, units, activation)
         self.out = nn.Linear(units[-1], action_dim)
 
     def forward(self, self_obs: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-        with _autocast(self_obs):
+        with _autocast(self_obs, self.full_precision):
             h = self.trunk(torch.cat([self_obs, z], dim=-1))
-        return self.out(h.float())
+        with _heads(self_obs, self.full_precision):
+            return self.out(h.to(self.out.weight.dtype))
 
 
 class PulseVAE(nn.Module):
     """forward(obs, z_noise) -> {action_mu, post_mu, post_logvar, prior_mu,
     prior_logvar, value}. The decoder reads prior_mu + post_mu +
-    exp(post_logvar / 2) z_noise; the critic reads the whole obs."""
+    exp(post_logvar / 2) z_noise; the critic reads the whole obs. With
+    `full_precision` no part autocasts (the JAX package's `dtype=None`)."""
 
     def __init__(
         self,
@@ -200,19 +222,27 @@ class PulseVAE(nn.Module):
         decoder_units: Sequence[int] = (1024, 1024, 512),
         critic_units: Sequence[int] = (2048, 1536, 1024),
         activation: str = "silu",
+        full_precision: bool = False,
         device=None,
         seed: int = 0,
     ):
         super().__init__()
         device = resolve_device(device)
         self.latent_dim, self.self_obs_dim = latent_dim, self_obs_dim
-        self.encoder = Encoder(obs_dim, latent_dim, encoder_units, activation)
-        self.prior = Prior(self_obs_dim, latent_dim, prior_units, activation)
-        self.decoder = Decoder(self_obs_dim, latent_dim, action_dim, decoder_units, activation)
+        self.full_precision = full_precision
+        self.encoder = Encoder(obs_dim, latent_dim, encoder_units, activation, full_precision)
+        self.prior = Prior(self_obs_dim, latent_dim, prior_units, activation, full_precision)
+        self.decoder = Decoder(self_obs_dim, latent_dim, action_dim, decoder_units, activation, full_precision)
         self.critic = MLP(obs_dim, critic_units, activation)
         self.critic_head = nn.Linear(critic_units[-1], 1)
         _flax_init_(self, seed)
         self.to(device)
+
+    def set_full_precision(self, full_precision: bool) -> "PulseVAE":
+        """Switch every part's autocast (see `full_precision`); returns self."""
+        for m in (self, self.encoder, self.prior, self.decoder):
+            m.full_precision = bool(full_precision)
+        return self
 
     def latent_action(self, obs: torch.Tensor, z_noise: torch.Tensor) -> dict:
         """Every output but the value: what distillation trains on."""
@@ -224,9 +254,10 @@ class PulseVAE(nn.Module):
                 "prior_mu": prior_mu, "prior_logvar": prior_logvar}
 
     def value(self, obs: torch.Tensor) -> torch.Tensor:
-        with _autocast(obs):
+        with _autocast(obs, self.full_precision):
             h = self.critic(obs)
-        return self.critic_head(h.float())[..., 0]
+        with _heads(obs, self.full_precision):
+            return self.critic_head(h.to(self.critic_head.weight.dtype))[..., 0]
 
     def forward(self, obs: torch.Tensor, z_noise: torch.Tensor) -> dict:
         return dict(self.latent_action(obs, z_noise), value=self.value(obs))
@@ -319,7 +350,8 @@ def vae_leaves(net: PulseVAE, tree: dict):
         + _tower(d["MLP_0"]) + [d["Dense_0"]] + _tower(tree["critic"]) + [tree["critic_head"]]))
 
 
-def pulse_vae_from_jax(params: dict, activation: str = "silu", device=None) -> PulseVAE:
+def pulse_vae_from_jax(params: dict, activation: str = "silu", full_precision: bool = False,
+                       device=None) -> PulseVAE:
     """Load a flax PulseVAE param tree (numpy leaves) into a PulseVAE of the
     same widths."""
     def widths(tower):
@@ -332,7 +364,7 @@ def pulse_vae_from_jax(params: dict, activation: str = "silu", device=None) -> P
         latent_dim=np.asarray(e["z_mu"]["kernel"]).shape[1],
         self_obs_dim=np.asarray(p["MLP_0"]["Dense_0"]["kernel"]).shape[0],
         encoder_units=widths(e["MLP_0"]), prior_units=widths(p["MLP_0"]), decoder_units=widths(d["MLP_0"]),
-        critic_units=widths(params["critic"]), activation=activation, device="cpu",
+        critic_units=widths(params["critic"]), activation=activation, full_precision=full_precision, device="cpu",
     )
     with torch.no_grad():
         for t, x in vae_leaves(net, params):

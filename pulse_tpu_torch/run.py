@@ -272,7 +272,8 @@ def wrap_env_z(cfg, env):
     PulseVAE takes the checkpoint's widths (its obs width is the
     distillation env's) and its `obs_rms`. Without a checkpoint a fresh
     PulseVAE from seed 0 and unit stats stand in, as in the JAX package. A
-    reference `.pth` raises."""
+    reference `.pth` raises. `FrozenZModel` makes the PulseVAE float32
+    whatever the distillation's precision, as the JAX package's."""
     from pulse_tpu_torch.env.humanoid_z import FrozenZModel, ZActionWrapper
     from pulse_tpu_torch.learning.networks import PulseVAE
     from pulse_tpu_torch.learning.running_norm import RunningMeanStd
@@ -341,6 +342,8 @@ def build_agent_from_cfg(cfg, env):
             encoder_units=tuple(l["encoder_units"]),
             prior_units=tuple(l["prior_units"]),
             decoder_units=tuple(l["decoder_units"]),
+            # bf16 trunks unless asked (the JAX package's dtype=None then)
+            full_precision=bool(l.get("full_precision", False)),
             device=env.device,
             seed=seed,
         )
@@ -444,9 +447,10 @@ def _rms_dict(r) -> dict:
 
 def save_checkpoint(ckpt_dir: str, epoch: int, ts) -> str:
     """A PPO TrainState's or a DistillState's network, optimizer,
-    normalizers and epoch; of an AMPTrainState its PPO state's, and under
-    "amp" the discriminator, its optimizer, `amp_rms`, both buffers and the
-    reward weights."""
+    normalizers and epoch (and a PulseVAE's `full_precision`, which a
+    restore leaves to the config, as the JAX package's); of an
+    AMPTrainState its PPO state's, and under "amp" the discriminator, its
+    optimizer, `amp_rms`, both buffers and the reward weights."""
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, f"epoch_{epoch}.pt")
     inner = getattr(ts, "ppo", ts)
@@ -454,6 +458,8 @@ def save_checkpoint(ckpt_dir: str, epoch: int, ts) -> str:
              "obs_rms": _rms_dict(inner.obs_rms), "epoch": inner.epoch}
     if hasattr(inner, "value_rms"):
         state["value_rms"] = _rms_dict(inner.value_rms)
+    if hasattr(inner.network, "full_precision"):
+        state["full_precision"] = inner.network.full_precision
     if hasattr(ts, "amp"):
         a = ts.amp
         state["amp"] = {"disc": a.disc.state_dict(), "optimizer": a.optimizer.state_dict(),

@@ -5,7 +5,9 @@ over by `pulse_vae_from_jax`, the distill loss terms and their gradients
 against `DistillAgent._loss`, the KL anneal, one `update` (one mini-epoch,
 one minibatch of all (T - 1) B pairs) started from a JAX state converted by
 `distill_state_from_jax` with the same latent noise and teacher actions,
-the frozen normalizer, and the rollout's wiring on a stub env.
+the frozen normalizer, and the rollout's wiring on a stub env; and
+`PulseVAE(full_precision=True)` (the JAX package's `dtype=None`) under an
+enclosing bf16 autocast.
 
 Tolerances (float32, sums in another order): kl_multi 1e-6 relative; the
 network's outputs 1e-5; the loss terms and gradients 1e-5 absolute with
@@ -101,6 +103,38 @@ def test_pulse_vae_from_jax_matches_jax():
     for k in want:
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=1e-5, atol=1e-5, err_msg=k)
     assert [p for p, _ in vae_leaves(net, params)] == list(net.parameters())
+
+
+def test_full_precision_vae_matches_jax_and_turns_autocast_off():
+    """PulseVAE(full_precision=True) from a JAX PulseVAE(dtype=None) matches
+    it at float32 tolerance under an enclosing bf16 autocast, every Linear
+    computing in float32; without the flag the same autocast reaches the
+    trunks (bf16) and the outputs move by far more."""
+    params = _params(2)
+    rng = np.random.default_rng(2)
+    obs, z = f32(rng.standard_normal((32, O))), f32(rng.standard_normal((32, L)))
+    want = _jax_net().apply({"params": params}, jnp.asarray(obs), jnp.asarray(z))
+    dtypes = {}
+
+    def run(full_precision):
+        net = pulse_vae_from_jax(params, full_precision=full_precision, device="cpu")
+        assert net.full_precision is full_precision and net.decoder.full_precision is full_precision
+        dtypes.clear()
+        hooks = [m.register_forward_hook(lambda m, i, o, name=name: dtypes.update({name: o.dtype}))
+                 for name, m in net.named_modules() if isinstance(m, torch.nn.Linear)]
+        with torch.no_grad(), torch.autocast("cpu", dtype=torch.bfloat16):
+            got = net(torch.as_tensor(obs), torch.as_tensor(z))
+        for h in hooks:
+            h.remove()
+        return got
+
+    got = run(True)
+    assert len(dtypes) == 11 and set(dtypes.values()) == {torch.float32}
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=1e-5, atol=1e-5, err_msg=k)
+    low = run(False)
+    assert dtypes["encoder.trunk.0"] == torch.bfloat16 and dtypes["decoder.trunk.0"] == torch.bfloat16
+    assert float((low["action_mu"].float() - torch.tensor(np.asarray(want["action_mu"]))).abs().max()) > 1e-4
 
 
 # --------------------------------------------------------------------------- #

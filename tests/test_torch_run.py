@@ -192,6 +192,38 @@ def test_cli_distills_from_a_teacher_checkpoint_and_resumes(trained, tmp_path, c
     assert torch.load(tmp_path / "d" / "ckpt" / "epoch_3.pt", weights_only=True)["epoch"] == 3
 
 
+def test_distill_full_precision_reaches_the_network_and_its_checkpoint(trained, tmp_path, monkeypatch):
+    """`learning.full_precision` (read as the JAX package reads it, from a
+    config that holds it) builds the student float32 and the checkpoint
+    keeps the flag; on resume the config, not the checkpoint, sets the
+    precision, as in the JAX package; the frozen decoder of env.z_checkpoint
+    is float32 whatever the flag."""
+    from pulse_tpu_torch.utils import config as port_config
+
+    load = port_config.load_config
+
+    def with_flag(argv):
+        cfg = load(argv)
+        cfg["learning"]["full_precision"] = True
+        return cfg
+
+    args = [*DISTILL, f"learning.teacher_checkpoint={trained[0] / 'im' / 'ckpt'}", "exp_name=d",
+            f"output_dir={tmp_path}"]
+    monkeypatch.setattr(port_config, "load_config", with_flag)
+    res = run.main([*args, "max_epochs=1"])
+    assert res.agent.network.full_precision and res.agent.network.encoder.full_precision
+    assert torch.load(tmp_path / "d" / "ckpt" / "epoch_1.pt", weights_only=True)["full_precision"] is True
+    monkeypatch.setattr(port_config, "load_config", load)
+    res = run.main([*args, "max_epochs=2", "epoch=-1"])
+    net = res.train_state.network
+    assert not (net.full_precision or net.encoder.full_precision or net.prior.full_precision
+                or net.decoder.full_precision)
+    assert torch.load(tmp_path / "d" / "ckpt" / "epoch_2.pt", weights_only=True)["full_precision"] is False
+    z = run.main(["env=speed_z", f"env.z_checkpoint={tmp_path / 'd' / 'ckpt'}", "max_epochs=0",
+                  f"output_dir={tmp_path}", *Z_TASK])
+    assert z.agent.env.frozen.network.full_precision
+
+
 def test_distill_pnn_teacher_raises_naming_item_11(tmp_path):
     with pytest.raises(NotImplementedError, match="item 11"):
         run.main([*DISTILL, "learning.teacher_pnn_checkpoint=x.pth", f"output_dir={tmp_path}"])
