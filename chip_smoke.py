@@ -188,6 +188,34 @@ Phases, each printed as one JSON line:
                tolerances in all but 1% of the envs, elsewhere the same
                flags, reward within 1e-4 and obs within 5e-3 (the stepped
                velocities' tolerance: the obs reads them)
+  import_pth   reference-layout .pth files built in a temporary directory
+               (torch modules laid out as the rl-games builders lay them
+               out): a PNN of 3 columns of 512-512 over the 934-wide obs
+               with laterals and running stats, a 512-256 composer, a
+               PulseVAE at im_z_fit's widths with running stats; each
+               imported network against the module it was saved from
+               (max abs <= 1e-5, TF32 off); then 2 epochs each of env=im_mcp
+               env.pnn_checkpoint=<pnn> (K1 -> K2, as train_mcp),
+               env=im_vae learning=im_z_fit with the PNN and composer
+               teacher (60 settle K3, then K3 -> RA -> K2 32 each an epoch)
+               and env=speed_z env.z_checkpoint=<pulse>.pth (K3): exact
+               launches, finite losses, the imported networks bit-unchanged,
+               the kernels on each run's last state against their plain
+               versions (<= 1% outlier envs)
+  train_strike 2 epochs of env=strike learning=pulse_z_task (PPO 1024-512
+               with the discriminator): the physics route "plain" and no
+               launch (the box's coupled step), reward in [0, 1], some box
+               tipped or pushed; one step of 64 envs on the card against the
+               CPU (<= 1% outlier envs); then 8 steps of env=strike_z on the
+               imported PulseVAE; ms and device kernels a step
+  train_terrain  the same with env=pedestrian_terrain on the default 8 x 8
+               tiles of 8 m (a 256 x 256 heightfield), obs 634: spawns on
+               walkable cells with the lowest foot within FOOT_TOL of the
+               ground under it in FOOT_FRAC of the envs; 8 steps of
+               HumanoidPedestrianTerrainZ
+  self_collision  8 steps of HumanoidImEnv on a self-collision model at
+               3072 envs: the plain route, no launch, finite states, one
+               step of 64 envs on the card against the CPU
   perturb      HumanoidImPerturbEnv (proj_interval 8, early termination
                off) for 24 policy-acting steps: every projectile relaunched
                exactly where the pre-step progress is 7 mod 8 (some at 7,
@@ -253,6 +281,13 @@ SETTLE_CHECK_STEP = 8           # the mid-settle step (in contact) where K3 is m
 CONTROL_STEPS = 8               # steps of each control mode
 PROJ_INTERVAL = 8               # the perturb phase's steps between launches
 PERTURB_STEPS = 24              # the perturb phase's acting steps
+SC_STEPS = 8                    # the self_collision phase's steps
+# train_terrain's spawns: the lowest foot within FOOT_TOL of the ground under
+# it in at least FOOT_FRAC of the envs (the pose is lifted by the ground at
+# the root; a foot over a stair edge or a pit's rim is not), and at the
+# median
+FOOT_TOL = 0.1
+FOOT_FRAC = 0.8
 
 
 def emit(obj) -> None:
@@ -860,12 +895,15 @@ def main() -> int:
     per_epoch = HORIZON * N_ENVS
 
     def train(exp: str, env_args: list, want_epoch: dict, learning: str = "im_ppo", epochs: int = TRAIN_EPOCHS,
-              on_epoch=None) -> tuple:
+              on_epoch=None, trace_rollout: bool = True) -> tuple:
         """run.main for `epochs` epochs; returns (result, the run's launch
         counts, its info dict) after the checks every training path shares.
         `on_epoch(agent, (ts, metrics))` runs after each epoch of an AMP
         agent. For AMP the PPO checks read the train state's PPO half; the
-        rewards checked in [0, 1] are the env's (the task reward)."""
+        rewards checked in [0, 1] are the env's (the task reward). Without
+        `trace_rollout` the rollout's device time is one env step's trace
+        times HORIZON (for the eager plain-route steps of ~20k kernels a
+        32-step trace would hold ~700k events and take minutes)."""
         epoch_launches = []
         ppo_epoch, amp_epoch = PPOAgent.train_epoch, AMPAgent.train_epoch
 
@@ -928,7 +966,15 @@ def main() -> int:
         # trace (after the checks; the profiler slows the host, so the idle
         # share is taken against the unprofiled phase times above)
         agent = pagent
-        roll_busy, roll_kernels = device_busy(lambda: agent.rollout(ts))
+        if trace_rollout:
+            roll_busy, roll_kernels = device_busy(lambda: agent.rollout(ts))
+        else:
+            act_ = torch.zeros(N_ENVS, agent.env.action_dim, device=dev)
+            with torch.no_grad():
+                step_busy, step_kernels = device_busy(lambda: agent.env.step(ts.env_state, act_))
+            roll_busy, roll_kernels = HORIZON * step_busy, HORIZON * step_kernels
+            info.update(rollout_device_from_one_step=True, step_device_busy_ms=step_busy,
+                        step_device_kernels=step_kernels)
         last_v = agent._value(ts, ts.env_state.obs).detach()
         gae_busy, gae_kernels = device_busy(lambda: compute_gae(agent.config, agent._buffers, last_v))
         adv, ret = compute_gae(agent.config, agent._buffers, last_v)
@@ -1353,7 +1399,7 @@ def main() -> int:
         return hook
 
     def train_amp(exp: str, env_args: list, want_epoch: dict, epochs: int, on_epoch=None,
-                  learning: str = "im_amp") -> tuple:
+                  learning: str = "im_amp", trace_rollout: bool = True) -> tuple:
         """`train` with learning=im_amp (or another AMP config), then the AMP
         gates every path shares:
         the discriminator changed, the buffers and amp_rms grown by exactly
@@ -1369,7 +1415,8 @@ def main() -> int:
             if on_epoch is not None:
                 on_epoch(agent, out)
 
-        res_, counts_, info_ = train(exp, env_args, want_epoch, learning=learning, epochs=epochs, on_epoch=hooks)
+        res_, counts_, info_ = train(exp, env_args, want_epoch, learning=learning, epochs=epochs, on_epoch=hooks,
+                                     trace_rollout=trace_rollout)
         agent_, ts_ = res_.agent, res_.train_state
         a_, pa_ = ts_.amp, agent_.ppo
         acfg = agent_.amp.config
@@ -1850,7 +1897,7 @@ def main() -> int:
         progress = st.progress + 1
         with torch.no_grad():
             _, ref_ = env_._post_step_ref(st, progress)
-            pd_ = env_.action_to_pd_target(0.3 * torch.randn(n, env_.action_dim, generator=g, device=dev))
+            pd_ = env_.action_to_pd_target(0.3 * torch.randn(n, env_.model.num_dof, generator=g, device=dev))
             k1_ = cuda_obs.step_reward_amp(env_.model, env_.consts, st.physics, pd_, ref_)
             p1_ = cuda_obs.step_reward_amp_plain(env_.model, env_.consts, st.physics, pd_, ref_)
             t_next = env_._motion_time(st.motion_id, st.start_time, progress) + env_.model.config.control_dt
@@ -2040,6 +2087,389 @@ def main() -> int:
         fail(f"perturb: the out-of-reach coupled step against K3: {coupled_cmp}")
     del penv, pnet, pst, prop, coupled, k3_p
 
+    # ---- import_pth: the reference's .pth checkpoints ------------------------ #
+    # Reference-layout files (torch modules laid out as the rl-games builders
+    # lay them out, saved under their key names) at the configs' widths: a
+    # PNN of env.num_prim (3) columns of learning.pnn_units (512-512) over
+    # the 934-wide obs with its lateral stacks and running stats, a 512-256
+    # composer over 3 primitives, and a PulseVAE at im_z_fit's widths with
+    # running stats. Each imported network against the module it was saved
+    # from (float32, TF32 off); then 2 epochs each of env=im_mcp on the
+    # imported PNN (K1 -> K2), distillation from the PNN and composer
+    # teacher (K3 -> RA -> K2) and speed_z on the imported PulseVAE (K3)
+    import tempfile
+
+    from torch import nn as tnn
+
+    from pulse_tpu_torch.env.humanoid_strike import HumanoidStrikeEnv
+    from pulse_tpu_torch.env.humanoid_task import TaskConfig
+    from pulse_tpu_torch.env.humanoid_terrain import HumanoidPedestrianTerrainEnv
+    from pulse_tpu_torch.ops import quat as oq
+    from pulse_tpu_torch.utils import checkpoint as ref_ck
+
+    def seq(in_dim, units, final=None, act=tnn.SiLU):
+        layers = []
+        for u in units:
+            layers += [tnn.Linear(in_dim, u), act()]
+            in_dim = u
+        if final is not None:
+            layers.append(tnn.Linear(in_dim, final))
+        return tnn.Sequential(*layers)
+
+    class RefPNN(tnn.Module):
+        """The reference PNN: columns [Linear, act, Linear, act, Linear];
+        u[c-1][pc] = bias-free [Linear(u0 -> u1), Linear(u1 -> out)], of
+        which the forward uses the first, at the second hidden layer."""
+
+        def __init__(self, in_dim, units, out_dim, n):
+            super().__init__()
+            self.actors = tnn.ModuleList([seq(in_dim, units, out_dim, tnn.ReLU) for _ in range(n)])
+            self.u = tnn.ModuleList([tnn.ModuleList([tnn.Sequential(tnn.Linear(units[0], units[1], bias=False),
+                                                                    tnn.Linear(units[1], out_dim, bias=False))
+                                                     for _ in range(c + 1)]) for c in range(n - 1)])
+
+        def forward(self, x):
+            acts1, outs = [], []
+            for c, a in enumerate(self.actors):
+                h1 = a[:2](x)
+                lat = sum((self.u[c - 1][pc][0](acts1[pc]) for pc in range(c)), torch.zeros((), device=x.device))
+                outs.append(a[4](a[3](a[2](h1) + lat)))
+                acts1.append(h1)
+            return torch.stack(outs, dim=-2)
+
+    def prefixed(prefix, module):
+        return {f"{prefix}.{k}": v.detach().cpu() for k, v in module.state_dict().items()}
+
+    def rms_sd(dim, seed):
+        g_ = torch.Generator().manual_seed(seed)
+        return {"running_mean_std.running_mean": 0.1 * torch.randn(dim, generator=g_, dtype=torch.float64),
+                "running_mean_std.running_var": 1.0 + torch.rand(dim, generator=g_, dtype=torch.float64),
+                "running_mean_std.count": torch.tensor(1.0e6, dtype=torch.float64)}
+
+    pth_dir = tempfile.mkdtemp(prefix="chip_smoke_pth_")
+    obs_w, self_w, lat_w = 934, 358, 32
+    lz = load_config(["env=im_vae", "learning=im_z_fit"])["learning"]
+    n_prim = int(load_config(["env=im_mcp"])["env"]["num_prim"])
+    torch.manual_seed(31)
+    ref_pnn = RefPNN(obs_w, (512, 512), 69, n_prim)
+    pnn_rms = rms_sd(obs_w, 1)
+    pnn_pth = os.path.join(pth_dir, "pnn.pth")
+    torch.save({"model": {**prefixed("a2c_network.pnn", ref_pnn), **pnn_rms}, "epoch": 1}, pnn_pth)
+    ref_comp = seq(obs_w, (512, 256), n_prim, tnn.ReLU)
+    comp_pth = os.path.join(pth_dir, "composer.pth")
+    torch.save({"model": prefixed("a2c_network.composer", ref_comp), "epoch": 1}, comp_pth)
+    vae_mods = {"z_mlp": seq(obs_w, lz["encoder_units"], 5 * lat_w), "z_mu": tnn.Linear(5 * lat_w, lat_w),
+                "z_logvar": tnn.Linear(5 * lat_w, lat_w), "z_prior": seq(self_w, lz["prior_units"]),
+                "z_prior_mu": tnn.Linear(lz["prior_units"][-1], lat_w),
+                "z_prior_logvar": tnn.Linear(lz["prior_units"][-1], lat_w),
+                "actor_mlp": seq(self_w + lat_w, lz["decoder_units"]), "mu": tnn.Linear(lz["decoder_units"][-1], 69),
+                "critic_mlp": seq(obs_w, (2048, 1536, 1024)), "value": tnn.Linear(1024, 1)}
+    vae_pth = os.path.join(pth_dir, "pulse.pth")
+    vae_sd = {k: v for name, m_ in vae_mods.items() for k, v in prefixed(f"a2c_network.{name}", m_).items()}
+    torch.save({"model": {**vae_sd, **rms_sd(obs_w, 2)}, "epoch": 1}, vae_pth)
+    pth_mb = sum(os.path.getsize(os.path.join(pth_dir, f_)) for f_ in os.listdir(pth_dir)) / 2**20
+
+    # each importer's network against the module it was saved from
+    imp = {}
+    with torch.no_grad():
+        x_ = torch.randn(N_ENVS, obs_w, generator=g, device=dev)
+        z_ = torch.randn(N_ENVS, lat_w, generator=g, device=dev)
+        sd_ = ref_ck.load_torch_checkpoint(pnn_pth)["model"]
+        i_pnn, pnn_info = ref_ck.import_pnn(sd_, device=dev)
+        imp["pnn"] = float((i_pnn(x_) - ref_pnn.to(dev)(x_)).abs().max())
+        i_comp = ref_ck.import_mcp_composer(ref_ck.load_torch_checkpoint(comp_pth)["model"], final="relu", device=dev)
+        imp["composer"] = float((i_comp(x_) - torch.relu(ref_comp.to(dev)(x_))).abs().max())
+        i_rms = ref_ck.import_running_mean_std(sd_, device=dev)
+        imp["running_mean_std"] = float((i_rms.mean.double().cpu() - pnn_rms["running_mean_std.running_mean"]).abs().max())
+        vsd_ = ref_ck.load_torch_checkpoint(vae_pth)["model"]
+        i_vae = ref_ck.import_pulse_vae(vsd_, full_precision=True, device=dev)
+        m_ = {k: v.to(dev) for k, v in vae_mods.items()}
+        out_ = i_vae(x_, z_)
+        h_ = m_["z_mlp"](x_)
+        post_mu, post_lv = m_["z_mu"](h_), m_["z_logvar"](h_)
+        ph_ = m_["z_prior"](x_[:, :self_w])
+        prior_mu = m_["z_prior_mu"](ph_)
+        want_ = {"post_mu": post_mu, "post_logvar": post_lv, "prior_mu": prior_mu,
+                 "prior_logvar": torch.clamp(m_["z_prior_logvar"](ph_), -8.0, 2.0),
+                 "action_mu": m_["mu"](m_["actor_mlp"](torch.cat([x_[:, :self_w],
+                                                                  prior_mu + post_mu + torch.exp(0.5 * post_lv) * z_],
+                                                                 -1))),
+                 "value": m_["value"](m_["critic_mlp"](x_))[:, 0]}
+        imp.update({f"pulse_vae_{k}": float((out_[k] - v).abs().max()) for k, v in want_.items()})
+        del x_, z_, out_, h_, m_, i_vae, i_comp
+    imp_spec = ref_ck.pulse_vae_spec_from_torch(vsd_)
+    emit({"phase": "import_pth", "card": card, "files_MB": pth_mb, "pnn": pnn_info,
+          "pulse_vae_spec": {k: list(v) if isinstance(v, tuple) else v for k, v in imp_spec.items()},
+          "max_abs_vs_saved_module": imp, "tol": 1e-5})
+    if max(imp.values()) > 1e-5 or pnn_info["num_primitives"] != n_prim or not pnn_info["has_lateral"]:
+        fail(f"import_pth: the imported networks against the saved modules {imp}, {pnn_info}")
+
+    # env=im_mcp on the imported PNN: K1 -> K2 as train_mcp
+    res, pth_mcp_launches, info = train("import_pth_mcp", ["env=im_mcp", f"env.pnn_checkpoint={pnn_pth}"], want_mcp)
+    menv, mst = res.agent.env, res.train_state.env_state
+    mcp_frozen = all(torch.equal(v, i_pnn.state_dict()[k]) for k, v in menv.pnn.state_dict().items())
+    mcp_cmp = k1_k2_vs_plain(menv, mst)
+    info.update(per_step(info), action_dim=menv.action_dim, pnn_frozen_unchanged=mcp_frozen,
+                pnn_obs_rms_frozen=bool(menv.pnn_obs_rms.frozen), K1_K2_vs_plain_last_state=mcp_cmp)
+    emit(info)
+    want_total = dict(want_mcp, step_reward_amp=TRAIN_EPOCHS * HORIZON, observe=TRAIN_EPOCHS * HORIZON + 1)
+    if (pth_mcp_launches != want_total or menv.action_dim != n_prim or not mcp_frozen
+            or any(c["outlier_envs"] > OUTLIER_FRAC * N_ENVS for c in mcp_cmp.values())):
+        fail(f"import_pth_mcp: launches {pth_mcp_launches} (expected {want_total}), PNN unchanged {mcp_frozen}, "
+             f"K1 / K2 vs plain {mcp_cmp}")
+    del res, menv, mst
+
+    # distillation from the PNN and composer teacher: K3 -> RA -> K2
+    pth_epoch_launches = []
+
+    def counted_pth_epoch(agent, ds):
+        before = dict(_build.launches)
+        out = distill_epoch(agent, ds)
+        pth_epoch_launches.append({k: n - before[k] for k, n in _build.launches.items()})
+        return out
+
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    DistillAgent.train_epoch = counted_pth_epoch
+    t0 = time.perf_counter()
+    try:
+        res = run.main(["env=im_vae", "learning=im_z_fit", f"num_envs={N_ENVS}", f"max_epochs={TRAIN_EPOCHS}",
+                        "log_frequency=1", "device=cuda", f"output_dir={out_root}", "exp_name=import_pth_distill",
+                        f"learning.teacher_pnn_checkpoint={pnn_pth}", f"learning.teacher_composer_checkpoint={comp_pth}"])
+    finally:
+        DistillAgent.train_epoch = distill_epoch
+    torch.cuda.synchronize()
+    pd_s, pd_counts = time.perf_counter() - t0, dict(_build.launches)
+    tf_ = res.agent.teacher_fn
+    teacher_same = (all(torch.equal(v, i_pnn.state_dict()[k]) for k, v in tf_.pnn.state_dict().items())
+                    and all(torch.equal(v, ref_ck.import_mcp_composer(ref_ck.load_torch_checkpoint(comp_pth)["model"],
+                                                                      final="relu", device=dev).state_dict()[k])
+                            for k, v in tf_.composer.state_dict().items()))
+    denv, dst = res.agent.env, res.train_state.env_state
+    n_ = N_ENVS
+    with torch.no_grad():
+        progress = dst.progress + 1
+        _, ref_ = denv._post_step_ref(dst, progress)
+        pd_ = denv.action_to_pd_target(0.3 * torch.randn(n_, 69, generator=g, device=dev))
+        k3_ = substep_cuda.physics_step_cuda(denv.model, dst.physics, pd_)
+        plain3_ = physics_step(denv.model, dst.physics, pd_)
+        ra_ = cuda_obs.reward_amp(denv.consts, k3_, ref_, *denv._disc_parts(n_))
+        plain_ra = cuda_obs.reward_amp_plain(denv.consts, k3_, ref_, *denv._disc_parts(n_))
+        st_ = dst.replace(physics=k3_, progress=progress)
+        t_next = denv._motion_time(st_.motion_id, st_.start_time, progress) + denv.model.config.control_dt
+        ref_n = get_motion_state(denv.motion, st_.motion_id, t_next,
+                                 denv._cycle_offset(st_.motion_id, st_.start_time, progress))
+        k2_ = cuda_obs.observe(denv.consts, k3_, ref_n, denv._shape_obs(n_))
+        plain2_ = cuda_obs.observe_plain(denv.consts, k3_, ref_n, denv._shape_obs(n_))
+    d_cmp = {f: compare(getattr(k3_, f), getattr(plain3_, f), K1_TOL[f], n_) for f in PHYS_FIELDS}
+    d_cmp.update({nm: compare(a, b, K1_TOL[nm], n_) for nm, a, b in zip(names, ra_, plain_ra)})
+    d_cmp["obs"] = compare(k2_, plain2_, K2_TOL, n_)
+    ms = res.metrics
+    want_d = {"step_reward_amp": 0, "observe": HORIZON, "physics_step": HORIZON, "physics_step_rows": 0,
+              "reward_amp": HORIZON}
+    settle = pd_counts["physics_step"] - sum(el["physics_step"] for el in pth_epoch_launches)
+    info = {"phase": "import_pth_distill", "card": card, "envs": N_ENVS, "epochs": len(ms), "seconds_all": pd_s,
+            "launches": pd_counts, "launches_per_epoch": pth_epoch_launches, "bc_loss": [m["bc_loss"] for m in ms],
+            "teacher_frozen_unchanged": teacher_same, "teacher_obs_rms_frozen": bool(tf_.obs_rms.frozen),
+            "K3_RA_K2_vs_plain_last_state": d_cmp,
+            "rollout_ms": [1e3 * m["rollout_s"] for m in ms[1:]], "update_ms": [1e3 * m["update_s"] for m in ms[1:]],
+            "train_env_steps_per_s": [per_epoch / (m["rollout_s"] + m["update_s"]) for m in ms[1:]]}
+    emit(info)
+    if (len(pth_epoch_launches) != TRAIN_EPOCHS or any(el != want_d for el in pth_epoch_launches)
+            or settle != denv.config.fall_settle_steps or pd_counts["observe"] - TRAIN_EPOCHS * HORIZON != 1):
+        fail(f"import_pth_distill: launches {pd_counts}, per epoch {pth_epoch_launches} (expected {want_d})")
+    if not all(math.isfinite(v) for v in info["bc_loss"]) or not teacher_same:
+        fail(f"import_pth_distill: bc_loss {info['bc_loss']}, teacher unchanged {teacher_same}")
+    if any(c["outlier_envs"] > OUTLIER_FRAC * N_ENVS for c in d_cmp.values()):
+        fail(f"import_pth_distill: K3 -> RA -> K2 against the plain versions {d_cmp}")
+    pth_distill_launches = pd_counts
+    del res, denv, dst, tf_, k3_, plain3_
+
+    # speed_z on the imported PulseVAE: K3, as train_speed_z
+    res, pth_z_launches, info, _ = train_amp("import_pth_speed_z", ["env=speed_z", f"env.z_checkpoint={vae_pth}"],
+                                             want_z, TRAIN_EPOCHS, learning="pulse_z_task", trace_rollout=False)
+    zenv, zts = res.agent.env, res.train_state.ppo
+    want_vae = ref_ck.import_pulse_vae(vsd_, device=dev).state_dict()
+    z_frozen = all(torch.equal(v, want_vae[k]) for k, v in zenv.frozen.network.state_dict().items())
+    z_cmp = k3_vs_plain(zenv, zts.env_state)
+    info.update(per_step(info), frozen_vae_unchanged=z_frozen, frozen_full_precision=zenv.frozen.network.full_precision,
+                K3_vs_plain_last_state=z_cmp)
+    emit(info)
+    if (pth_z_launches != {k: TRAIN_EPOCHS * n for k, n in want_z.items()} or not z_frozen
+            or any(c["outlier_envs"] > OUTLIER_FRAC * N_ENVS for c in z_cmp.values())):
+        fail(f"import_pth_speed_z: launches {pth_z_launches}, VAE unchanged {z_frozen}, K3 vs plain {z_cmp}")
+    del res, zenv, zts, want_vae, i_pnn
+
+    # ---- the plain physics: strike, pedestrian terrain, self collision ------- #
+    # No kernel covers the coupled strike step, terrain or self collision (nor
+    # did a TPU kernel): the envs choose the plain route from their model and
+    # launch nothing. Each trains or acts at N_ENVS, then one step of 64 envs
+    # on the card is held against the same step on the CPU
+    zero_launches = {"step_reward_amp": 0, "observe": 0, "physics_step": 0, "physics_step_rows": 0, "reward_amp": 0}
+    cpu_spec_model = build_model(spec, PhysicsConfig(), device="cpu")
+    cpu_motion = build_motion_data(spec.skeleton, make_synthetic_clips(spec.skeleton, 4, seed=0), device="cpu")
+    n_cmp = 64
+
+    def tree(fn, obj):
+        if obj is None or isinstance(obj, (int, float, bool, str)):
+            return obj
+        if isinstance(obj, torch.Tensor):
+            return fn(obj)
+        if isinstance(obj, dict):
+            return {k: tree(fn, v) for k, v in obj.items()}
+        return dataclasses.replace(obj, **{f.name: tree(fn, getattr(obj, f.name)) for f in dataclasses.fields(obj)})
+
+    def card_vs_cpu(card_env, cpu_env, st) -> dict:
+        """One step of the first n_cmp envs of `st` on the card and on the CPU
+        with the same actions: the physics within K1_TOL, the reward and the
+        obs within K1's and K2's tolerances, the flags alike, in the envs
+        that reset on neither (their fresh states come from two generators)."""
+        sub = tree(lambda t: t[:n_cmp].clone(), st)
+        act = torch.rand(n_cmp, card_env.action_dim, generator=g, device=dev) * 2.0 - 1.0
+        with torch.no_grad():
+            a = card_env.step(sub, act)
+            b = cpu_env.step(tree(lambda t: t.cpu(), sub), act.cpu())
+        b = tree(lambda t: t.to(dev), b)
+        bad = a.done != b.done
+        keep = ~(a.done | b.done)
+        fields = [(f, getattr(a.physics, f), getattr(b.physics, f), K1_TOL[f]) for f in PHYS_FIELDS]
+        fields += [("reward", a.reward, b.reward, K1_TOL["reward"]), ("obs", a.obs, b.obs, K2_TOL)]
+        if "prop" in getattr(a, "task", {}):
+            fields += [(f"prop_{f}", getattr(a.task["prop"], f), getattr(b.task["prop"], f), K1_TOL["root_pos"]
+                        if f in ("pos", "rot") else K1_TOL["root_vel6"]) for f in ("pos", "rot", "lin_vel", "ang_vel")]
+        res_ = {"envs": n_cmp, "compared_envs": int(keep.sum()), "flags_differ": int(bad.sum())}
+        for name_, x, y, tol in fields:
+            err = (x.float() - y.float()).abs().reshape(n_cmp, -1).amax(dim=1)
+            bad |= keep & (err > tol)
+            res_[name_] = {"max": float(err[keep].max()) if keep.any() else 0.0, "tol": tol}
+        res_["outlier_envs"] = int(bad.sum())
+        return res_
+
+    def walkable_and_grounded(tenv, st) -> dict:
+        """The spawns on walkable cells, and the lowest foot's height above
+        the ground under it."""
+        t_ = tenv.terrain
+        cells = torch.round((st.physics.root_pos[:, :2] - t_.origin) / t_.cell_size).long()
+        walk = torch.zeros(t_.heights.shape, dtype=torch.bool, device=dev)
+        wc = torch.round((t_.walkable_xy - t_.origin) / t_.cell_size).long()
+        walk[wc[:, 0], wc[:, 1]] = True
+        on_cell = torch.equal(t_.origin + cells.float() * t_.cell_size, st.physics.root_pos[:, :2])
+        feet = [tenv.body_names.index(n_) for n_ in ("L_Ankle", "R_Ankle", "L_Toe", "R_Toe")]
+        fp = st.physics.body_pos[:, feet]
+        h_ = (fp[..., 2] - tenv._ground_z(fp[..., :2])).amin(dim=1)
+        return {"on_walkable_cells": bool(on_cell and walk[cells[:, 0], cells[:, 1]].all()),
+                "foot_height_median_m": float(h_.median()), "foot_height_min_m": float(h_.min()),
+                "foot_height_max_m": float(h_.max()),
+                "frac_feet_within_0.1m": float((h_.abs() <= FOOT_TOL).float().mean())}
+
+    def z_steps_plain(env_args: list, label: str) -> dict:
+        """8 policy-acting steps of a Z env built through run's builders."""
+        zcfg = load_config([*env_args, "learning=pulse_z_task", f"num_envs={N_ENVS}", "device=cuda"])
+        zspec, zmodel = run.build_model_from_cfg(zcfg, dev)
+        zenv = run.build_env_from_cfg(zcfg, zmodel, run.build_motion_from_cfg(zcfg, zspec, dev), dev)
+        znet = ActorCritic(zenv.obs_dim, zenv.action_dim, actor_units=(1024, 512), critic_units=(1024, 512),
+                           device=dev, seed=0)
+        zrms = RunningMeanStd.create(zenv.obs_dim, device=dev)
+        with torch.no_grad():
+            zst = zenv.reset(N_ENVS)
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            t0_ = time.perf_counter()
+            for _ in range(z_steps):
+                zst = zenv.step(zst, torch.clamp(policy_step(znet, zst.obs, g, obs_rms=zrms)[0], -1.0, 1.0))
+            torch.cuda.synchronize()
+            out_ = {"env": type(zenv.env).__name__, "physics_route": zenv.env.physics_route,
+                    "obs_dim": zenv.obs_dim, "action_dim": zenv.action_dim, "launches": dict(_build.launches),
+                    "ms_per_step": 1e3 * (time.perf_counter() - t0_) / z_steps,
+                    "obs_finite": bool(torch.isfinite(zst.obs).all()), "resets": int(zst.done.sum())}
+        if out_["launches"] != zero_launches or out_["physics_route"] != "plain" or not out_["obs_finite"]:
+            fail(f"{label}: {out_}")
+        return out_
+
+    # strike: 2 epochs of env=strike learning=pulse_z_task, then strike_z
+    box_moved, box_at_clamp, box_max_w = [], [], []
+
+    def strike_hook(agent, out):
+        prop_ = out[0].ppo.env_state.task["prop"]
+        up_ = oq.quat_rotate(prop_.rot, torch.tensor([0.0, 0.0, 1.0], device=dev).expand_as(prop_.pos))[:, 2]
+        box_moved.append(int(((up_ < 0.999) | (prop_.lin_vel[:, :2].norm(dim=-1) > 0.02)).sum()))
+        # the boxes at the prop step's velocity clamp (physics/prop.py)
+        pc_ = agent.env.model.config
+        w_b = oq.quat_rotate_inverse(prop_.rot, prop_.ang_vel).abs().amax(dim=-1)
+        box_at_clamp.append(int(((w_b >= 0.999 * pc_.max_angular_velocity)
+                                 | (prop_.lin_vel.abs().amax(dim=-1) >= 0.999 * pc_.max_linear_velocity)).sum()))
+        box_max_w.append(float(prop_.ang_vel.norm(dim=-1).max()))
+
+    res, strike_launches, info, _ = train_amp("train_strike", ["env=strike"], zero_launches, TRAIN_EPOCHS,
+                                              on_epoch=strike_hook, learning="pulse_z_task", trace_rollout=False)
+    senv_, sts = res.agent.env, res.train_state.ppo
+    s_cmp = card_vs_cpu(senv_, HumanoidStrikeEnv(cpu_spec_model, cpu_motion, senv_.config, device="cpu"), sts.env_state)
+    info.update(per_step(info), device_kernels_per_step=info["rollout_device_kernels"] / HORIZON,
+                physics_route=senv_.physics_route, obs_dim=senv_.obs_dim, boxes_moved_per_epoch=box_moved,
+                boxes_at_velocity_clamp_per_epoch=box_at_clamp, box_max_ang_vel_per_epoch=box_max_w,
+                card_vs_cpu=s_cmp, strike_z=z_steps_plain(["env=strike_z", f"env.z_checkpoint={vae_pth}"],
+                                                          "train_strike strike_z"))
+    emit(info)
+    if strike_launches != zero_launches or senv_.physics_route != "plain" or senv_.obs_dim != 373:
+        fail(f"train_strike: launches {strike_launches}, route {senv_.physics_route}, obs {senv_.obs_dim}")
+    if not max(box_moved) or s_cmp["outlier_envs"] > OUTLIER_FRAC * n_cmp:
+        fail(f"train_strike: boxes moved {box_moved}, card vs CPU {s_cmp}")
+    del res, senv_, sts
+
+    # pedestrian terrain: 2 epochs on the default 8 x 8 tiles of 8 m
+    res, terrain_launches, info, _ = train_amp("train_terrain", ["env=pedestrian_terrain"], zero_launches,
+                                               TRAIN_EPOCHS, learning="pulse_z_task", trace_rollout=False)
+    tenv_, tts = res.agent.env, res.train_state.ppo
+    with torch.no_grad():
+        spawned = walkable_and_grounded(tenv_, tenv_.reset(N_ENVS))
+    t_cmp = card_vs_cpu(tenv_, HumanoidPedestrianTerrainEnv(cpu_spec_model, cpu_motion, tenv_.config, device="cpu"),
+                        tts.env_state)
+    info.update(per_step(info), device_kernels_per_step=info["rollout_device_kernels"] / HORIZON,
+                physics_route=tenv_.physics_route, obs_dim=tenv_.obs_dim,
+                heightfield=list(tenv_.model.terrain_heights.shape), walkable_cells=int(tenv_.terrain.walkable_xy.shape[0]),
+                spawns=spawned, card_vs_cpu=t_cmp,
+                terrain_z=z_steps_plain(["env=pedestrian_terrain", "env.task=HumanoidPedestrianTerrainZ"],
+                                        "train_terrain HumanoidPedestrianTerrainZ"))
+    emit(info)
+    if (terrain_launches != zero_launches or tenv_.physics_route != "plain" or tenv_.obs_dim != 634
+            or list(tenv_.model.terrain_heights.shape) != [256, 256]):
+        fail(f"train_terrain: launches {terrain_launches}, route {tenv_.physics_route}, obs {tenv_.obs_dim}")
+    if (not spawned["on_walkable_cells"] or spawned["frac_feet_within_0.1m"] < FOOT_FRAC
+            or abs(spawned["foot_height_median_m"]) > FOOT_TOL or t_cmp["outlier_envs"] > OUTLIER_FRAC * n_cmp):
+        fail(f"train_terrain: spawns {spawned}, card vs CPU {t_cmp}")
+    del res, tenv_, tts
+    shutil.rmtree(out_root, ignore_errors=True)
+    shutil.rmtree(pth_dir, ignore_errors=True)
+
+    # self collision: 8 steps of HumanoidImEnv on a self-collision model
+    sc_model = build_model(spec, PhysicsConfig(self_collision=True), device=dev)
+    sc_env = HumanoidImEnv(sc_model, motion, EnvConfig(), device=dev, seed=0)
+    sc_cpu = HumanoidImEnv(build_model(spec, PhysicsConfig(self_collision=True), device="cpu"), cpu_motion,
+                           EnvConfig(), device="cpu", seed=0)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        sc_st = sc_env.reset(N_ENVS)
+        t0 = time.perf_counter()
+        for _ in range(SC_STEPS):
+            sc_st = sc_env.step(sc_st, 0.3 * torch.randn(N_ENVS, 69, generator=g, device=dev))
+        torch.cuda.synchronize()
+        sc_ms = 1e3 * (time.perf_counter() - t0) / SC_STEPS
+        sc_launches = dict(_build.launches)
+        sc_busy, sc_kern = device_busy(lambda: sc_env.step(sc_st, 0.3 * torch.randn(N_ENVS, 69, generator=g,
+                                                                                    device=dev)))
+    sc_finite = all(bool(torch.isfinite(getattr(sc_st.physics, f)).all()) for f in PHYS_FIELDS)
+    sc_cmp = card_vs_cpu(sc_env, sc_cpu, sc_st)
+    emit({"phase": "self_collision", "card": card, "envs": N_ENVS, "steps": SC_STEPS,
+          "physics_route": sc_env.physics_route, "launches": sc_launches, "ms_per_step": sc_ms,
+          "device_busy_ms_per_step": sc_busy, "device_kernels_per_step": sc_kern, "state_finite": sc_finite,
+          "resets": int(sc_st.done.sum()), "card_vs_cpu": sc_cmp})
+    if (sc_launches != zero_launches or sc_env.physics_route != "plain" or not sc_finite
+            or sc_cmp["outlier_envs"] > OUTLIER_FRAC * n_cmp):
+        fail(f"self_collision: route {sc_env.physics_route}, launches {sc_launches}, finite {sc_finite}, "
+             f"card vs CPU {sc_cmp}")
+    del sc_env, sc_cpu, sc_st, sc_model
+
     # ---- K3's and RA's times on the kernel phase's inputs ---------------------- #
     with torch.no_grad():
         P, n_sub = int(model.cp_body.shape[0]), model.config.steps_per_control
@@ -2178,26 +2608,36 @@ def main() -> int:
         "RA": roof(ra_ms, ra_bytes, ra_bound, ra_by, launch_geometry(lib.ra_kernel_info, N_ENVS))}})
 
     src = "pulse_tpu_torch/csrc/"
+
+    def plain_phases(kernel) -> dict:
+        """The plain-route phases' launches of a kernel (each gated to 0)."""
+        return {"train_strike": strike_launches[kernel], "train_terrain": terrain_launches[kernel],
+                "self_collision": sc_launches[kernel]}
+
     emit({"kernels": [
         {"name": "step_reward_amp", "route": "cuda", "source": src + "step_reward_amp.cu",
          "replaces": "pulse_tpu/env/pallas_obs.py:376",
          "launches": sum(n["step_reward_amp"] for n in (im_launches, amp_im_launches, mcp_launches, im_z_launches,
-                                                         pulse_launches)),
+                                                         pulse_launches, pth_mcp_launches)),
          "launches_by_phase": {"train_im": im_launches["step_reward_amp"],
                                "train_amp_im": amp_im_launches["step_reward_amp"],
                                "train_mcp": mcp_launches["step_reward_amp"],
                                "z_im_traj": im_z_launches["step_reward_amp"],
-                               "pulse_stages": pulse_launches["step_reward_amp"]},
+                               "pulse_stages": pulse_launches["step_reward_amp"],
+                               "import_pth_mcp": pth_mcp_launches["step_reward_amp"], **plain_phases("step_reward_amp")},
          "max_abs_err": max_err["step_reward_amp"], "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": None},
         {"name": "observe", "route": "cuda", "source": src + "observe.cuh",
          "replaces": "pulse_tpu/env/pallas_obs.py:558",
          "launches": sum(n["observe"] for n in (im_launches, amp_im_launches, mcp_launches, mcp_getup_launches,
-                                                 dr_launches, im_z_launches, pulse_launches)),
+                                                 dr_launches, im_z_launches, pulse_launches, pth_mcp_launches,
+                                                 pth_distill_launches)),
          "launches_by_phase": {"train_im": im_launches["observe"], "train_amp_im": amp_im_launches["observe"],
                                "train_mcp": mcp_launches["observe"], "train_mcp_getup": mcp_getup_launches["observe"],
                                "train_dr": dr_launches["observe"], "z_im_traj": im_z_launches["observe"],
-                               "pulse_stages": pulse_launches["observe"]},
+                               "pulse_stages": pulse_launches["observe"],
+                               "import_pth_mcp": pth_mcp_launches["observe"],
+                               "import_pth_distill": pth_distill_launches["observe"], **plain_phases("observe")},
          "max_abs_err": max_err["observe"], "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": None},
         {"name": "physics_step", "route": "cuda", "source": src + "physics_step.cu",
@@ -2205,7 +2645,8 @@ def main() -> int:
          "launches": sum(n["physics_step"] for n in (getup_launches, vr_launches, amp_launches,
                                                      amp_getup_launches, mcp_getup_launches, speedz_launches,
                                                      speedz_eval_launches, reachz_launches, reachz_eval_launches,
-                                                     traj_z_launches, pulse_launches)),
+                                                     traj_z_launches, pulse_launches, pth_distill_launches,
+                                                     pth_z_launches)),
          "launches_by_phase": {"train_getup": getup_launches["physics_step"],
                                "train_vr": vr_launches["physics_step"], "train_amp": amp_launches["physics_step"],
                                "train_amp_getup": amp_getup_launches["physics_step"],
@@ -2215,24 +2656,27 @@ def main() -> int:
                                "train_reach_z": reachz_launches["physics_step"],
                                "train_reach_z_test_true": reachz_eval_launches["physics_step"],
                                "z_im_traj": traj_z_launches["physics_step"],
-                               "pulse_stages": pulse_launches["physics_step"]},
+                               "pulse_stages": pulse_launches["physics_step"],
+                               "import_pth_distill": pth_distill_launches["physics_step"],
+                               "import_pth_speed_z": pth_z_launches["physics_step"], **plain_phases("physics_step")},
          "max_abs_err": max_err["physics_step"], "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
          "bound_by": k3_by, "library_ms": None},
         {"name": "physics_step_rows", "route": "cuda", "source": src + "physics_step.cu",
          "replaces": "pulse_tpu/physics/substep_pallas.py:744",
          "launches": shape_launches["physics_step_rows"] + dr_launches["physics_step_rows"],
          "launches_by_phase": {"train_shape": shape_launches["physics_step_rows"],
-                               "train_dr": dr_launches["physics_step_rows"]},
+                               "train_dr": dr_launches["physics_step_rows"], **plain_phases("physics_step_rows")},
          "max_abs_err": max_err["physics_step_rows"], "ms": k3r_ms, "plain_ms": k3r_plain_ms, "bound_ms": k3r_bound,
          "bound_by": k3r_by, "library_ms": None},
         {"name": "reward_amp", "route": "cuda", "source": src + "reward_amp.cu",
          "replaces": "pulse_tpu/env/pallas_obs.py:309",
          "launches": sum(n["reward_amp"] for n in (getup_launches, amp_launches, amp_getup_launches,
-                                                   mcp_getup_launches, dr_launches)),
+                                                   mcp_getup_launches, dr_launches, pth_distill_launches)),
          "launches_by_phase": {"train_getup": getup_launches["reward_amp"], "train_amp": amp_launches["reward_amp"],
                                "train_amp_getup": amp_getup_launches["reward_amp"],
                                "train_mcp_getup": mcp_getup_launches["reward_amp"],
-                               "train_dr": dr_launches["reward_amp"]},
+                               "train_dr": dr_launches["reward_amp"],
+                               "import_pth_distill": pth_distill_launches["reward_amp"], **plain_phases("reward_amp")},
          "max_abs_err": max_err["reward_amp"], "ms": ra_ms, "plain_ms": ra_plain_ms, "bound_ms": ra_bound,
          "bound_by": ra_by, "library_ms": None},
     ]})

@@ -31,7 +31,9 @@ MCP envs blend frozen primitives there); then
       - else kernel K3 (physics) and kernel RA, which together compute what
         K1 does;
   * otherwise `_step_general`: the physics (K3 or K3-rows under isaac_pd;
-    the pd and force modes' plain PyTorch steps, `physics/step.py`), then
+    on a model outside the kernels' surface, terrain or self collision, the
+    plain `physics_step`; the pd and force modes' plain PyTorch steps,
+    `physics/step.py`), then
     the reward over the tracked bodies, the distances and the AMP row in
     plain PyTorch (the counterpart of the JAX package's per-env XLA
     `_finish_step`);
@@ -49,7 +51,8 @@ env's shape row (gender, betas, limb weights; zeros until shapes are
 enabled) follows the self obs and is appended to every AMP row. Random
 draws come from the env's `torch.Generator`. With `use_pallas_physics`
 false each kernel's plain version runs in its place, also on the card (the
-JAX package's XLA arm).
+JAX package's XLA arm). `physics_route` says, from the constructor on,
+whether the physics kernels run ("kernel") or not ("plain").
 """
 
 from __future__ import annotations
@@ -221,8 +224,10 @@ class HumanoidImEnv:
         self._check_config()
         if cfg.has_shape_obs_disc and not cfg.has_shape_obs:
             raise ValueError("has_shape_obs_disc requires has_shape_obs")
-        if self.device.type == "cuda" and cfg.use_pallas_physics and not substep_cuda.supported(model):
-            raise NotImplementedError("model outside the CUDA kernel's surface")
+        # "plain" with `use_pallas_physics` off, off isaac_pd, or on a model
+        # outside the kernels' surface (terrain, self collision)
+        self.physics_route = substep_cuda.route(model, cfg.use_pallas_physics and cfg.control_mode == "isaac_pd")
+        print(f"{type(self).__name__}: physics route {self.physics_route}", flush=True)
         self.seed = seed
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
@@ -295,11 +300,13 @@ class HumanoidImEnv:
         """The step's physics is K1's or K3's and its reward and observation
         are K1's / RA's and K2's: isaac_pd, task obs v6 over all bodies with
         one future frame, self obs v1, no far-goal mode (the JAX package's
-        `_fused_step_ok` surface). DR noise, obs noise and occlusion act on
-        the action and the final observation, so they ride this path."""
+        `_fused_step_ok` surface), on a model the physics kernels cover.
+        DR noise, obs noise and occlusion act on the action and the final
+        observation, so they ride this path."""
         cfg = self.config
         return (cfg.control_mode == "isaac_pd" and cfg.obs_v == 6 and cfg.self_obs_v == 1
-                and cfg.num_traj_samples == 1 and self._all_tracked and not cfg.zero_out_far)
+                and cfg.num_traj_samples == 1 and self._all_tracked and not cfg.zero_out_far
+                and substep_cuda.supported(self.model))
 
     def _fused_step_ok(self) -> bool:
         """K1 may run the step (of a shared model): no shape channels, no
@@ -603,15 +610,16 @@ class HumanoidImEnv:
 
     def _physics_step(self, physics: PhysicsState, pd_target: torch.Tensor, actions: torch.Tensor) -> PhysicsState:
         """One control period of the env's control mode: isaac_pd K3, or
-        K3-rows under each env's own model; pd and force the plain PyTorch
-        steps (force: tau = action * motor_effort * power_scale)."""
+        K3-rows under each env's own model (on the plain route
+        `physics_step`); pd and force the plain PyTorch steps (force:
+        tau = action * motor_effort * power_scale)."""
         cfg = self.config
         m = self.model if self.batched_model is None else self.batched_model
         if cfg.control_mode == "force":
             return physics_step_torque(m, physics, actions * (cfg.motor_effort * cfg.power_scale))
         if cfg.control_mode == "pd":
             return physics_step_pd_explicit(m, physics, pd_target)
-        if not cfg.use_pallas_physics:
+        if self.physics_route == "plain":
             return physics_step(m, physics, pd_target)
         rows = None if self.batched_model is None else self._model_rows(pd_target.shape[0])
         return substep_cuda.physics_step_cuda(self.model, physics, pd_target, model_rows=rows)

@@ -10,7 +10,7 @@ The fall states are made once, when the env is built: random poses dropped
 from `fall_drop_height` and run for `fall_settle_steps` control steps as a
 ragdoll (gains off, light damping). On the card those steps are K3
 launches at B = `num_fall_states` (plain steps with `use_pallas_physics`
-false). Because this env overrides termination
+false or on a model outside the kernel's surface). Because this env overrides termination
 and reset, its step runs K3 → RA instead of K1 (`HumanoidImEnv.step`).
 """
 
@@ -88,7 +88,8 @@ class HumanoidImGetupEnv(HumanoidImEnv):
         st = fall_drop_start(m, cfg.num_fall_states, cfg.fall_drop_height, self.device)
         rag = ragdoll(m)
         pd = torch.zeros(cfg.num_fall_states, m.num_dof, device=self.device)
-        step = substep_cuda.physics_step_cuda if cfg.use_pallas_physics else physics_step
+        kernel = substep_cuda.route(m, cfg.use_pallas_physics) == "kernel"
+        step = substep_cuda.physics_step_cuda if kernel else physics_step
         for _ in range(cfg.fall_settle_steps):
             st = step(rag, st, pd)
         st = st.replace(root_vel6=torch.zeros_like(st.root_vel6), joint_omega=torch.zeros_like(st.joint_omega))

@@ -3,14 +3,17 @@ envs in PyTorch.
 
 Counterpart of `pulse_tpu/env/humanoid_task.py` (PHC's HumanoidAMPTask
 subclasses): reference-state-init resets from the motion store, the
-physics control step (kernel K3 on CUDA, its plain version on the CPU),
-the max-coordinate self obs v1 (358 wide), the generic contact-based fall
-check over the non-foot bodies, the AMP obs v1 (232 wide a step) for a
-discriminator's style reward, and the branch-free auto-reset merge with
-fresh states. A subclass defines the task state (a dict of [B, ...]
+physics control step (`physics_route` "kernel": kernel K3 on CUDA, its
+plain version on the CPU; "plain", on a model outside K3's surface such as
+a terrain model: the plain `physics_step`, no kernel), the max-coordinate
+self obs v1 (358 wide), the generic contact-based fall check over the
+non-foot bodies (on terrain, each body's height above the ground under
+it), the AMP obs v1 (232 wide a step) for a discriminator's style reward,
+and the branch-free auto-reset merge with fresh states. A subclass defines the task state (a dict of [B, ...]
 tensors), its draws, its per-step update, its task obs and its reward.
 
-One `step`: the PD targets of the actions, K3, progress + 1, the task's
+One `step`: the PD targets of the actions, the physics (K3, or on the plain
+route `physics_step`), progress + 1, the task's
 update on the stepped state (with the switch draws), the reward of (pre-step
 state, stepped state), the power penalty where `power_reward`, the fall
 check, the AMP history roll, the observation of the stepped state, then
@@ -21,7 +24,8 @@ terminate are the stepped ones.
 Every random draw comes from the env's `torch.Generator` through
 `_sample_reset` (clip, start time and the task's draws) and
 `_sample_switch` (the task's per-step redraw), which a test can replace to
-feed given draws. Terrain (`pulse_tpu/env/terrain.py`) is not ported.
+feed given draws. The strike and pedestrian-terrain tasks are
+`env/humanoid_strike.py` and `env/humanoid_terrain.py`.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from pulse_tpu_torch._device import resolve_device
 from pulse_tpu_torch.assets import load_smpl_humanoid
 from pulse_tpu_torch.env import kernels
 from pulse_tpu_torch.env.humanoid_im import DEFAULT_KEY_BODIES, _select
+from pulse_tpu_torch.env.terrain import terrain_height
 from pulse_tpu_torch.motion.motion_lib import MotionData, get_motion_state, sample_motions, sample_time
 from pulse_tpu_torch.ops import quat as q
 from pulse_tpu_torch.physics import substep_cuda
@@ -43,6 +48,7 @@ from pulse_tpu_torch.physics.model import Model
 from pulse_tpu_torch.physics.state import (
     PhysicsState, dof_pos_from_state, dof_vel_from_state, physics_state_from_numpy, state_from_kinematics,
 )
+from pulse_tpu_torch.physics.step import physics_step
 
 DEFAULT_CONTACT_BODIES = ("R_Ankle", "L_Ankle", "R_Toe", "L_Toe")
 
@@ -133,16 +139,13 @@ class HumanoidTaskEnv:
 
     task_obs_dim: int = 0
     reward_raw_dim: int = 1
+    kernel_step: bool = True   # the step may run K3 (`physics_route`); False where no kernel covers it
 
     def __init__(self, model: Model, motion: MotionData, config: TaskConfig | None = None, device=None,
                  seed: int = 0):
         self.device = resolve_device(device)
         if model.device != self.device or motion.gts.device != self.device:
             raise ValueError(f"model and motion must live on {self.device}")
-        if getattr(model, "has_terrain", False):
-            raise NotImplementedError("task envs on terrain are not ported yet (ROADMAP queue 1, item 11b)")
-        if self.device.type == "cuda" and not substep_cuda.supported(model):
-            raise NotImplementedError("model outside the CUDA kernel's surface")
         self.model = model
         self.motion = motion
         self.config = cfg = config or TaskConfig()
@@ -160,6 +163,8 @@ class HumanoidTaskEnv:
                                    + 3 * len(self.key_body_ids))
         self.amp_obs_dim = cfg.num_amp_obs_steps * self.amp_obs_dim_single
         self.action_dim = D
+        self.physics_route = substep_cuda.route(model, self.kernel_step)
+        print(f"{type(self).__name__}: physics route {self.physics_route}", flush=True)
 
     def _ctor_kwargs(self) -> dict:
         """Constructor kwargs beyond (model, motion, config, device, seed); a
@@ -272,10 +277,20 @@ class HumanoidTaskEnv:
     def action_to_pd_target(self, actions: torch.Tensor) -> torch.Tensor:
         return self.model.pd_action_offset + self.model.pd_action_scale * actions
 
+    def _body_pos_above_ground(self, physics: PhysicsState) -> torch.Tensor:
+        """The body positions the fall check reads: on terrain each body's
+        height is taken above the ground under it."""
+        m = self.model
+        if not m.has_terrain:
+            return physics.body_pos
+        gz = terrain_height(m.terrain_heights, m.terrain_cell, m.terrain_origin, physics.body_pos[..., 0:2])
+        return torch.cat([physics.body_pos[..., 0:2], (physics.body_pos[..., 2] - gz)[..., None]], dim=-1)
+
     def step(self, state: TaskEnvState, actions: torch.Tensor) -> TaskEnvState:
         cfg, B = self.config, actions.shape[0]
         pd_target = self.action_to_pd_target(actions)
-        physics = substep_cuda.physics_step_cuda(self.model, state.physics, pd_target)
+        step = substep_cuda.physics_step_cuda if self.physics_route == "kernel" else physics_step
+        physics = step(self.model, state.physics, pd_target)
         progress = state.progress + 1
         stepped = state.replace(physics=physics, progress=progress)
         stepped = stepped.replace(task=self._update_task(stepped, self._sample_switch(B)))
@@ -287,8 +302,8 @@ class HumanoidTaskEnv:
                    - m.joint_kd.repeat_interleave(3, dim=-1) * dof_vel)
             reward = reward + kernels.compute_power_penalty(tau, dof_vel, cfg.power_coefficient)
         reset, terminate = kernels.compute_humanoid_reset(
-            progress, physics.contact_force, physics.body_pos, self.non_contact_body_ids, cfg.termination_height,
-            cfg.episode_length, enable_early_termination=cfg.enable_early_termination)
+            progress, physics.contact_force, self._body_pos_above_ground(physics), self.non_contact_body_ids,
+            cfg.termination_height, cfg.episode_length, enable_early_termination=cfg.enable_early_termination)
         stepped = stepped.replace(amp_hist=torch.cat([self._amp_row(physics)[:, None], state.amp_hist[:, :-1]], dim=1))
         stepped = stepped.replace(obs=self._observe(stepped))
         merged = _select(reset, self.reset(B), stepped)

@@ -13,8 +13,11 @@ Counterpart of `pulse_tpu/learning/pnn.py`:
     off, whatever the caller's (the flax PNN has no compute dtype);
   * `MCPComposer`: an MLP to weights over the primitives (softmax, or a
     plain activation as the reference's distillation teacher rebuilds it);
-  * `compose_actions`: the weighted blend sum_i w_i prim_i.
-`pnn_from_jax` and `mcp_composer_from_jax` load flax param trees.
+  * `compose_actions`: the weighted blend sum_i w_i prim_i;
+  * `make_pnn_mcp_teacher`: the frozen PHC teacher of distillation, the
+    composer's blend of the primitives clipped to the action bounds.
+`pnn_from_jax` and `mcp_composer_from_jax` load flax param trees; the
+reference's `.pth` files load through `utils/checkpoint.py`.
 """
 
 from __future__ import annotations
@@ -118,6 +121,24 @@ class MCPComposer(nn.Module):
 def compose_actions(weights: torch.Tensor, primitive_actions: torch.Tensor) -> torch.Tensor:
     """weights [..., N], primitive actions [..., N, A] -> [..., A]."""
     return torch.einsum("...n,...na->...a", weights, primitive_actions)
+
+
+def make_pnn_mcp_teacher(pnn: PNN, composer: MCPComposer, obs_rms=None):
+    """The frozen teacher `obs -> action` of distillation: the composer's
+    weights over the PNN's primitives on the observation (normalized by
+    `obs_rms` where given), blended and clipped to [-1, 1], in float32 with
+    autocast off. Both networks are frozen in place."""
+    pnn.requires_grad_(False)
+    composer.requires_grad_(False)
+
+    @torch.no_grad()
+    def teacher_fn(obs: torch.Tensor) -> torch.Tensor:
+        with torch.autocast(obs.device.type, enabled=False):
+            x = obs.float() if obs_rms is None else obs_rms.normalize(obs.float())
+            return torch.clamp(compose_actions(composer(x), pnn(x)), -1.0, 1.0)
+
+    teacher_fn.pnn, teacher_fn.composer, teacher_fn.obs_rms = pnn, composer, obs_rms
+    return teacher_fn
 
 
 def _t(x) -> torch.Tensor:

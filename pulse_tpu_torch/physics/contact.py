@@ -2,9 +2,12 @@
 friction over the model's proxy points (sphere centres, capsule ends, box
 corners), batched over envs.
 
-Counterpart of `pulse_tpu/physics/contact.py` (flat plane z = 0). The
-per-point leaves ([P] shared or [B, P] per-env) broadcast over the batch;
-`cp_body` is shared.
+Counterpart of `pulse_tpu/physics/contact.py`: on the plane z = 0, or
+on the model's heightfield (`Model.with_terrain`), where a point's depth is
+measured from the ground height under it and the normal force acts along
+the terrain's normal there (`env/terrain.py`). The per-point leaves ([P]
+shared or [B, P] per-env) broadcast over the batch; `cp_body` and the
+terrain are shared.
 """
 
 from __future__ import annotations
@@ -27,9 +30,16 @@ def plane_contact_forces(
     cfg = model.config
     b = model.cp_body
     p = body_pos[:, b] + q.quat_rotate(body_rot[:, b], model.cp_offset)
-    normal = torch.zeros_like(p)
-    normal[..., 2] = 1.0
-    depth = model.cp_radius - p[..., 2]
+    if model.has_terrain:
+        from pulse_tpu_torch.env.terrain import terrain_height, terrain_normal
+
+        args = (model.terrain_heights, model.terrain_cell, model.terrain_origin, p[..., 0:2])
+        normal = terrain_normal(*args)
+        depth = model.cp_radius - (p[..., 2] - terrain_height(*args))
+    else:
+        normal = torch.zeros_like(p)
+        normal[..., 2] = 1.0
+        depth = model.cp_radius - p[..., 2]
     arm = p - body_pos[:, b]
     vp = body_vel[:, b] + q.cross(body_ang_vel[:, b], arm)
     vn = torch.sum(vp * normal, dim=-1)

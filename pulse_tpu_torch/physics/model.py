@@ -1,11 +1,14 @@
 """Static physics model: device constants derived from a RobotSpec.
 
-Counterpart of `pulse_tpu/physics/model.py` for flat ground without self
-collision (no terrain, no `cap_*` capsule leaves). A model is shared by all
-envs, or batched for per-env body shapes (`physics/shape_variation.py`):
-then every array leaf except `cp_body` carries a leading env axis [B, ...],
-while the topology (`parents`, `levels`, `level_index`, `cp_body`) stays
-shared, as the JAX package's batched Model keeps it static.
+Counterpart of `pulse_tpu/physics/model.py`, with its capsule leaves
+(`cap_*`, one capsule a body for self collision, `physics/self_collision.py`)
+and its optional heightfield terrain (`terrain_*`, `with_terrain`; without
+it the ground is the plane z = 0). A model is shared by all envs, or batched
+for per-env body shapes (`physics/shape_variation.py`): then every leaf of
+`BATCHED_LEAVES` carries a leading env axis [B, ...], while the topology
+(`parents`, `levels`, `level_index`, `cp_body`) and the terrain stay shared,
+as the JAX package's batched Model keeps them static. The capsule leaves
+are batched where shape variation scales them, else shared.
 """
 
 from __future__ import annotations
@@ -82,6 +85,27 @@ class Model:
     cp_radius: torch.Tensor            # [P]
     cp_friction: torch.Tensor          # [P]
     level_index: list                  # (body ids, parent ids) per non-root level, device tensors
+    cap_p0: torch.Tensor | None = None           # [J, 3] capsule ends in the body frame
+    cap_p1: torch.Tensor | None = None           # [J, 3]
+    cap_r: torch.Tensor | None = None            # [J] capsule radii
+    terrain_heights: torch.Tensor | None = None  # [H, W] m; None: the plane z = 0
+    terrain_cell: float = 0.25                   # m per heightfield cell
+    terrain_origin: torch.Tensor | None = None   # [2] world xy of cell (0, 0)
+
+    @property
+    def has_terrain(self) -> bool:
+        return self.terrain_heights is not None
+
+    def with_terrain(self, heights, cell_size: float, origin) -> "Model":
+        """This model on a heightfield; applied to a model that already has
+        one, the new one replaces it (so with the same field it changes
+        nothing)."""
+        return dataclasses.replace(
+            self,
+            terrain_heights=torch.as_tensor(heights, dtype=torch.float32, device=self.device),
+            terrain_cell=float(cell_size),
+            terrain_origin=torch.as_tensor(origin, dtype=torch.float32, device=self.device),
+        )
 
     @property
     def num_joints(self) -> int:
@@ -188,15 +212,16 @@ def build_pd_action_offset_scale(
 
 
 def build_model(spec: RobotSpec, config: PhysicsConfig | None = None, device=None) -> Model:
+    from pulse_tpu_torch.physics.self_collision import capsule_proxies
+
     device = resolve_device(device)
     config = config or PhysicsConfig()
-    if config.self_collision:
-        raise NotImplementedError("self collision is not ported yet")
     tree = spec.skeleton
     I_spatial = spatial.spatial_inertia(
         torch.as_tensor(spec.body_mass), torch.as_tensor(spec.body_com), torch.as_tensor(spec.body_inertia)
     )
     cp_body, cp_offset, cp_radius, cp_fric = _contact_points(spec)
+    cap_p0, cap_p1, cap_r = capsule_proxies(spec)
     pd_offset, pd_scale = build_pd_action_offset_scale(
         spec.dof_lower, spec.dof_upper, list(tree.node_names[1:])
     )
@@ -231,4 +256,7 @@ def build_model(spec: RobotSpec, config: PhysicsConfig | None = None, device=Non
         cp_radius=up(cp_radius),
         cp_friction=up(cp_fric),
         level_index=[(up(b, torch.long), up(p, torch.long)) for b, p in levels[1:]],
+        cap_p0=up(cap_p0),
+        cap_p1=up(cap_p1),
+        cap_r=up(cap_r),
     )

@@ -6,7 +6,9 @@ body per env with the same compliant contact as the humanoid's, its 8
 corners against the ground plane and the humanoid's contact-point spheres
 against its signed distance field, the forces equal and opposite on both.
 `prop_step` advances it one substep and returns the reaction forces that
-`step.physics_step_with_prop` applies to the humanoid.
+`step.physics_step_with_prop` applies to the humanoid. Unlike the JAX
+package's, its velocities are clamped to the config's maxima (ROADMAP
+queue 3).
 """
 
 from __future__ import annotations
@@ -122,10 +124,16 @@ def prop_step(model: Model, spec: PropSpec, prop: PropState, body_pos: torch.Ten
     f_ext_h = body_pos.new_zeros(B, J, 6).index_add_(1, b, torch.cat([q.cross(arm_h, f_on_h), f_on_h], dim=-1))
 
     # ---- integrate: semi-implicit, Euler's equations in the body frame ---- #
-    lin_vel = prop.lin_vel + h * force / m
+    # The velocities are clamped to the config's maxima, as the humanoid's
+    # are: without the clamp the explicit gyroscopic term lets a spinning
+    # box's angular velocity grow without bound (to inf, then NaN, within
+    # ~60 control steps of a strike episode); below the maxima the step is
+    # the JAX package's
+    wmax, vmax = cfg.max_angular_velocity, cfg.max_linear_velocity
+    lin_vel = torch.clamp(prop.lin_vel + h * force / m, -vmax, vmax)
     w_body = q.quat_rotate_inverse(prop.rot, prop.ang_vel)
     t_body = q.quat_rotate_inverse(prop.rot, torque)
-    w_body = w_body + h * (t_body - q.cross(w_body, I_diag * w_body)) / I_diag
+    w_body = torch.clamp(w_body + h * (t_body - q.cross(w_body, I_diag * w_body)) / I_diag, -wmax, wmax)
     new = PropState(pos=prop.pos + h * lin_vel,
                     rot=q.quat_mul_norm(prop.rot, q.exp_map_to_quat(h * w_body)),
                     lin_vel=lin_vel, ang_vel=q.quat_rotate(prop.rot, w_body))

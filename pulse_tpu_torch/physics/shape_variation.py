@@ -72,6 +72,8 @@ def scale_model(model: Model, s: torch.Tensor) -> Model:
         cp_offset=b(model.cp_offset),
         cp_radius=b(model.cp_radius),
         cp_friction=bc(model.cp_friction),
+        **({} if model.cap_p0 is None else
+           {"cap_p0": b(model.cap_p0), "cap_p1": b(model.cap_p1), "cap_r": b(model.cap_r)}),
     )
 
 

@@ -56,13 +56,24 @@ BUILT_GROUPS = (1, 4, 8, 16, 32)   # csrc/physics_step.cuh HM_GROUPS: G = 1 and 
 
 
 def supported(model: Model) -> bool:
-    """The kernel covers the flat-ground stable-PD step of one shared model
-    with at most MAX_J bodies and MAX_P contact points."""
+    """The kernel covers the stable-PD step of one shared model on flat
+    ground without self collision, with at most MAX_J bodies and MAX_P
+    contact points (the TPU kernel's `supported` surface)."""
     return (
         model.num_bodies <= MAX_J
         and model.cp_body.shape[0] <= MAX_P
         and not model.config.self_collision
+        and not model.has_terrain
     )
+
+
+def route(model: Model, use_kernels: bool = True) -> str:
+    """The route of an env's physics, chosen from the model before any
+    launch (the JAX package's `_pallas_eligible`): "kernel" (K3 or K3-rows;
+    their plain versions on the CPU) where the caller may use the kernels
+    and `supported(model)` holds, else "plain" (`physics_step`, no kernel).
+    Not a fallback: a kernel that fails to build or launch still raises."""
+    return "kernel" if use_kernels and supported(model) else "plain"
 
 
 def _padded(x, shape, dtype) -> np.ndarray:

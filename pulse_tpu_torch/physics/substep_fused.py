@@ -3,9 +3,12 @@ velocities in one level sweep, plane contacts, stable-PD torques, the
 articulated-body algorithm's passes 2 and 3 (`aba_fast.solve_accelerations`),
 and semi-implicit integration (`integrate`).
 
-Counterpart of `pulse_tpu/physics/substep_fused.py` (flat plane, stable PD).
-This plain version is the oracle of the CUDA kernel in
-`pulse_tpu_torch/csrc/physics_step.cuh`. The model may be shared or batched
+Counterpart of `pulse_tpu/physics/substep_fused.py` (stable PD): the
+contacts on the plane or the model's terrain (`contact.plane_contact_forces`),
+and with `PhysicsConfig.self_collision` the capsule self contacts
+(`self_collision.self_collision_forces`), counted in the contact force. On
+flat ground without self collision this plain version is the oracle of the
+CUDA kernel in `pulse_tpu_torch/csrc/physics_step.cuh`. The model may be shared or batched
 (per-env shapes): its per-body leaves are read with a leading env axis,
 [1, ...] or [B, ...], and broadcast against the [B, ...] state.
 """
@@ -20,6 +23,7 @@ from pulse_tpu_torch.physics.aba_fast import bias_forces, joint_frames, solve_ac
 from pulse_tpu_torch.physics.contact import plane_contact_forces
 from pulse_tpu_torch.physics.dynamics import spd_joint_torques
 from pulse_tpu_torch.physics.model import Model
+from pulse_tpu_torch.physics.self_collision import self_collision_forces
 from pulse_tpu_torch.physics.state import PhysicsState
 
 
@@ -48,6 +52,10 @@ def fused_substep(model: Model, state: PhysicsState, pd_target_dof: torch.Tensor
     vl_world = q.quat_rotate(rots, v[..., 3:6])
 
     f_ext, net_contact = plane_contact_forces(model, poss, rots, vl_world, w_world)
+    if model.config.self_collision:
+        f_self = self_collision_forces(model, model.cap_p0, model.cap_p1, model.cap_r, poss, rots, vl_world, w_world)
+        f_ext = f_ext + f_self
+        net_contact = net_contact + f_self[..., 3:6]
     tau, d_extra = spd_joint_torques(model, state, pd_target_dof, h)
     pA = bias_forces(model, v, f_ext, rots, g)
     a0, qdd = solve_accelerations(model, q_pc, r_off, c_bias, pA, tau, d_extra)

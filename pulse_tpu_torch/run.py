@@ -12,6 +12,9 @@ Counterpart of `pulse_tpu/run.py`:
         learning.teacher_checkpoint=output/<exp>/ckpt
     python -m pulse_tpu_torch.run env=speed_z learning=pulse_z_task num_envs=3072 \
         env.z_checkpoint=output/<distill exp>/ckpt
+    python -m pulse_tpu_torch.run env=strike learning=pulse_z_task num_envs=3072
+    python -m pulse_tpu_torch.run env=pedestrian_terrain learning=pulse_z_task num_envs=3072
+    python -m pulse_tpu_torch.run env=im_mcp learning=im_ppo env.pnn_checkpoint=<PHC pnn>.pth
 
 composes the YAML config tree (`utils/config.py`), builds the model, the
 synthetic motion clips, the env and the agent (PPO, PPO with the AMP
@@ -46,13 +49,22 @@ VR three-point tracking), the isaac_pd, pd and force control modes
 `env.randomization_params`), and HumanoidIm with per-env body
 shapes (`env=im_shape`: isotropic scales, or SMPL-beta skeletons with
 `env.smpl_model_path`); PULSE's downstream tasks HumanoidSpeed,
-HumanoidReach and HumanoidTraj (`env=speed`, `env=reach`, `env=traj`),
-and with latent actions decoded by a frozen PulseVAE their Z names and
-HumanoidImZ (`env=speed_z`, ..., `env=im_z`; `env.z_checkpoint` one of the
-port's distillation runs, else a fresh PulseVAE from seed 0), trained
-with `learning=pulse_z_task`. Other tasks, agents and options raise
-NotImplementedError naming the ROADMAP item that ports them. The distill agent has no evaluator: `test=true` and
-`eval_frequency` raise with it.
+HumanoidReach, HumanoidTraj, HumanoidStrike and HumanoidPedestrianTerrain
+(`env=speed`, `env=reach`, `env=traj`, `env=strike`,
+`env=pedestrian_terrain`), and with latent actions decoded by a frozen
+PulseVAE their Z names and HumanoidImZ (`env=speed_z`, ..., `env=strike_z`,
+`env.task=HumanoidPedestrianTerrainZ`, `env=im_z`; `env.z_checkpoint` one of
+the port's distillation runs or a reference PULSE `.pth`, else a fresh
+PulseVAE from seed 0), trained with `learning=pulse_z_task`. The reference's
+PHC `.pth` checkpoints load as the MCP envs' frozen PNN
+(`env.pnn_checkpoint`) and as the PNN and composer teacher of distillation
+(`learning.teacher_pnn_checkpoint`, `learning.teacher_composer_checkpoint`).
+A checkpoint file is read as a reference one by its content (a "model"
+dict of `a2c_network.*` keys), not by its suffix as the JAX package does,
+which would take the port's own `epoch_N.pt` for one. Other tasks, agents
+and options raise NotImplementedError naming the ROADMAP item that ports
+them. The distill agent has no evaluator: `test=true` and `eval_frequency`
+raise with it.
 """
 
 from __future__ import annotations
@@ -68,13 +80,9 @@ import time
 import torch
 
 # task -> the ROADMAP item that ports it
-_UNPORTED_TASKS = {
-    "HumanoidImMCPDemo": 15, "HumanoidImDemo": 15,
-    "HumanoidStrike": "11b", "HumanoidStrikeZ": "11b",
-    "HumanoidPedestrianTerrain": "11b", "HumanoidPedestrianTerrainZ": "11b",
-}
+_UNPORTED_TASKS = {"HumanoidImMCPDemo": 15, "HumanoidImDemo": 15}
 # the downstream task envs, and their latent-action (Z) names
-_TASK_ENVS = ("HumanoidSpeed", "HumanoidReach", "HumanoidTraj")
+_TASK_ENVS = ("HumanoidSpeed", "HumanoidReach", "HumanoidTraj", "HumanoidStrike", "HumanoidPedestrianTerrain")
 
 
 def _unported(what: str, item) -> NotImplementedError:
@@ -185,8 +193,8 @@ def build_env_from_cfg(cfg, model, motion, device):
         if task == "HumanoidAMP":
             env = HumanoidAMPEnv(model, motion, ec, device=device, seed=seed, **amp_kw)
         elif task == "HumanoidImMCP":
-            env = HumanoidImMCPEnv(model, motion, ec, device=device, seed=seed,
-                                   pnn=build_pnn_from_cfg(cfg, model, motion, ec, device))
+            pnn, pnn_rms = build_pnn_from_cfg(cfg, model, motion, ec, device)
+            env = HumanoidImMCPEnv(model, motion, ec, device=device, seed=seed, pnn=pnn, obs_rms=pnn_rms)
         else:
             env = HumanoidImEnv(model, motion, ec, device=device, seed=seed)
         if shape_variation:
@@ -213,8 +221,8 @@ def build_env_from_cfg(cfg, model, motion, device):
     if task == "HumanoidAMPGetup":
         env = HumanoidAMPGetupEnv(model, motion, gc, device=device, seed=seed, **amp_kw)
     elif task == "HumanoidImMCPGetup":
-        env = HumanoidImMCPGetupEnv(model, motion, gc, device=device, seed=seed,
-                                    pnn=build_pnn_from_cfg(cfg, model, motion, gc, device))
+        pnn, pnn_rms = build_pnn_from_cfg(cfg, model, motion, gc, device)
+        env = HumanoidImMCPGetupEnv(model, motion, gc, device=device, seed=seed, pnn=pnn, obs_rms=pnn_rms)
     else:
         env = HumanoidImGetupEnv(model, motion, gc, device=device, seed=seed)
     return _randomize_props(cfg, env)
@@ -230,9 +238,12 @@ def _randomize_props(cfg, env):
 
 
 def build_task_env_from_cfg(cfg, model, motion, device):
-    """A speed, reach or traj env (`env=speed` ...), wrapped with the frozen
-    PULSE decoder for the Z names (`env=speed_z` ...)."""
+    """A speed, reach, traj, strike or pedestrian-terrain env (`env=speed`
+    ...), wrapped with the frozen PULSE decoder for the Z names
+    (`env=speed_z` ...)."""
+    from pulse_tpu_torch.env.humanoid_strike import HumanoidStrikeEnv
     from pulse_tpu_torch.env.humanoid_task import HumanoidReachEnv, HumanoidSpeedEnv, HumanoidTrajEnv, TaskConfig
+    from pulse_tpu_torch.env.humanoid_terrain import HumanoidPedestrianTerrainEnv
 
     e = cfg["env"]
     task = e["task"]
@@ -243,7 +254,8 @@ def build_task_env_from_cfg(cfg, model, motion, device):
         kw.update(tar_speed_min=float(e.get("tar_speed_min", 0.0)), tar_speed_max=float(e.get("tar_speed_max", 5.0)))
     elif base == "HumanoidReach":
         kw.update(reach_body=str(e.get("reach_body", "R_Hand")))
-    cls = {"HumanoidSpeed": HumanoidSpeedEnv, "HumanoidReach": HumanoidReachEnv, "HumanoidTraj": HumanoidTrajEnv}[base]
+    cls = {"HumanoidSpeed": HumanoidSpeedEnv, "HumanoidReach": HumanoidReachEnv, "HumanoidTraj": HumanoidTrajEnv,
+           "HumanoidStrike": HumanoidStrikeEnv, "HumanoidPedestrianTerrain": HumanoidPedestrianTerrainEnv}[base]
     env = cls(model, motion, TaskConfig(**kw), device=device, seed=int(cfg["seed"]))
     return wrap_env_z(cfg, env) if task.endswith("Z") else env
 
@@ -267,26 +279,31 @@ def _pulse_vae_from_state_dict(sd: dict, device):
 
 def wrap_env_z(cfg, env):
     """Wrap an env with the frozen PULSE decoder (PHC's HumanoidZ mixin).
-    `env.z_checkpoint` is one of the port's distillation runs: its `ckpt/`
-    directory, whose latest `epoch_N.pt` is read, or one such file; the
-    PulseVAE takes the checkpoint's widths (its obs width is the
-    distillation env's) and its `obs_rms`. Without a checkpoint a fresh
-    PulseVAE from seed 0 and unit stats stand in, as in the JAX package. A
-    reference `.pth` raises. `FrozenZModel` makes the PulseVAE float32
-    whatever the distillation's precision, as the JAX package's."""
+    `env.z_checkpoint` is one of the port's distillation runs (its `ckpt/`
+    directory, whose latest `epoch_N.pt` is read, or one such file) or a
+    reference PULSE checkpoint (`utils/checkpoint.py`); the PulseVAE takes
+    the checkpoint's widths (its obs width is the distillation env's) and
+    its input stats. Without a checkpoint a fresh PulseVAE from seed 0 and
+    unit stats stand in, as in the JAX package. `FrozenZModel` makes the
+    PulseVAE float32 whatever the distillation's precision, as the JAX
+    package's."""
     from pulse_tpu_torch.env.humanoid_z import FrozenZModel, ZActionWrapper
     from pulse_tpu_torch.learning.networks import PulseVAE
     from pulse_tpu_torch.learning.running_norm import RunningMeanStd
+    from pulse_tpu_torch.utils import checkpoint as ref
 
     e = cfg["env"]
     ckpt = str(e.get("z_checkpoint", "") or "")
-    if ckpt.endswith(".pth"):
-        raise _unported("env.z_checkpoint of a reference .pth (the .pth importers)", "11b")
     if ckpt:
-        path, ck = _load_run_checkpoint(ckpt, env.device)
-        net = _pulse_vae_from_state_dict(ck["network"], env.device)
-        obs_rms = RunningMeanStd(**ck["obs_rms"])
-        print(f"frozen z model restored from {path}")
+        path, ck = _load_run_checkpoint(ckpt, env.device, reference_ok=True)
+        if ref.is_reference_checkpoint(ck):
+            net = ref.import_pulse_vae(ck["model"], device=env.device)
+            obs_rms = ref.import_running_mean_std(ck["model"], device=env.device)
+            print(f"frozen z model imported from the reference checkpoint {path}")
+        else:
+            net = _pulse_vae_from_state_dict(ck["network"], env.device)
+            obs_rms = RunningMeanStd(**ck["obs_rms"])
+            print(f"frozen z model restored from {path}")
     else:
         net = PulseVAE(env.obs_dim, env.action_dim, latent_dim=int(e.get("embedding_size", 32)),
                        self_obs_dim=env.self_obs_dim, device=env.device, seed=0)
@@ -295,19 +312,27 @@ def wrap_env_z(cfg, env):
 
 
 def build_pnn_from_cfg(cfg, model, motion, env_config, device):
-    """The frozen PNN primitives of the MCP envs: a fresh
-    PNN(obs -> 69 dof, `env.num_prim` columns of `learning.pnn_units`,
-    default 512-512) drawn from seed + PNN_SEED_OFFSET stands in. Importing a
-    reference `.pth` (`env.pnn_checkpoint`) raises."""
+    """(PNN, its frozen input stats or None): the frozen primitives of the
+    MCP envs. With `env.pnn_checkpoint` (or `learning.teacher_pnn_checkpoint`)
+    the reference PHC `.pth` is imported, its columns' activation
+    `learning.teacher_activation` (default relu), with its running stats;
+    else a fresh PNN(obs -> 69 dof, `env.num_prim` columns of
+    `learning.pnn_units`, default 512-512) drawn from seed + PNN_SEED_OFFSET
+    stands in, on raw observations."""
     from pulse_tpu_torch.env.humanoid_im import HumanoidImEnv
     from pulse_tpu_torch.learning.pnn import PNN
+    from pulse_tpu_torch.utils import checkpoint as ref
 
     e, l = cfg["env"], cfg["learning"]
-    if e.get("pnn_checkpoint", "") or l.get("teacher_pnn_checkpoint", ""):
-        raise _unported("env.pnn_checkpoint (the .pth PNN importer)", "11b")
+    ckpt = str(e.get("pnn_checkpoint", "") or l.get("teacher_pnn_checkpoint", "") or "")
+    if ckpt:
+        sd = ref.load_torch_checkpoint(ckpt)["model"]
+        pnn, info = ref.import_pnn(sd, activation=str(l.get("teacher_activation", "relu")), device=device)
+        print(f"frozen PNN imported from {ckpt} ({info})")
+        return pnn, ref.import_running_mean_std(sd, device=device).freeze()
     probe = HumanoidImEnv(model, motion, env_config, device=device)
     return PNN(probe.obs_dim, probe.action_dim, int(e.get("num_prim", 3)), tuple(l.get("pnn_units", (512, 512))),
-               device=device, seed=int(cfg["seed"]) + PNN_SEED_OFFSET)
+               device=device, seed=int(cfg["seed"]) + PNN_SEED_OFFSET), None
 
 
 def build_agent_from_cfg(cfg, env):
@@ -401,21 +426,38 @@ TEACHER_SEED = 7   # the JAX package's stand-in teacher is drawn from PRNGKey(7)
 PNN_SEED_OFFSET = 13   # and its stand-in PNN primitives from PRNGKey(seed + 13)
 
 
-def build_teacher_from_cfg(cfg, env) -> "DeterministicPolicy":
-    """The frozen teacher of distillation: the deterministic policy of one of
-    the port's PPO checkpoints (`learning.teacher_checkpoint`: a run's
-    `ckpt/` directory, whose latest `epoch_N.pt` is read, or one such file),
-    with its normalizer frozen. The checkpoint's network fixes the widths.
-    Without a checkpoint a fresh network (`teacher_actor_units` /
-    `teacher_critic_units`, default 2048-1536-1024) from a seed of its own
-    stands in, on observations normalized by zero mean and unit variance."""
+def build_teacher_from_cfg(cfg, env):
+    """The frozen teacher of distillation. With
+    `learning.teacher_pnn_checkpoint`, PHC's PNN and composer from reference
+    `.pth` checkpoints (the composer from `teacher_composer_checkpoint`, else
+    the PNN's file), both with `teacher_activation` (default relu) and the
+    composer's head that activation in place of its softmax, as the
+    reference's distillation rebuilds it, on observations normalized by the
+    PNN checkpoint's stats (`learning.pnn.make_pnn_mcp_teacher`). Else the
+    deterministic policy of one of the port's PPO checkpoints
+    (`learning.teacher_checkpoint`: a run's `ckpt/` directory, whose latest
+    `epoch_N.pt` is read, or one such file), with its normalizer frozen; the
+    checkpoint's network fixes the widths. Without a checkpoint a fresh
+    network (`teacher_actor_units` / `teacher_critic_units`, default
+    2048-1536-1024) from a seed of its own stands in, on observations
+    normalized by zero mean and unit variance."""
     from pulse_tpu_torch.learning.networks import ActorCritic
     from pulse_tpu_torch.learning.running_norm import RunningMeanStd
 
     l = cfg["learning"]
-    for key in ("teacher_pnn_checkpoint", "teacher_composer_checkpoint"):
-        if l.get(key, ""):
-            raise _unported(f"learning.{key} (PNN and composer teachers from .pth checkpoints)", "11b")
+    pnn_ckpt = str(l.get("teacher_pnn_checkpoint", "") or "")
+    if pnn_ckpt:
+        from pulse_tpu_torch.learning.pnn import make_pnn_mcp_teacher
+        from pulse_tpu_torch.utils import checkpoint as ref
+
+        act = str(l.get("teacher_activation", "relu"))
+        pnn_sd = ref.load_torch_checkpoint(pnn_ckpt)["model"]
+        comp_ckpt = str(l.get("teacher_composer_checkpoint", "") or "") or pnn_ckpt
+        comp_sd = pnn_sd if comp_ckpt == pnn_ckpt else ref.load_torch_checkpoint(comp_ckpt)["model"]
+        pnn, info = ref.import_pnn(pnn_sd, activation=act, device=env.device)
+        comp = ref.import_mcp_composer(comp_sd, activation=act, final=act, device=env.device)
+        print(f"PNN teacher imported from {pnn_ckpt} ({info}), composer from {comp_ckpt}")
+        return make_pnn_mcp_teacher(pnn, comp, ref.import_running_mean_std(pnn_sd, device=env.device).freeze())
     ckpt = str(l.get("teacher_checkpoint", "") or "")
     if ckpt:
         path, ck = _load_run_checkpoint(ckpt, env.device)
@@ -471,13 +513,25 @@ def save_checkpoint(ckpt_dir: str, epoch: int, ts) -> str:
     return path
 
 
-def _load_run_checkpoint(ckpt: str, device) -> tuple[str, dict]:
-    """(path, contents) of one of the port's checkpoints: the latest
-    `epoch_N.pt` of a run's `ckpt/` directory, or the file itself."""
+def _load_run_checkpoint(ckpt: str, device, reference_ok: bool = False) -> tuple[str, dict]:
+    """(path, contents) of a checkpoint: the latest `epoch_N.pt` of a run's
+    `ckpt/` directory, or the file itself, read with `weights_only`. With
+    `reference_ok`, a file (not a directory) that holds more than tensors
+    and plain data, as a reference `.pth` may, is read on the CPU by
+    `utils.checkpoint.load_torch_checkpoint`, which says so."""
+    import pickle
+
+    from pulse_tpu_torch.utils.checkpoint import load_torch_checkpoint
+
     path = latest_checkpoint(ckpt) if os.path.isdir(ckpt) else ckpt
     if path is None:
         raise FileNotFoundError(f"no epoch_N.pt checkpoint in {ckpt}")
-    return path, torch.load(path, map_location=device, weights_only=True)
+    try:
+        return path, torch.load(path, map_location=device, weights_only=True)
+    except pickle.UnpicklingError:
+        if not reference_ok or path != ckpt:
+            raise
+        return path, load_torch_checkpoint(path)
 
 
 def latest_checkpoint(ckpt_dir: str) -> str | None:

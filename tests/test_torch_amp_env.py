@@ -47,6 +47,8 @@ from pulse_tpu.motion.synthetic import make_synthetic_clips as jax_clips
 from pulse_tpu.physics import PhysicsConfig as JaxPhysicsConfig, build_model as jax_build_model
 from pulse_tpu.physics.state import PhysicsState as JaxPhysicsState
 
+from jax_reference import reference_jit
+
 from pulse_tpu_torch import _build
 from pulse_tpu_torch.assets import load_smpl_humanoid
 from pulse_tpu_torch.env import cuda_obs, kernels
@@ -128,7 +130,7 @@ def stepped(setup):
     jgenv = JaxGetup(jmodel, jmotion, JaxGetupConfig(**GETUP), termination_height=HEIGHT)
     keys = jax.random.split(jax.random.PRNGKey(3), B)
     js = _jax_state(d, keys)
-    want, gwant = jax.jit(lambda s, a: (jenv.step(s, a), jgenv.step(s, a)))(js, jnp.asarray(actions))
+    want, gwant = reference_jit(lambda s, a: (jenv.step(s, a), jgenv.step(s, a)))(js, jnp.asarray(actions))
 
     def getup_draws(key):     # humanoid_im_getup.py reset_one, on _finish_step's reset key
         k_choice, k_recover, k_fall, _ = jax.random.split(jax.random.split(key)[0], 4)

@@ -2,7 +2,7 @@
 `tools/bench_pulse.py` on the CPU:
 
   * the harness at a tiny size (8 envs, one epoch of horizon 4 a stage,
-    32-24 networks, 8-step task episodes, 4 prior steps), first stopped
+    32-24 networks, 8-step task episodes, 4 prior steps, 1 s clips), first stopped
     after the teacher, then resumed from its snapshot to the end: it writes
     the keys of `quality/pulse_stages_r5.json` (every section's too) plus
     the port's, and `targets` names the seven committed targets;
@@ -31,6 +31,7 @@ from pulse_tpu.learning.running_norm import RunningMeanStd as JaxRMS
 from pulse_tpu_torch import bench_pulse
 from pulse_tpu_torch.learning.networks import pulse_vae_from_jax
 from pulse_tpu_torch.learning.running_norm import RunningMeanStd
+from pulse_tpu_torch.motion import synthetic
 
 ROOT = Path(__file__).resolve().parent.parent
 R5 = json.loads((ROOT / "quality" / "pulse_stages_r5.json").read_text())
@@ -38,7 +39,11 @@ TINY = ["--device", "cpu", "--teacher_epochs", "1", "--distill_epochs", "1", "--
         "--horizon", "4", "--minibatch", "16", "--units", "32,24", "--task_episode_length", "8", "--prior_steps", "4"]
 
 
-def test_bench_pulse_writes_the_jax_tools_keys_and_resumes(tmp_path, capsys):
+def test_bench_pulse_writes_the_jax_tools_keys_and_resumes(tmp_path, capsys, monkeypatch):
+    # one-second clips, not four: each im_eval steps 30 times, not 120
+    real = synthetic.make_synthetic_clips
+    monkeypatch.setattr(synthetic, "make_synthetic_clips",
+                        lambda tree, num_clips=4, **kw: real(tree, num_clips, **{**kw, "seconds": 1.0}))
     first = bench_pulse.main([*TINY, "--out", str(tmp_path), "--stop_after", "teacher"])
     assert "teacher" in first and "student" not in first and (tmp_path / "teacher.pt").exists()
     assert not (tmp_path / "student.pt").exists()

@@ -47,6 +47,8 @@ from pulse_tpu.motion.synthetic import make_synthetic_clips as jax_clips
 from pulse_tpu.physics import PhysicsConfig as JaxPhysicsConfig, build_model as jax_build_model
 from pulse_tpu.physics.state import PhysicsState as JaxPhysicsState
 
+from jax_reference import reference_jit
+
 from pulse_tpu_torch.assets import load_smpl_humanoid
 from pulse_tpu_torch.env import kernels
 from pulse_tpu_torch.env.humanoid_im import EnvConfig, HumanoidImEnv, env_state_from_numpy
@@ -81,7 +83,7 @@ def test_get_motion_state_offset_matches_jax(motions):
     ids = rng.integers(0, 4, 12)
     times = rng.uniform(0, 4.5, 12).astype(np.float32)
     offset = rng.uniform(-6, 6, (12, 3)).astype(np.float32)
-    want = jax.jit(jax_get_motion_state)(ref, jnp.asarray(ids), jnp.asarray(times), offset=jnp.asarray(offset))
+    want = reference_jit(jax_get_motion_state)(ref, jnp.asarray(ids), jnp.asarray(times), offset=jnp.asarray(offset))
     got = get_motion_state(port, torch.as_tensor(ids), torch.as_tensor(times), torch.as_tensor(offset))
     bare = get_motion_state(port, torch.as_tensor(ids), torch.as_tensor(times))
     for k in ("rg_pos", "root_pos"):
@@ -132,7 +134,7 @@ def stepped(spec, motions):
         key=jax.random.split(jax.random.PRNGKey(1), B),
         **{k: jnp.asarray(v) for k, v in d.items() if k != "physics"},
     )
-    want = jax.jit(jenv.step)(jstate, jnp.asarray(actions))
+    want = reference_jit(jenv.step)(jstate, jnp.asarray(actions))
 
     env._sample_reset = lambda n: (torch.tensor(np.asarray(want.motion_id), dtype=torch.long),
                                    torch.tensor(np.asarray(want.start_time)))

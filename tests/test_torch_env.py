@@ -27,6 +27,8 @@ from pulse_tpu.motion.synthetic import make_synthetic_clips as jax_clips
 from pulse_tpu.physics import PhysicsConfig as JaxPhysicsConfig, build_model as jax_build_model
 from pulse_tpu.physics.state import PhysicsState as JaxPhysicsState
 
+from jax_reference import reference_jit
+
 from pulse_tpu_torch.assets import load_smpl_humanoid
 from pulse_tpu_torch.env.humanoid_im import HumanoidImEnv, env_state_from_numpy
 from pulse_tpu_torch.motion.motion_lib import build_motion_data
@@ -66,7 +68,7 @@ def stepped():
         key=jax.random.split(jax.random.PRNGKey(1), B),
         **{k: jnp.asarray(v) for k, v in d.items() if k != "physics"},   # recovery_counter zeros
     )
-    want = jax.jit(jenv.step)(jstate, jnp.asarray(actions))
+    want = reference_jit(jenv.step)(jstate, jnp.asarray(actions))
 
     # auto-resets draw the clips/times the JAX side drew for the same envs
     env._sample_reset = lambda n: (torch.tensor(np.asarray(want.motion_id), dtype=torch.long),

@@ -26,6 +26,8 @@ from pulse_tpu.physics import PhysicsConfig as JaxPhysicsConfig, build_model as 
 from pulse_tpu.physics.state import state_from_kinematics as jax_state_from_kinematics
 from pulse_tpu.physics.step import physics_step as jax_physics_step
 
+from jax_reference import reference_jit
+
 from pulse_tpu_torch.assets import load_smpl_humanoid
 from pulse_tpu_torch.env.humanoid_im_getup import GetupConfig, HumanoidImGetupEnv, ragdoll
 from pulse_tpu_torch.motion.motion_lib import build_motion_data
@@ -81,7 +83,7 @@ def fall():
     jm = jax_build_model(jax_load_smpl(), JaxPhysicsConfig(**CFG))
     jrag = jm.replace(joint_kp=jnp.zeros_like(jm.joint_kp), joint_kd=jnp.full_like(jm.joint_kd, 5.0))
 
-    @jax.jit
+    @reference_jit
     def jax_side(*a):
         s0 = jax.vmap(lambda *x: jax_state_from_kinematics(jm, *x))(*a)
         step = jax.vmap(lambda s: jax_physics_step(jrag, s, jnp.zeros(jrag.num_dof)))

@@ -47,6 +47,8 @@ from pulse_tpu.motion.synthetic import make_synthetic_clips as jax_clips
 from pulse_tpu.physics import PhysicsConfig as JaxPhysicsConfig, build_model as jax_build_model
 from pulse_tpu.physics.state import PhysicsState as JaxPhysicsState
 
+from jax_reference import reference_jit
+
 from pulse_tpu_torch import run
 from pulse_tpu_torch.assets import load_smpl_humanoid
 from pulse_tpu_torch.env import kernels
@@ -120,7 +122,7 @@ def stepped(motions, models):
     actions = rng.uniform(-1, 1, (B, 69)).astype(np.float32)
 
     jenv = JaxEnv(jmodel, jmotion, JaxEnvConfig(**VR))
-    want = jax.jit(jenv.step)(_jax_state(d, B), jnp.asarray(actions))
+    want = reference_jit(jenv.step)(_jax_state(d, B), jnp.asarray(actions))
 
     env._sample_reset = lambda n: (torch.tensor(np.asarray(want.motion_id), dtype=torch.long),
                                    torch.tensor(np.asarray(want.start_time)))
@@ -202,7 +204,7 @@ def jax_observations(motions, models, obs_state):
     """The JAX package's `_observe` of the fixed state under every case, in
     one jit (16 jits, or 16 eager runs, would each take seconds)."""
     envs = [JaxEnv(models[1], motions[1], JaxEnvConfig(**c)) for c in OBS_CASES]
-    out = jax.jit(lambda s: [jax.vmap(e._observe)(s) for e in envs])(_jax_state(obs_state, 5))
+    out = reference_jit(lambda s: [jax.vmap(e._observe)(s) for e in envs])(_jax_state(obs_state, 5))
     return [np.asarray(o) for o in out]
 
 
@@ -244,7 +246,7 @@ def test_task_obs_functions_match_jax(version):
                  "ref_body_rot", "ref_root_vel", "ref_root_ang_vel")}[version]
     xs = [np.asarray(args[n], np.float32) for n in names]
     fn = f"compute_imitation_observations_v{version}"
-    want = np.asarray(jax.jit(getattr(jax_kernels, fn))(*map(jnp.asarray, xs)))
+    want = np.asarray(reference_jit(getattr(jax_kernels, fn))(*map(jnp.asarray, xs)))
     got = getattr(kernels, fn)(*map(torch.as_tensor, xs)).numpy()
     width = {7: T * J * 9, 8: J * 15 + T * J * 15, 9: T * (J * 18 + 6)}[version]
     assert got.shape == want.shape == (Bn, width)

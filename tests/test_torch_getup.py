@@ -33,6 +33,8 @@ from pulse_tpu.motion.synthetic import make_synthetic_clips as jax_clips
 from pulse_tpu.physics import PhysicsConfig as JaxPhysicsConfig, build_model as jax_build_model
 from pulse_tpu.physics.state import PhysicsState as JaxPhysicsState
 
+from jax_reference import reference_jit
+
 from pulse_tpu_torch.assets import load_smpl_humanoid
 from pulse_tpu_torch.env.humanoid_im import env_state_from_numpy
 from pulse_tpu_torch.env.humanoid_im_getup import GetupConfig, HumanoidImGetupEnv
@@ -102,7 +104,7 @@ def stepped():
         key=keys,
         **{k: jnp.asarray(v) for k, v in d.items() if k != "physics"},
     )
-    want = jax.jit(jenv.step)(jstate, jnp.asarray(actions))
+    want = reference_jit(jenv.step)(jstate, jnp.asarray(actions))
 
     def getup_draws(key):     # humanoid_im_getup.py reset_one, on _finish_step's reset key
         k_choice, k_recover, k_fall, _ = jax.random.split(jax.random.split(key)[0], 4)

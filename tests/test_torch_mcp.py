@@ -47,6 +47,8 @@ from pulse_tpu.motion.synthetic import make_synthetic_clips as jax_clips
 from pulse_tpu.physics import PhysicsConfig as JaxPhysicsConfig, build_model as jax_build_model
 from pulse_tpu.physics.state import PhysicsState as JaxPhysicsState
 
+from jax_reference import reference_jit
+
 from pulse_tpu_torch.assets import load_smpl_humanoid
 from pulse_tpu_torch.env.humanoid_im import EnvConfig, HumanoidImEnv, env_state_from_numpy
 from pulse_tpu_torch.env.humanoid_im_getup import GetupConfig
@@ -170,7 +172,7 @@ def stepped(setup):
                      **{k: jnp.asarray(v) for k, v in d.items() if k != "physics"})
     jfenv = JaxEnv(jmodel, jmotion, JaxEnvConfig(**FORCE))
     blend = jax.vmap(jenv.motor_actions_one)
-    want = jax.jit(lambda s, w, a: (jenv.step(s, w), jgenv.step(s, w), blend(s, w), jfenv.step(s, a)))(
+    want = reference_jit(lambda s, w, a: (jenv.step(s, w), jgenv.step(s, w), blend(s, w), jfenv.step(s, a)))(
         js, jnp.asarray(weights), jnp.asarray(actions))
     out = {}
     for name, e, w, a in (("mcp", env, want[0], weights), ("getup", genv, want[1], weights),

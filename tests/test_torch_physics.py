@@ -21,6 +21,8 @@ from pulse_tpu.physics import PhysicsConfig as JaxPhysicsConfig, build_model as 
 from pulse_tpu.physics.state import PhysicsState as JaxPhysicsState
 from pulse_tpu.physics.step import physics_step as jax_physics_step
 
+from jax_reference import reference_jit
+
 from pulse_tpu_torch.assets import load_smpl_humanoid
 from pulse_tpu_torch.env.humanoid_im import HumanoidImEnv
 from pulse_tpu_torch.motion.motion_lib import build_motion_data
@@ -50,7 +52,7 @@ def stepped():
 
     got = physics_step(model, physics_state_from_numpy(ph), torch.as_tensor(pd))
     jm = jax_build_model(jax_load_smpl(), JaxPhysicsConfig(**CFG))
-    want = jax.jit(jax.vmap(lambda s, p: jax_physics_step(jm, s, p)))(
+    want = reference_jit(jax.vmap(lambda s, p: jax_physics_step(jm, s, p)))(
         JaxPhysicsState(**{k: jnp.asarray(v) for k, v in ph.items()}), jnp.asarray(pd)
     )
     return got, want

@@ -49,6 +49,8 @@ from pulse_tpu.physics import aba_fast as jax_aba_fast
 from pulse_tpu.physics import dynamics as jax_dynamics, prop as jax_prop, step as jax_step
 from pulse_tpu.physics.state import PhysicsState as JaxPhysicsState
 
+from jax_reference import reference_jit
+
 from pulse_tpu_torch.assets import load_smpl_humanoid
 from pulse_tpu_torch.env.humanoid_im import env_state_from_numpy
 from pulse_tpu_torch.env.humanoid_im_perturb import HumanoidImPerturbEnv, PerturbConfig
@@ -165,7 +167,7 @@ def jax_outputs(setup, perturb):
     st = JaxPhysicsState(**{k: jnp.asarray(v) for k, v in ins["state"].items()})
     es = JaxEnvState(physics=JaxPhysicsState(**{k: jnp.asarray(v) for k, v in d["physics"].items()}), key=keys,
                      **{k: jnp.asarray(v) for k, v in d.items() if k != "physics"})
-    out = jax.jit(all_cases)(st, [jnp.asarray(ins[k]) for k in ("tau", "f_ext", "d_extra", "tau_dof", "pd",
+    out = reference_jit(all_cases)(st, [jnp.asarray(ins[k]) for k in ("tau", "f_ext", "d_extra", "tau_dof", "pd",
                                                                 "prop_pos")],
                              es, jax_prop.PropState(**{k: jnp.asarray(v) for k, v in prop_np.items()}),
                              jnp.asarray(actions))
@@ -246,7 +248,7 @@ def test_box_sdf_push_matches_jax():
     rel = rng.uniform(-1.5, 1.5, (512, 3)).astype(np.float32)
     rel[:200] *= 0.2   # many points inside
     sdf, n = prop._box_sdf_push(torch.tensor(rel), torch.tensor(half))
-    want_sdf, want_n = jax.jit(jax_prop._box_sdf_push)(jnp.asarray(rel), jnp.asarray(half))
+    want_sdf, want_n = reference_jit(jax_prop._box_sdf_push)(jnp.asarray(rel), jnp.asarray(half))
     np.testing.assert_allclose(sdf.numpy(), want_sdf, atol=1e-6, rtol=0)
     np.testing.assert_allclose(n.numpy(), want_n, atol=1e-6, rtol=0)
     assert (want_sdf < 0).sum() > 100 and (want_sdf > 0).sum() > 100

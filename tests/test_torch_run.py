@@ -16,7 +16,8 @@ it with both buffers, and `test=true` evaluates an AMP checkpoint's PPO
 policy. `env=im_mcp` and `env=im_mcp_getup` (composer weights over a
 fresh frozen PNN), `env.randomize=true` (with PPO, and with AMP re-drawing
 the props) and `env.control_mode=pd|force` train in process. Options the
-slice does not port raise NotImplementedError. The port's config
+port does not have yet raise NotImplementedError (the reference `.pth`
+paths, strike and terrain run in tests/test_torch_checkpoint.py). The port's config
 dataclasses default as the JAX package's.
 
 One tiny `env=im` run in this process (`trained`) gives the checkpoint
@@ -104,13 +105,8 @@ def test_main_runs_env_im_in_process(trained):
 
 
 @pytest.mark.parametrize("args", [
-    ["env.task=HumanoidStrikeZ"], ["env.task=HumanoidImMCPDemo"],
-    ["env.task=HumanoidPedestrianTerrain"], ["env=speed_z", "env.z_checkpoint=x.pth"],
-    ["env=amp_getup", "learning=im_amp", "env.shape_variation=true"],
-    [*DISTILL, "learning.teacher_composer_checkpoint=x.pth"],
-    ["env=im_mcp", "env.pnn_checkpoint=x.pth"], ["env=im_getup", "env.shape_variation=true"],
-    ["env=im_mcp_getup", "env.pnn_checkpoint=x.pth"],
-    ["env.motion_file=x.pkl"],
+    ["env.task=HumanoidImMCPDemo"], ["env=amp_getup", "learning=im_amp", "env.shape_variation=true"],
+    ["env=im_getup", "env.shape_variation=true"], ["env.motion_file=x.pkl"],
 ])
 def test_unported_options_raise(args, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -224,11 +220,6 @@ def test_distill_full_precision_reaches_the_network_and_its_checkpoint(trained, 
     assert z.agent.env.frozen.network.full_precision
 
 
-def test_distill_pnn_teacher_raises_naming_item_11(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        run.main([*DISTILL, "learning.teacher_pnn_checkpoint=x.pth", f"output_dir={tmp_path}"])
-
-
 @pytest.mark.parametrize("args", [["test=true"], ["eval_frequency=1"]])
 def test_distill_has_no_evaluator(args, tmp_path):
     with pytest.raises(NotImplementedError, match="no evaluator"):
@@ -264,13 +255,15 @@ AMP = ["learning=im_amp", "learning.amp_batch_size=8", "learning.amp_buffer_size
      "HumanoidAMPGetupEnv"),
     (["env=im"], "HumanoidImEnv"),
 ])
-def test_cli_trains_amp(env_args, task, tmp_path):
-    """Two epochs of AMP training: the env the task names, the AMP metrics
-    logged, task reward 1 on the pure-AMP envs (the style reward alone in
-    the getup schedule's first epochs), buffers grown by amp_batch_size an
-    epoch, and the checkpoint holds the discriminator and both buffers."""
-    out = _cli([*env_args, *AMP, "max_epochs=3", "exp_name=a", *TINY], tmp_path)
-    assert "epoch=2" in out
+def test_cli_trains_amp(env_args, task, tmp_path, capsys):
+    """Three epochs of AMP training through run.main in process (the CLI's
+    own process is test_cli_trains_logs_checkpoints_and_resumes'): the env
+    the task names, the AMP metrics logged, task reward 1 on the pure-AMP
+    envs (the style reward alone in the getup schedule's first epochs),
+    buffers grown by amp_batch_size an epoch, and the checkpoint holds the
+    discriminator and both buffers."""
+    res = run.main([*env_args, *AMP, "max_epochs=3", "exp_name=a", f"output_dir={tmp_path}", *TINY])
+    assert "epoch=2" in capsys.readouterr().out and type(res.agent.env).__name__ == task
     rows = [json.loads(l) for l in (tmp_path / "a" / "metrics.jsonl").read_text().splitlines()]
     assert [r["epoch"] for r in rows] == [0, 1, 2]
     for k in ("disc_loss", "disc_grad_pen", "disc_acc_agent", "disc_acc_demo", "disc_reward_mean",

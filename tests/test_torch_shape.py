@@ -32,6 +32,8 @@ from pulse_tpu.physics.substep_pallas import _model_rows_layout, build_model_row
 from pulse_tpu.smpl import body_model as jbody
 from pulse_tpu.smpl.synthetic import synthetic_smpl_data as jax_synthetic_smpl_data
 
+from jax_reference import reference_jit
+
 from pulse_tpu_torch.assets import load_smpl_humanoid
 from pulse_tpu_torch.ops import quat as tq
 from pulse_tpu_torch.physics import shape_variation as sv
@@ -134,7 +136,7 @@ def test_models_from_betas_match_jax(models, tmp_path):
 def stepped(models):
     """The batched plain step of N scale-varied humanoids, from states FK'd
     through each env's own model with half the envs' lowest contact point
-    2 cm in the ground, against jax.jit(jax.vmap(physics_step))."""
+    2 cm in the ground, against reference_jit(jax.vmap(physics_step))."""
     model, _, jbm = models
     bm = batched_model_from_numpy(model, _leaves(jbm))
     rng = np.random.default_rng(1)
@@ -152,7 +154,7 @@ def stepped(models):
 
     ph = {f.name: getattr(st, f.name).numpy() for f in dataclasses.fields(st)}
     got = physics_step(bm, st, pd)
-    want = jax.jit(jax.vmap(jax_physics_step))(
+    want = reference_jit(jax.vmap(jax_physics_step))(
         jbm, JaxPhysicsState(**{k: jnp.asarray(v) for k, v in ph.items()}), jnp.asarray(pd.numpy()))
     return bm, st, pd, got, want
 

@@ -2,7 +2,7 @@
 in the port against the JAX package on the CPU.
 
 One whole env step of 16 envs at 1 substep of 1/120 s with the shape, shape
-disc and limb-weight channels on, against jax.jit(env.step) (its per-env XLA
+disc and limb-weight channels on, against reference_jit(env.step) (its per-env XLA
 path, which the TPU kernel with model rows is golden-tested against): the
 JAX env's batched model and shape table carried across, the same start
 state and actions, and the port's reset sampler fed the clip ids and start
@@ -30,6 +30,8 @@ from pulse_tpu.motion import build_motion_data as jax_build_motion_data
 from pulse_tpu.motion.synthetic import make_synthetic_clips as jax_clips
 from pulse_tpu.physics import PhysicsConfig as JaxPhysicsConfig, build_model as jax_build_model
 from pulse_tpu.physics.state import PhysicsState as JaxPhysicsState
+
+from jax_reference import reference_jit
 
 from pulse_tpu_torch import _build, run
 from pulse_tpu_torch.assets import load_smpl_humanoid
@@ -88,7 +90,7 @@ def stepped():
         shape_obs=jnp.asarray(table),
         **{k: jnp.asarray(v) for k, v in d.items() if k != "physics"},
     )
-    want = jax.jit(jenv.step)(jstate, jnp.asarray(actions))
+    want = reference_jit(jenv.step)(jstate, jnp.asarray(actions))
 
     env._sample_reset = lambda n: (torch.tensor(np.asarray(want.motion_id), dtype=torch.long),
                                    torch.tensor(np.asarray(want.start_time)))

@@ -324,24 +324,22 @@ def test_reset_amp_hist_and_obs(setup):
 
 def test_power_reward_and_terrain(setup):
     """The power penalty (off by default, as run.py never sets it) lowers the
-    reward by the PD torque proxy's energy; a terrain model raises."""
+    reward by the PD torque proxy's energy; a terrain model takes the plain
+    route (no kernel covers terrain), and on a flat heightfield it steps as
+    the plane does."""
     model, motion = setup[:2]
     env = HumanoidReachEnv(model, motion, TaskConfig(), device="cpu", seed=1)
     penv = HumanoidReachEnv(model, motion, TaskConfig(power_reward=True), device="cpu", seed=1)
     act = torch.full((4, 69), 0.3)
     a, b = env.step(env.reset(4), act), penv.step(penv.reset(4), act)
     assert (b.reward < a.reward).all() and torch.equal(a.reward_raw, b.reward_raw)
-    with pytest.raises(NotImplementedError, match="11b"):
-        HumanoidSpeedEnv(_TerrainModel(model), motion, device="cpu")
-
-
-class _TerrainModel:
-    """A model that says it has terrain."""
-
-    has_terrain = True
-
-    def __init__(self, model):
-        self.device = model.device
+    assert env.physics_route == "kernel"
+    flat = model.with_terrain(np.zeros((8, 8), np.float32), 1.0, (-4.0, -4.0))
+    tenv = HumanoidReachEnv(flat, motion, TaskConfig(), device="cpu", seed=1)
+    assert tenv.physics_route == "plain" and flat.has_terrain and not model.has_terrain
+    c = tenv.step(tenv.reset(4), act)
+    torch.testing.assert_close(c.reward, a.reward, rtol=0, atol=1e-6)
+    torch.testing.assert_close(c.obs, a.obs, rtol=0, atol=1e-5)
 
 
 def test_speed_obs_reads_the_heading(setup):

@@ -37,6 +37,8 @@ from pulse_tpu.motion.synthetic import make_synthetic_clips as jax_clips
 from pulse_tpu.physics import PhysicsConfig as JaxPhysicsConfig, build_model as jax_build_model
 from pulse_tpu.physics.state import PhysicsState as JaxPhysicsState
 
+from jax_reference import reference_jit
+
 from pulse_tpu_torch.assets import load_smpl_humanoid
 from pulse_tpu_torch.env.humanoid_im import EnvConfig, HumanoidImEnv
 from pulse_tpu_torch.env.humanoid_task import HumanoidSpeedEnv, TaskConfig, task_env_state_from_numpy
@@ -119,7 +121,7 @@ def test_wrapped_step_matches_jax(frozen, setup):
         key=jax.random.split(jax.random.PRNGKey(0), B),
         task={**{k: jnp.asarray(v) for k, v in d["task"].items()}, "key": jax.random.split(jax.random.PRNGKey(1), B)},
         **{k: jnp.asarray(v) for k, v in d.items() if k not in ("physics", "task")})
-    want = jax.jit(jw.step)(jstate, jnp.asarray(z))
+    want = reference_jit(jw.step)(jstate, jnp.asarray(z))
     got = w.step(task_env_state_from_numpy(d), torch.as_tensor(z))
     assert not np.asarray(want.done).any() and not got.done.any()
     np.testing.assert_allclose(got.reward.numpy(), np.asarray(want.reward), rtol=0, atol=1e-5)
