@@ -206,7 +206,9 @@ Phases, each printed as one JSON line:
                with the discriminator): the physics route "plain" and no
                launch (the box's coupled step), reward in [0, 1], some box
                tipped or pushed; one step of 64 envs on the card against the
-               CPU (<= 1% outlier envs); then 8 steps of env=strike_z on the
+               CPU (the physics within K1's tolerances, the reward within
+               K1's, the obs function on the card's stepped state within
+               K2's; <= 1% outlier envs); then 8 steps of env=strike_z on the
                imported PulseVAE; ms and device kernels a step
   train_terrain  the same with env=pedestrian_terrain on the default 8 x 8
                tiles of 8 m (a 256 x 256 heightfield), obs 634: spawns on
@@ -216,6 +218,28 @@ Phases, each printed as one JSON line:
   self_collision  8 steps of HumanoidImEnv on a self-collision model at
                3072 envs: the plain route, no launch, finite states, one
                step of 64 envs on the card against the CPU
+  motion_file  ~10,000 clips of 30-600 frames at 30 fps (~3.15M frames, AMASS's
+               size), cut as windows from 64 synthetic 20 s clips, written
+               with write_archive into a directory under output/ (1.25 GB),
+               read back (1% of the clips bit for bit) and built into the
+               store on the card (6 GB): seconds to write, read (GB/s) and
+               build, the store's bytes; the card's store of 200 of the clips
+               and get_motion_state at 4,096 (clip, t) against the CPU's
+               build (positions and rotations within 1e-5, velocities within
+               1e-4 of the field's largest magnitude, plus a floor only at
+               the elements whose CPU side is at a cut of the reference's
+               angle-axis or slerp: MF_*); then
+               env=im learning=im_ppo
+               env.motion_file=<the .mtn> for 2 epochs through run.main (as
+               train_im: 32 launches of K1 and K2 an epoch, none of K3 or RA;
+               its training env steps/s beside train_im's); then
+               process_amass's raw -> db -> isaac stages on 20 generated 120
+               fps AMASS-style sequences with a gendered synthetic SMPL
+               triple at V = 6890 (the ground fix one batched LBS a gender
+               on the card), the .pkl read into a store on the card: the
+               card's LBS within 1e-5 m of a float64 CPU LBS of the same
+               poses, each fixed first frame's lowest vertex at z = 0; the
+               phase's seconds
   perturb      HumanoidImPerturbEnv (proj_interval 8, early termination
                off) for 24 policy-acting steps: every projectile relaunched
                exactly where the pre-step progress is 7 mod 8 (some at 7,
@@ -288,6 +312,38 @@ SC_STEPS = 8                    # the self_collision phase's steps
 # median
 FOOT_TOL = 0.1
 FOOT_FRAC = 0.8
+# motion_file: MF_CLIPS clips of MF_MIN_T-MF_MAX_T frames at 30 fps (AMASS's
+# ~10k clips, ~3.15M frames: 1.25 GB of archive, 6 GB of store) cut from
+# MF_BASES synthetic 20 s clips; the card's store of MF_SUBSET of them and
+# MF_QUERIES motion-state lookups against the CPU's. Positions and rotations
+# within MF_POS_TOL, velocities within MF_VEL_REL of the field's largest
+# magnitude, plus a floor that each element's CPU side sets: the reference's
+# quaternion functions (both packages') take sqrt(1 - x * x) of a float32 x
+# near 1 (a quaternion's w in quat_to_angle_axis, cos(q0, q1) in slerp),
+# and the card's value of it may differ from the CPU's by MF_ULPS ulps of
+# 1 - x^2 (the rounding of x * x, the last bits of x, the quaternion's
+# norm). So, with s^2 = 1 - x^2 of the CPU's x:
+# - an angle-axis vector v (the angular and dof velocities a frame, times
+#   the fps, then carried by the store's Gaussian smoothing as its weights
+#   carry the rate; dof_pos) may differ by |v| * MF_ULPS 2^-24 / (2 s^2),
+#   and by the jump 2 |xyz| where s^2 is within MF_ULPS ulps of 0: there
+#   one side reads w as 1 and returns 0;
+# - a slerped rotation (root_rot, rb_rot, local_rot) by
+#   MF_ULPS 2^-24 / (2 s^2) of its size above slerp's cut (s < 1e-3 returns
+#   (q0 + q1) / 2 whatever the blend), and by |q1 - q0| a component within
+#   MF_ULPS ulps of the cut or below it; dof_pos, the angle-axis of a
+#   slerped local rotation, by its own floor plus |v| times the slerp's
+#   relative one, and pi |q1 - q0| at slerp's cut.
+# An element far from x = 1 gets a floor far under the base tolerance.
+MF_CLIPS = 10_000
+MF_MIN_T, MF_MAX_T = 30, 600
+MF_BASES = 64
+MF_SUBSET = 200
+MF_QUERIES = 4096
+MF_POS_TOL = 1e-5
+MF_VEL_REL = 1e-4
+MF_ULPS = 4
+MF_AMASS_SEQS = 20
 
 
 def emit(obj) -> None:
@@ -991,6 +1047,7 @@ def main() -> int:
                                                             "physics_step": 0, "physics_step_rows": 0,
                                                             "reward_amp": 0})
     emit(info)
+    im_steps_per_s = info["train_env_steps_per_s"]
 
     # ---- eval: train_im's policy on the hard clips, then test=true ----------- #
     # im_eval of train_im's train state on the 6 hard clips at a batch of 6,
@@ -2307,7 +2364,6 @@ def main() -> int:
     # on the card is held against the same step on the CPU
     zero_launches = {"step_reward_amp": 0, "observe": 0, "physics_step": 0, "physics_step_rows": 0, "reward_amp": 0}
     cpu_spec_model = build_model(spec, PhysicsConfig(), device="cpu")
-    cpu_motion = build_motion_data(spec.skeleton, make_synthetic_clips(spec.skeleton, 4, seed=0), device="cpu")
     n_cmp = 64
 
     def tree(fn, obj):
@@ -2319,21 +2375,32 @@ def main() -> int:
             return {k: tree(fn, v) for k, v in obj.items()}
         return dataclasses.replace(obj, **{f.name: tree(fn, getattr(obj, f.name)) for f in dataclasses.fields(obj)})
 
+    def cpu_store(card_env):
+        """The card env's motion store on the CPU: the steps are compared
+        here, not the stores (a store built on the card differs from the
+        CPU's build by float32's floors, motion_file)."""
+        return tree(lambda t: t.cpu(), card_env.motion)
+
     def card_vs_cpu(card_env, cpu_env, st) -> dict:
         """One step of the first n_cmp envs of `st` on the card and on the CPU
-        with the same actions: the physics within K1_TOL, the reward and the
-        obs within K1's and K2's tolerances, the flags alike, in the envs
-        that reset on neither (their fresh states come from two generators)."""
+        with the same actions: the physics within K1_TOL, the reward within
+        K1's tolerance, the flags alike, in the envs that reset on neither
+        (their fresh states come from two generators). The obs is held to
+        K2_TOL on identical inputs: the CPU env observes the card's stepped
+        state. The CPU's own stepped obs ("obs_after_step", reported) carries
+        the physics' differences, which K1_TOL lets reach 5e-3 in the body
+        velocities that the self obs holds unscaled."""
         sub = tree(lambda t: t[:n_cmp].clone(), st)
         act = torch.rand(n_cmp, card_env.action_dim, generator=g, device=dev) * 2.0 - 1.0
         with torch.no_grad():
             a = card_env.step(sub, act)
             b = cpu_env.step(tree(lambda t: t.cpu(), sub), act.cpu())
+            same = cpu_env._observe(tree(lambda t: t.cpu(), a)).to(dev)
         b = tree(lambda t: t.to(dev), b)
         bad = a.done != b.done
         keep = ~(a.done | b.done)
         fields = [(f, getattr(a.physics, f), getattr(b.physics, f), K1_TOL[f]) for f in PHYS_FIELDS]
-        fields += [("reward", a.reward, b.reward, K1_TOL["reward"]), ("obs", a.obs, b.obs, K2_TOL)]
+        fields += [("reward", a.reward, b.reward, K1_TOL["reward"]), ("obs", a.obs, same, K2_TOL)]
         if "prop" in getattr(a, "task", {}):
             fields += [(f"prop_{f}", getattr(a.task["prop"], f), getattr(b.task["prop"], f), K1_TOL["root_pos"]
                         if f in ("pos", "rot") else K1_TOL["root_vel6"]) for f in ("pos", "rot", "lin_vel", "ang_vel")]
@@ -2342,6 +2409,8 @@ def main() -> int:
             err = (x.float() - y.float()).abs().reshape(n_cmp, -1).amax(dim=1)
             bad |= keep & (err > tol)
             res_[name_] = {"max": float(err[keep].max()) if keep.any() else 0.0, "tol": tol}
+        step_err = (a.obs - b.obs).abs().amax(dim=1)
+        res_["obs_after_step"] = {"max": float(step_err[keep].max()) if keep.any() else 0.0}
         res_["outlier_envs"] = int(bad.sum())
         return res_
 
@@ -2403,7 +2472,7 @@ def main() -> int:
     res, strike_launches, info, _ = train_amp("train_strike", ["env=strike"], zero_launches, TRAIN_EPOCHS,
                                               on_epoch=strike_hook, learning="pulse_z_task", trace_rollout=False)
     senv_, sts = res.agent.env, res.train_state.ppo
-    s_cmp = card_vs_cpu(senv_, HumanoidStrikeEnv(cpu_spec_model, cpu_motion, senv_.config, device="cpu"), sts.env_state)
+    s_cmp = card_vs_cpu(senv_, HumanoidStrikeEnv(cpu_spec_model, cpu_store(senv_), senv_.config, device="cpu"), sts.env_state)
     info.update(per_step(info), device_kernels_per_step=info["rollout_device_kernels"] / HORIZON,
                 physics_route=senv_.physics_route, obs_dim=senv_.obs_dim, boxes_moved_per_epoch=box_moved,
                 boxes_at_velocity_clamp_per_epoch=box_at_clamp, box_max_ang_vel_per_epoch=box_max_w,
@@ -2422,7 +2491,7 @@ def main() -> int:
     tenv_, tts = res.agent.env, res.train_state.ppo
     with torch.no_grad():
         spawned = walkable_and_grounded(tenv_, tenv_.reset(N_ENVS))
-    t_cmp = card_vs_cpu(tenv_, HumanoidPedestrianTerrainEnv(cpu_spec_model, cpu_motion, tenv_.config, device="cpu"),
+    t_cmp = card_vs_cpu(tenv_, HumanoidPedestrianTerrainEnv(cpu_spec_model, cpu_store(tenv_), tenv_.config, device="cpu"),
                         tts.env_state)
     info.update(per_step(info), device_kernels_per_step=info["rollout_device_kernels"] / HORIZON,
                 physics_route=tenv_.physics_route, obs_dim=tenv_.obs_dim,
@@ -2444,7 +2513,7 @@ def main() -> int:
     # self collision: 8 steps of HumanoidImEnv on a self-collision model
     sc_model = build_model(spec, PhysicsConfig(self_collision=True), device=dev)
     sc_env = HumanoidImEnv(sc_model, motion, EnvConfig(), device=dev, seed=0)
-    sc_cpu = HumanoidImEnv(build_model(spec, PhysicsConfig(self_collision=True), device="cpu"), cpu_motion,
+    sc_cpu = HumanoidImEnv(build_model(spec, PhysicsConfig(self_collision=True), device="cpu"), cpu_store(sc_env),
                            EnvConfig(), device="cpu", seed=0)
     with torch.no_grad():
         torch.cuda.synchronize()
@@ -2469,6 +2538,248 @@ def main() -> int:
         fail(f"self_collision: route {sc_env.physics_route}, launches {sc_launches}, finite {sc_finite}, "
              f"card vs CPU {sc_cmp}")
     del sc_env, sc_cpu, sc_st, sc_model
+
+    # ---- motion_file: an archive the size of AMASS, its store, training on it - #
+    # ~10k clips of 30-600 frames at 30 fps, cut as windows from 64 synthetic
+    # 20 s clips, written with the port's write_archive into a gitignored
+    # directory, read back, built into a store on the card; a 200-clip subset
+    # against the CPU's build; env=im trained from the file; then
+    # process_amass's raw -> db -> isaac stages with the gendered ground fix
+    # (the batched LBS on the card) and that .pkl into a store
+    import numpy as np
+
+    from pulse_tpu_torch.kinematics.skeleton import _smooth_time_axis
+    from pulse_tpu_torch.motion.archive import read_archive, write_archive
+    from pulse_tpu_torch.motion.loader import load_motion_file
+    from pulse_tpu_torch.motion.motion_lib import _calc_frame_blend
+    from pulse_tpu_torch.motion.reference_format import axis_angle_to_quat
+    from pulse_tpu_torch.scripts import process_amass
+    from pulse_tpu_torch.smpl import body_model as smpl_bm
+
+    t_phase = time.perf_counter()
+    os.makedirs(os.path.dirname(out_root), exist_ok=True)
+    mf_dir = tempfile.mkdtemp(prefix="motion_file_", dir=os.path.dirname(out_root))   # output/: gitignored
+    try:
+        mrng = np.random.default_rng(14)
+        bases = [make_synthetic_clips(spec.skeleton, 1, seconds=20.0, seed=100 + s)[0] for s in range(MF_BASES)]
+        base_T = bases[0]["local_rotation"].shape[0]
+        mf_clips = []
+        for k in range(MF_CLIPS):
+            b_, T_ = bases[k % MF_BASES], int(mrng.integers(MF_MIN_T, MF_MAX_T + 1))
+            o_ = int(mrng.integers(0, base_T - T_ + 1))
+            mf_clips.append({"fps": 30.0, "local_rotation": b_["local_rotation"][o_ : o_ + T_],
+                             "root_translation": b_["root_translation"][o_ : o_ + T_]})
+        mf_frames = sum(c_["local_rotation"].shape[0] for c_ in mf_clips)
+        mtn = os.path.join(mf_dir, "amass_size.mtn")
+        t0 = time.perf_counter()
+        write_archive(mtn, mf_clips)
+        write_s = time.perf_counter() - t0
+        file_bytes = os.path.getsize(mtn)
+        t0 = time.perf_counter()
+        read = read_archive(mtn)
+        read_s = time.perf_counter() - t0
+        sample = mrng.choice(MF_CLIPS, MF_CLIPS // 100, replace=False)
+        round_trip = all(read[i]["fps"] == mf_clips[i]["fps"]
+                         and np.array_equal(read[i]["local_rotation"], mf_clips[i]["local_rotation"])
+                         and np.array_equal(read[i]["root_translation"], mf_clips[i]["root_translation"])
+                         for i in sample)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mf_store = build_motion_data(spec.skeleton, read, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        fields = ("gts", "grs", "gvs", "gavs", "lrs", "dvs")
+        store_bytes = sum(getattr(mf_store, f_).numel() * 4 for f_ in fields)
+
+        # the card's store of a 200-clip subset and the motion state at
+        # MF_QUERIES (clip, t) against the CPU's build (the tolerances and
+        # floors at MF_CLIPS)
+        sub = np.sort(mrng.choice(MF_CLIPS, MF_SUBSET, replace=False))
+        t0 = time.perf_counter()
+        sub_cpu = build_motion_data(spec.skeleton, [read[i] for i in sub], device="cpu")
+        cpu_build_s = time.perf_counter() - t0
+        starts_ = mf_store.length_starts[torch.as_tensor(sub, device=dev)].tolist()
+        rows_ = torch.cat([torch.arange(s_, s_ + read[i]["local_rotation"].shape[0]) for s_, i in zip(starts_, sub)])
+        q_ids = torch.randint(0, MF_SUBSET, (MF_QUERIES,), generator=torch.Generator().manual_seed(3))
+        q_t = torch.rand(MF_QUERIES, generator=torch.Generator().manual_seed(4)) * sub_cpu.motion_lengths[q_ids]
+        with torch.no_grad():
+            ms_card = get_motion_state(mf_store, torch.as_tensor(sub, device=dev)[q_ids.to(dev)], q_t.to(dev))
+            ms_cpu = get_motion_state(sub_cpu, q_ids, q_t)
+
+        # each element's floor from its CPU side (MF_*)
+        ulps = MF_ULPS * 2.0**-24
+
+        def angle_axis_floor(q_, delta=0.0):
+            """The floor of quat_to_angle_axis's vector v of the CPU's [..., 4]
+            quaternions, when the card's may also differ from them by delta
+            (a slerp's floor, relative to the quaternion's size): 1 - w^2
+            moves by ulps + 2 delta, and the vector by |v| times that over
+            2 s^2, by pi delta through xyz, and by all of |v| where that
+            reaches s^2 (one side reads w as 1 and returns 0); and s."""
+            q_ = q_.double()
+            xyz, w_ = q_[..., :3].norm(dim=-1), q_[..., 3].abs().clamp(max=1.0)
+            s2 = 1.0 - w_ * w_
+            moved = ulps + 2.0 * torch.as_tensor(delta, dtype=torch.float64)
+            v_ = 2.0 * torch.atan2(xyz, w_)
+            return (v_ * moved / (2.0 * torch.maximum(s2, moved)) + math.pi * delta + torch.where(s2 <= moved, v_, 0.0),
+                    s2.sqrt())
+
+        floors = {f_: torch.zeros_like(getattr(sub_cpu, f_), dtype=torch.float64) for f_ in fields}
+        s_of = {f_: torch.ones_like(floors[f_]) for f_ in ("gavs", "dvs")}   # the CPU side's s, a witness
+        for s_, n_, c_ in zip(sub_cpu.length_starts.tolist(), sub_cpu.motion_num_frames.tolist(), sub):
+            fps_ = read[c_]["fps"]
+            g_, l_ = sub_cpu.grs[s_ : s_ + n_], sub_cpu.lrs[s_ : s_ + n_, 1:]
+            jump, sg = angle_axis_floor(oq.quat_mul_norm(g_[1:], oq.quat_inverse(g_[:-1])))
+            floors["gavs"][s_ : s_ + n_] = _smooth_time_axis(fps_ * torch.cat([jump, torch.zeros(1, J,
+                                                                                                 dtype=jump.dtype)]))[
+                ..., None]
+            s_of["gavs"][s_ : s_ + n_] = torch.cat([sg, sg[-1:]])[..., None]
+            jump, sl = angle_axis_floor(oq.quat_mul_norm(oq.quat_inverse(l_[:-1]), l_[1:]))
+            floors["dvs"][s_ : s_ + n_] = fps_ * torch.cat([jump, jump[-1:]]).repeat_interleave(3, dim=1)
+            s_of["dvs"][s_ : s_ + n_] = torch.cat([sl, sl[-1:]]).repeat_interleave(3, dim=1)
+        f0_, f1_, bl_ = _calc_frame_blend(q_t, sub_cpu.motion_lengths[q_ids], sub_cpu.motion_num_frames[q_ids],
+                                          sub_cpu.motion_dt[q_ids])
+        f0_, f1_ = f0_ + sub_cpu.length_starts[q_ids], f1_ + sub_cpu.length_starts[q_ids]
+        b3, b2 = bl_[:, None, None].double(), bl_[:, None].double()
+
+        def slerp_floor(table):
+            """[N, J, 4] floors of slerp(table[f0], table[f1]) (its output
+            about unit), [N, J] the relative part, [N, J] |q1 - q0| at
+            the cut (else 0) and [N, J] s."""
+            q0_, q1_ = table[f0_].double(), table[f1_].double()
+            c_ = (q0_ * q1_).sum(-1)
+            s2 = 1.0 - c_ * c_
+            rel = torch.where(s2 >= 1e-6, ulps / (2.0 * s2.clamp(min=1e-6)), 0.0)
+            d_ = torch.where(c_[..., None] < 0, -q1_, q1_) - q0_
+            at_cut = (s2 <= 1e-6 + ulps)[..., None]
+            return (rel[..., None] + torch.where(at_cut, d_.abs(), 0.0), rel, torch.where(at_cut, d_, 0.0).norm(dim=-1),
+                    s2.clamp(min=0.0).sqrt())
+
+        rb_f, _, _, rb_s = slerp_floor(sub_cpu.grs)
+        lr_f, lr_rel, lr_cut, lr_s = slerp_floor(sub_cpu.lrs)
+        dof_f, dof_s = angle_axis_floor(ms_cpu["local_rot"][:, 1:], lr_rel[:, 1:] + lr_cut[:, 1:])
+        s_ang = torch.minimum(s_of["gavs"][f0_], s_of["gavs"][f1_])
+        s_of.update(root_rot=rb_s[:, :1].expand(-1, 4), rb_rot=rb_s[..., None].expand(-1, -1, 4),
+                    local_rot=lr_s[..., None].expand(-1, -1, 4), root_ang_vel=s_ang[:, 0], body_ang_vel=s_ang,
+                    dof_vel=torch.minimum(s_of["dvs"][f0_], s_of["dvs"][f1_]),
+                    dof_pos=torch.minimum(dof_s, lr_s[:, 1:]).repeat_interleave(3, dim=1))
+        ang_f = (1.0 - b3) * floors["gavs"][f0_] + b3 * floors["gavs"][f1_]
+        floors.update(root_rot=rb_f[:, 0], rb_rot=rb_f, local_rot=lr_f, root_ang_vel=ang_f[:, 0], body_ang_vel=ang_f,
+                      dof_vel=(1.0 - b2) * floors["dvs"][f0_] + b2 * floors["dvs"][f1_],
+                      dof_pos=dof_f.repeat_interleave(3, dim=1))
+
+        def held(name, got, want) -> dict:
+            """Within the base tolerance plus the element's floor; the
+            elements beyond the base alone are counted, those of them whose
+            floor is under the base (none where the gate holds), and by the
+            CPU side's s (a rate's: its own frame's; s <= 1.2e-3: at or near
+            slerp's cut)."""
+            got, want = got.double().cpu(), want.double().cpu()
+            err = (got - want).abs()
+            scale = float(want.abs().max())
+            base = MF_VEL_REL * scale if name in vel_fields else MF_POS_TOL
+            floor_ = floors[name] if name in floors else torch.zeros_like(err)
+            beyond = err > base
+            s_b = s_of[name][beyond] if name in s_of else torch.ones(int(beyond.sum()), dtype=torch.float64)
+            edges = (0.0, 1.2e-3, 1e-2, 3e-2, 1e-1, 2.0)
+            return {"max_abs": float(err.max()), "max_rel": float(err.max()) / max(scale, 1e-12), "base_tol": base,
+                    "elements": err.numel(), "floor_over_base": int((floor_ > base).sum()),
+                    "max_floor": float(floor_.max()), "beyond_base": int(beyond.sum()),
+                    "beyond_base_floor_under_base": int((beyond & (floor_ <= base)).sum()),
+                    "beyond_base_by_cpu_s": {f"s<={hi:g}": int(((s_b > lo) & (s_b <= hi)).sum()) + (
+                        int((s_b <= 0).sum()) if lo == 0 else 0) for lo, hi in zip(edges, edges[1:])},
+                    "max_err_over_tol": float((err / (base + floor_).clamp(min=1e-300)).max()),
+                    "ok": bool((err <= base + floor_).all())}
+
+        vel_fields = ("gvs", "gavs", "dvs", "root_vel", "body_vel", "root_ang_vel", "body_ang_vel", "dof_vel")
+        store_cmp = {f_: held(f_, getattr(mf_store, f_)[rows_.to(dev)], getattr(sub_cpu, f_)) for f_ in fields}
+        state_cmp = {k_: held(k_, ms_card[k_], ms_cpu[k_]) for k_ in ms_card}
+        store_info = {"phase": "motion_file", "card": card, "clips": MF_CLIPS, "frames": mf_frames,
+                      "file_bytes": file_bytes, "write_s": write_s, "read_s": read_s,
+                      "read_GBps": file_bytes / read_s / 1e9, "build_s": build_s, "store_bytes": store_bytes,
+                      "store_floats_per_frame": store_bytes // 4 // mf_frames, "groups": len({(c_["local_rotation"].shape[0], c_["fps"]) for c_ in read}),
+                      "round_trip_clips": len(sample), "round_trip_bit_exact": round_trip,
+                      "subset_clips": MF_SUBSET, "subset_cpu_build_s": cpu_build_s, "store_vs_cpu": store_cmp,
+                      "queries": MF_QUERIES, "motion_state_vs_cpu": state_cmp}
+        emit(store_info)
+        if not round_trip or file_bytes != 24 + 8 * MF_CLIPS + 4 * mf_frames * (4 * J + 3):
+            fail(f"motion_file: round trip {round_trip}, {file_bytes} bytes for {mf_frames} frames")
+        if not all(c_["ok"] for c_ in (*store_cmp.values(), *state_cmp.values())):
+            fail(f"motion_file: the card's store or motion state against the CPU's: {store_cmp}, {state_cmp}")
+        del mf_store, read, sub_cpu, ms_card
+        torch.cuda.empty_cache()
+
+        # train the main path from the file: K1 and K2 32 each an epoch
+        res, mf_launches, info = train("motion_file_train", ["env=im", f"env.motion_file={mtn}"],
+                                       {"step_reward_amp": HORIZON, "observe": HORIZON, "physics_step": 0,
+                                        "physics_step_rows": 0, "reward_amp": 0})
+        m_env = res.agent.env
+        info.update(phase="motion_file_train", clips=m_env.motion.num_motions,
+                    store_device=str(m_env.motion.gts.device), train_im_env_steps_per_s=im_steps_per_s)
+        emit(info)
+        if m_env.motion.num_motions != MF_CLIPS or m_env.motion.gts.device.type != "cuda":
+            fail(f"motion_file_train: {m_env.motion.num_motions} clips on {m_env.motion.gts.device}")
+        del res, m_env
+
+        # process_amass on AMASS-style 120 fps sequences with a gendered
+        # synthetic SMPL triple at V = 6890, then the .pkl into a store
+        amass_root = os.path.join(mf_dir, "amass")
+        os.makedirs(os.path.join(amass_root, "SYNTH", "subj"))
+        for i in range(MF_AMASS_SEQS):
+            T_ = int(mrng.integers(480, 1201))
+            tt = np.linspace(0, 8 * np.pi, T_)[:, None]
+            poses = mrng.uniform(0.0, 0.35, (1, 156)) * np.sin(mrng.uniform(0.5, 2.0, (1, 156)) * tt
+                                                                + mrng.uniform(0, np.pi, (1, 156)))
+            poses[:, :3] += np.asarray([np.pi / 2, 0, 0])
+            trans = np.stack([0.005 * np.arange(T_), np.full(T_, 0.91), 0.01 * np.sin(np.arange(T_) / 10)], 1)
+            np.savez(os.path.join(amass_root, "SYNTH", "subj", f"seq{i}_poses.npz"), poses=poses, trans=trans,
+                     betas=mrng.standard_normal(16), gender=("neutral", "male", "female")[i % 3],
+                     mocap_framerate=120.0)
+        smpl_dir = os.path.join(mf_dir, "smpl")
+        os.makedirs(smpl_dir)
+        for s_, g_ in enumerate(("NEUTRAL", "MALE", "FEMALE")):
+            write_smpl_pickle(os.path.join(smpl_dir, f"SMPL_{g_}.pkl"), spec.skeleton, num_surface_verts=6866, seed=s_)
+        pk = {k_: os.path.join(mf_dir, f"{k_}.pkl") for k_ in ("raw", "db", "isaac")}
+        t0 = time.perf_counter()
+        process_amass.process_raw(amass_root, pk["raw"])
+        db = process_amass.process_db(pk["raw"], pk["db"], None, smpl_dir, device=dev)
+        process_amass.process_isaac(pk["db"], pk["isaac"], device=dev)
+        amass_clips = load_motion_file(pk["isaac"], spec.skeleton)
+        a_store = build_motion_data(spec.skeleton, amass_clips, device=dev)
+        torch.cuda.synchronize()
+        amass_s = time.perf_counter() - t0
+        # the batched LBS of the fixed first frames on the card against a
+        # float64 LBS on the CPU; after the fix each lowest vertex is at z = 0
+        gsmpl = smpl_bm.GenderedSMPL.load(smpl_dir)
+        lbs_err, lowest = 0.0, []
+        for g_ in ("neutral", "male", "female"):
+            keys_ = [k_ for k_, v_ in db.items() if v_["gender"] == g_]
+            args_ = [torch.from_numpy(np.stack(x_)) for x_ in (
+                [db[k_]["beta"] for k_ in keys_],
+                [axis_angle_to_quat(db[k_]["pose_aa"][0].reshape(24, 3)) for k_ in keys_],
+                [db[k_]["trans"][0] for k_ in keys_])]
+            with torch.no_grad():
+                v_card, _ = smpl_bm.lbs(gsmpl.for_gender(g_), *(a_.float().to(dev) for a_ in args_))
+                v_cpu, _ = smpl_bm.lbs(gsmpl.for_gender(g_), *(a_.double() for a_ in args_))
+            lbs_err = max(lbs_err, float((v_card.double().cpu() - v_cpu).abs().max()))
+            lowest += v_cpu[..., 2].amin(dim=1).tolist()
+        codes = sorted({float(c_["shape_params"][0]) for c_ in amass_clips})
+        a_info = {"phase": "motion_file_amass", "card": card, "sequences": MF_AMASS_SEQS, "db": len(db),
+                  "clips": a_store.num_motions, "frames": int(a_store.gts.shape[0]),
+                  "vertices": int(gsmpl.neutral.v_template.shape[0]), "seconds": amass_s,
+                  "lbs_card_vs_cpu64_max_abs_m": lbs_err, "lowest_vertex_after_fix_m": [min(lowest), max(lowest)],
+                  "gender_codes": codes, "store_finite": all(bool(torch.isfinite(getattr(a_store, f_)).all())
+                                                             for f_ in fields)}
+        emit(a_info)
+        if (len(db) != MF_AMASS_SEQS or a_store.num_motions != MF_AMASS_SEQS or not a_info["store_finite"]
+                or a_info["vertices"] != 6890 or codes != sorted(smpl_bm.GENDER_CODE.values())
+                or lbs_err > MF_POS_TOL or max(abs(x_) for x_ in lowest) > MF_POS_TOL):
+            fail(f"motion_file_amass: {a_info}")
+        del a_store
+    finally:
+        shutil.rmtree(mf_dir, ignore_errors=True)
+        shutil.rmtree(out_root, ignore_errors=True)
+    emit({"phase": "motion_file_seconds", "card": card, "seconds": time.perf_counter() - t_phase})
 
     # ---- K3's and RA's times on the kernel phase's inputs ---------------------- #
     with torch.no_grad():
@@ -2614,12 +2925,18 @@ def main() -> int:
         return {"train_strike": strike_launches[kernel], "train_terrain": terrain_launches[kernel],
                 "self_collision": sc_launches[kernel]}
 
+    def no_launch_phases(kernel) -> dict:
+        """The plain-route phases' and motion_file_train's launches of a kernel
+        that neither runs (each gated to 0)."""
+        return {**plain_phases(kernel), "motion_file_train": mf_launches[kernel]}
+
     emit({"kernels": [
         {"name": "step_reward_amp", "route": "cuda", "source": src + "step_reward_amp.cu",
          "replaces": "pulse_tpu/env/pallas_obs.py:376",
          "launches": sum(n["step_reward_amp"] for n in (im_launches, amp_im_launches, mcp_launches, im_z_launches,
-                                                         pulse_launches, pth_mcp_launches)),
+                                                         pulse_launches, pth_mcp_launches, mf_launches)),
          "launches_by_phase": {"train_im": im_launches["step_reward_amp"],
+                               "motion_file_train": mf_launches["step_reward_amp"],
                                "train_amp_im": amp_im_launches["step_reward_amp"],
                                "train_mcp": mcp_launches["step_reward_amp"],
                                "z_im_traj": im_z_launches["step_reward_amp"],
@@ -2631,8 +2948,9 @@ def main() -> int:
          "replaces": "pulse_tpu/env/pallas_obs.py:558",
          "launches": sum(n["observe"] for n in (im_launches, amp_im_launches, mcp_launches, mcp_getup_launches,
                                                  dr_launches, im_z_launches, pulse_launches, pth_mcp_launches,
-                                                 pth_distill_launches)),
+                                                 pth_distill_launches, mf_launches)),
          "launches_by_phase": {"train_im": im_launches["observe"], "train_amp_im": amp_im_launches["observe"],
+                               "motion_file_train": mf_launches["observe"],
                                "train_mcp": mcp_launches["observe"], "train_mcp_getup": mcp_getup_launches["observe"],
                                "train_dr": dr_launches["observe"], "z_im_traj": im_z_launches["observe"],
                                "pulse_stages": pulse_launches["observe"],
@@ -2658,14 +2976,14 @@ def main() -> int:
                                "z_im_traj": traj_z_launches["physics_step"],
                                "pulse_stages": pulse_launches["physics_step"],
                                "import_pth_distill": pth_distill_launches["physics_step"],
-                               "import_pth_speed_z": pth_z_launches["physics_step"], **plain_phases("physics_step")},
+                               "import_pth_speed_z": pth_z_launches["physics_step"], **no_launch_phases("physics_step")},
          "max_abs_err": max_err["physics_step"], "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
          "bound_by": k3_by, "library_ms": None},
         {"name": "physics_step_rows", "route": "cuda", "source": src + "physics_step.cu",
          "replaces": "pulse_tpu/physics/substep_pallas.py:744",
          "launches": shape_launches["physics_step_rows"] + dr_launches["physics_step_rows"],
          "launches_by_phase": {"train_shape": shape_launches["physics_step_rows"],
-                               "train_dr": dr_launches["physics_step_rows"], **plain_phases("physics_step_rows")},
+                               "train_dr": dr_launches["physics_step_rows"], **no_launch_phases("physics_step_rows")},
          "max_abs_err": max_err["physics_step_rows"], "ms": k3r_ms, "plain_ms": k3r_plain_ms, "bound_ms": k3r_bound,
          "bound_by": k3r_by, "library_ms": None},
         {"name": "reward_amp", "route": "cuda", "source": src + "reward_amp.cu",
@@ -2676,7 +2994,7 @@ def main() -> int:
                                "train_amp_getup": amp_getup_launches["reward_amp"],
                                "train_mcp_getup": mcp_getup_launches["reward_amp"],
                                "train_dr": dr_launches["reward_amp"],
-                               "import_pth_distill": pth_distill_launches["reward_amp"], **plain_phases("reward_amp")},
+                               "import_pth_distill": pth_distill_launches["reward_amp"], **no_launch_phases("reward_amp")},
          "max_abs_err": max_err["reward_amp"], "ms": ra_ms, "plain_ms": ra_plain_ms, "bound_ms": ra_bound,
          "bound_by": ra_by, "library_ms": None},
     ]})

@@ -72,6 +72,15 @@ def forward_kinematics(
     return g_rot, g_pos
 
 
+def global_to_local(tree: SkeletonTree, global_rotation: torch.Tensor) -> torch.Tensor:
+    """Inverse of FK on rotations: the root keeps its global rotation, a
+    child's local rotation is parent^-1 * child."""
+    parents = torch.as_tensor(np.maximum(tree.parent_indices, 0), dtype=torch.long, device=global_rotation.device)
+    local = q.quat_mul_norm(q.quat_inverse(global_rotation[..., parents, :]), global_rotation)
+    is_root = torch.as_tensor(tree.parent_indices < 0, device=global_rotation.device)[..., None]
+    return torch.where(is_root, global_rotation, local)
+
+
 def _gaussian_kernel1d(size: int, sigma: float) -> np.ndarray:
     x = np.arange(size) - (size - 1) / 2.0
     k = np.exp(-0.5 * (x / sigma) ** 2)

@@ -57,48 +57,75 @@ def _compute_dof_vels(local_rot: torch.Tensor, fps: float) -> torch.Tensor:
     return torch.cat([vel, vel[-1:]], dim=0)
 
 
+# the most frames one batched FK + velocities program takes: its
+# intermediates grow with them (on the card, AMASS's (T, fps) groups hold
+# far fewer)
+CHUNK_FRAMES = 1 << 18
+
+
 def build_motion_data(
     tree: SkeletonTree,
     clips: Sequence[dict[str, Any]],
     sampling_prob: np.ndarray | None = None,
     device=None,
 ) -> MotionData:
-    """Build the flat store from per-clip {"fps", "local_rotation" [T, J, 4],
-    "root_translation" [T, 3]} and optional "shape_params" [11] and
-    "limb_weights" [10] (zeros where absent). FK and velocities are
-    computed on the host in float32, one clip at a time, then uploaded once
-    per field."""
-    device = resolve_device(device)
-    fields: dict[str, list[torch.Tensor]] = {k: [] for k in ("gts", "grs", "gvs", "gavs", "lrs", "dvs")}
-    nframes, fps_l = [], []
-    for clip in clips:
-        lr = torch.as_tensor(np.asarray(clip["local_rotation"], np.float32))
-        rt = torch.as_tensor(np.asarray(clip["root_translation"], np.float32))
-        fps = float(clip["fps"])
-        g_rot, g_pos = forward_kinematics(tree, lr, rt)
-        fields["gts"].append(g_pos)
-        fields["grs"].append(g_rot)
-        fields["gvs"].append(compute_linear_velocity(g_pos, fps))
-        fields["gavs"].append(compute_angular_velocity(g_rot, fps))
-        fields["lrs"].append(lr)
-        fields["dvs"].append(_compute_dof_vels(lr[:, 1:], fps).reshape(lr.shape[0], -1))
-        nframes.append(lr.shape[0])
-        fps_l.append(fps)
+    """Build the flat store on `device` from per-clip {"fps",
+    "local_rotation" [T, J, 4], "root_translation" [T, 3]} and optional
+    "shape_params" [11] and "limb_weights" [10] (zeros where absent).
 
+    Clips are grouped by (T, fps), as the JAX package groups them, and each
+    group runs FK, the smoothed velocities and the dof velocities batched on
+    the device, in chunks of at most CHUNK_FRAMES frames (a clip longer
+    than that is a chunk of its own), time first: every clip keeps its own
+    time-axis edges. Each chunk's frames are written into the store's
+    preallocated fields at their clips' offsets, so the store is never
+    copied whole on the host."""
+    device = resolve_device(device)
     M = len(clips)
-    nframes_np = np.asarray(nframes, np.int64)
-    starts = np.concatenate([[0], np.cumsum(nframes_np)[:-1]])
+    nframes = np.asarray([np.shape(c["local_rotation"])[0] for c in clips], np.int64)
+    fps_l = [float(c["fps"]) for c in clips]
+    starts = np.concatenate([[0], np.cumsum(nframes)[:-1]]).astype(np.int64)
+    F, J = int(nframes.sum()), tree.num_joints
+    store = {k: torch.empty((F, J, d), device=device) for k, d in (("gts", 3), ("grs", 4), ("gvs", 3), ("gavs", 3),
+                                                                       ("lrs", 4))}
+    store["dvs"] = torch.empty((F, 3 * (J - 1)), device=device)
+
+    groups: dict[tuple[int, float], list[int]] = {}
+    for i in range(M):
+        groups.setdefault((int(nframes[i]), fps_l[i]), []).append(i)
+    for (T, fps), idx in groups.items():
+        per = max(1, CHUNK_FRAMES // T)
+        for lo in range(0, len(idx), per):
+            ids = idx[lo : lo + per]
+            # [T, B, ...]: the velocity functions difference and smooth axis 0
+            lr = torch.from_numpy(np.stack([np.asarray(clips[i]["local_rotation"], np.float32) for i in ids], 1))
+            rt = torch.from_numpy(np.stack([np.asarray(clips[i]["root_translation"], np.float32) for i in ids], 1))
+            lr, rt = lr.to(device), rt.to(device)
+            g_rot, g_pos = forward_kinematics(tree, lr, rt)
+            rows = (torch.as_tensor(starts[ids], device=device)[:, None]
+                    + torch.arange(T, device=device)).reshape(-1)      # clip-major, as the store
+
+            def put(name, x):
+                store[name].index_copy_(0, rows, x.transpose(0, 1).reshape(len(ids) * T, *x.shape[2:]))
+
+            put("gts", g_pos)
+            put("grs", g_rot)
+            put("gvs", compute_linear_velocity(g_pos, fps))
+            put("gavs", compute_angular_velocity(g_rot, fps))
+            put("lrs", lr)
+            put("dvs", _compute_dof_vels(lr[:, :, 1:], fps).reshape(T, len(ids), -1))
+
     prob = np.full(M, 1.0 / M, np.float32) if sampling_prob is None else np.asarray(sampling_prob, np.float32)
-    lengths = [(n - 1) / f for n, f in zip(nframes, fps_l)]
+    lengths = [(n - 1) / f for n, f in zip(nframes.tolist(), fps_l)]
 
     def up(x, dtype=torch.float32):
         return torch.as_tensor(np.asarray(x), dtype=dtype).to(device)
 
     return MotionData(
-        **{k: torch.cat(v).to(device) for k, v in fields.items()},
+        **store,
         length_starts=up(starts, torch.long),
         motion_lengths=up(np.asarray(lengths, np.float32)),
-        motion_num_frames=up(nframes_np, torch.long),
+        motion_num_frames=up(nframes, torch.long),
         motion_dt=up((1.0 / np.asarray(fps_l)).astype(np.float32)),
         sampling_prob=up(prob),
         shape_params=up(np.stack([np.asarray(c.get("shape_params", np.zeros(11)), np.float32) for c in clips])),

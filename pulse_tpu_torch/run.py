@@ -15,9 +15,12 @@ Counterpart of `pulse_tpu/run.py`:
     python -m pulse_tpu_torch.run env=strike learning=pulse_z_task num_envs=3072
     python -m pulse_tpu_torch.run env=pedestrian_terrain learning=pulse_z_task num_envs=3072
     python -m pulse_tpu_torch.run env=im_mcp learning=im_ppo env.pnn_checkpoint=<PHC pnn>.pth
+    python -m pulse_tpu_torch.run env=im learning=im_ppo env.motion_file=<amass_isaac_train>.pkl
 
 composes the YAML config tree (`utils/config.py`), builds the model, the
-synthetic motion clips, the env and the agent (PPO, PPO with the AMP
+motion store (the clips of `env.motion_file`: a `.npz`, a `.mtn` archive or
+the reference's converted-AMASS `.pkl`, read without joblib; else synthetic
+clips), the env and the agent (PPO, PPO with the AMP
 discriminator, or distillation of a frozen PPO teacher into a PulseVAE),
 and runs the epoch loop (calling the agent's `pre_epoch` schedule before
 each epoch where it has one) with JSONL metric lines every
@@ -86,6 +89,9 @@ _TASK_ENVS = ("HumanoidSpeed", "HumanoidReach", "HumanoidTraj", "HumanoidStrike"
 
 
 def _unported(what: str, item) -> NotImplementedError:
+    """The error of a config the port cannot run yet, naming the ROADMAP
+    item that ports it: the demo task names (item 15) and shape variation
+    with HumanoidImGetup (item 12)."""
     return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, item {item})")
 
 
@@ -112,12 +118,17 @@ def build_model_from_cfg(cfg, device):
 
 
 def build_motion_from_cfg(cfg, spec, device):
+    """The clips of `env.motion_file` (.npz, .mtn, .pkl / .pk), else
+    `env.num_synthetic_clips` synthetic ones, as a store on `device`."""
+    from pulse_tpu_torch.motion.loader import load_motion_file
     from pulse_tpu_torch.motion.motion_lib import build_motion_data
     from pulse_tpu_torch.motion.synthetic import make_synthetic_clips
 
-    if cfg["env"].get("motion_file", ""):
-        raise _unported("env.motion_file (motion/loader.py)", 13)
-    clips = make_synthetic_clips(spec.skeleton, num_clips=int(cfg["env"].get("num_synthetic_clips", 4)))
+    motion_file = cfg["env"].get("motion_file", "")
+    if motion_file:
+        clips = load_motion_file(motion_file, spec.skeleton)
+    else:
+        clips = make_synthetic_clips(spec.skeleton, num_clips=int(cfg["env"].get("num_synthetic_clips", 4)))
     return build_motion_data(spec.skeleton, clips, device=device)
 
 

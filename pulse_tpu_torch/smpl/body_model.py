@@ -1,20 +1,24 @@
-"""The SMPL body model's shape half: shaped rest-pose joints from betas.
+"""The SMPL body model: shaped rest-pose joints and linear blend skinning.
 
-Counterpart of the part of `pulse_tpu/smpl/body_model.py` that per-env
-shape variation needs (`physics/shape_variation.py:models_from_betas`):
-the joint names, the model data of a SMPL release pickle
-(SMPL_{NEUTRAL,MALE,FEMALE}.pkl, not shipped with the repository; a
-synthetic one comes from `smpl/synthetic.py`) and `shaped_joints`.
-Linear blend skinning and the ground-height fix are not ported yet.
+Counterpart of `pulse_tpu/smpl/body_model.py`: the joint names, the model
+data of a SMPL release pickle (SMPL_{NEUTRAL,MALE,FEMALE}.pkl, not shipped
+with the repository; a synthetic one comes from `smpl/synthetic.py`),
+`shaped_joints` (per-env shape variation, `physics/shape_variation.py`),
+and batched `lbs`, `ground_height_offset` and `GenderedSMPL` (the
+ground-height fix of the AMASS conversion scripts, ≙ the reference's
+MotionLibSMPL.fix_trans_height, motion_lib_smpl.py:46-99).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import pickle
 
 import numpy as np
 import torch
+
+from pulse_tpu_torch.ops import quat as q
 
 SMPL_JOINT_NAMES = (
     "Pelvis", "L_Hip", "R_Hip", "Torso", "L_Knee", "R_Knee", "Spine",
@@ -24,6 +28,10 @@ SMPL_JOINT_NAMES = (
 )
 # (SMPL's Spine1/Spine2/Spine3/Foot/Collar under the MJCF humanoid's
 # Torso/Spine/Chest/Toe/Thorax names, the reference's convention)
+
+# a gender's code: the body model it picks, and the first entry of a clip's
+# shape row (convert_amass_isaac.py, motion_lib_smpl.py:121-128)
+GENDER_CODE = {"neutral": 0, "male": 1, "female": 2}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,3 +83,94 @@ def shaped_joints(model: SMPLModel, betas: torch.Tensor) -> torch.Tensor:
     jdirs = torch.einsum("jv,vds->jds", Jr, torch.as_tensor(model.shapedirs, dtype=torch.float64))
     out = j0.to(dev) + torch.einsum("jds,...s->...jd", jdirs.to(dev), betas.to(torch.float64))
     return out.to(torch.float32)
+
+
+def lbs(model: SMPLModel, betas: torch.Tensor, pose_quat: torch.Tensor,
+        trans: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Linear blend skinning of a batch of poses: betas [B, S] or [S],
+    pose_quat [B, J, 4] xyzw local joint rotations in SMPL order, trans
+    [B, 3] -> (vertices [B, V, 3], joints [B, J, 3]), in pose_quat's dtype
+    and on its device. A vertex is sum_j w_vj (R_j (v - j_rest) + j_world),
+    computed as (sum_j w_vj R_j) v + sum_j w_vj (j_world - R_j j_rest), so
+    that no [B, V, J, 3] tensor is formed."""
+    dt, dev = pose_quat.dtype, pose_quat.device
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x), dtype=dt, device=dev)
+
+    B, J = pose_quat.shape[0], model.num_joints
+    betas = betas.to(dt).expand(B, -1)
+    v_shaped = t(model.v_template) + torch.einsum("vds,bs->bvd", t(model.shapedirs), betas)       # [B, V, 3]
+    joints = torch.einsum("jv,bvd->bjd", t(model.J_regressor), v_shaped)                        # [B, J, 3]
+
+    # world transforms down the chain (SMPL parents precede their children)
+    g_rot, g_pos = [pose_quat[:, 0]], [joints[:, 0]]
+    for i in range(1, J):
+        p = int(model.parents[i])
+        g_rot.append(q.quat_mul_norm(g_rot[p], pose_quat[:, i]))
+        g_pos.append(g_pos[p] + q.quat_rotate(g_rot[p], joints[:, i] - joints[:, p]))
+    g_rot, g_pos = torch.stack(g_rot, 1), torch.stack(g_pos, 1)
+
+    # R_j as matrices: column k is R_j e_k
+    eye = torch.eye(3, dtype=dt, device=dev)
+    rot = q.quat_rotate(g_rot[:, :, None, :].expand(B, J, 3, 4), eye.expand(B, J, 3, 3)).transpose(-1, -2)
+    w = t(model.weights)                                                                        # [V, J]
+    offset = g_pos - (rot @ joints[..., None])[..., 0]                                          # [B, J, 3]
+    blend = torch.einsum("vj,bjxk->bvxk", w, rot)                                               # [B, V, 3, 3]
+    verts = (blend @ v_shaped[..., None])[..., 0] + torch.einsum("vj,bjx->bvx", w, offset)
+    return verts + trans[:, None, :].to(dt), g_pos + trans[:, None, :].to(dt)
+
+
+def ground_height_offset(model: SMPLModel, betas: torch.Tensor, pose_quat: torch.Tensor,
+                         trans: torch.Tensor) -> torch.Tensor:
+    """[B] vertical offsets putting each pose's lowest LBS vertex on the
+    ground (≙ MotionLibSMPL.fix_trans_height, motion_lib_smpl.py:72-99)."""
+    verts, _ = lbs(model, betas, pose_quat, trans)
+    return -verts[..., 2].amin(dim=1)
+
+
+def ground_offsets(models: list, betas: np.ndarray, pose_quat: np.ndarray, trans: np.ndarray,
+                   device) -> np.ndarray:
+    """[N] `ground_height_offset`s of N poses (betas [N, S], pose_quat
+    [N, J, 4] in SMPL order, trans [N, 3]), pose i under body model
+    models[i]: one batched LBS on `device` for each distinct model, in
+    float32 (the scripts' ground-height fix)."""
+    out = np.empty(len(models))
+    groups: dict[int, tuple] = {}
+    for i, m in enumerate(models):
+        groups.setdefault(id(m), (m, []))[1].append(i)
+    for model, idx in groups.values():
+        def put(x):
+            return torch.from_numpy(np.asarray(x, np.float32)[idx]).to(device)
+
+        out[idx] = ground_height_offset(model, put(betas), put(pose_quat), put(trans)).cpu().numpy()
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class GenderedSMPL:
+    """Gendered model triple (≙ MotionLibSMPL's smpl_parser_{n,m,f},
+    motion_lib_smpl.py:46-70): the body model of a clip's gender for the
+    ground-height fix; a missing gendered model falls back to neutral."""
+
+    neutral: SMPLModel
+    male: SMPLModel | None = None
+    female: SMPLModel | None = None
+
+    @classmethod
+    def load(cls, data_dir: str) -> "GenderedSMPL":
+        """SMPL_{NEUTRAL,MALE,FEMALE}.pkl from a directory (the reference's
+        data/smpl layout); the neutral one must be there."""
+        def maybe(name):
+            p = os.path.join(data_dir, name)
+            return load_smpl_model(p) if os.path.exists(p) else None
+
+        neutral = maybe("SMPL_NEUTRAL.pkl")
+        if neutral is None:
+            raise FileNotFoundError(f"{data_dir}/SMPL_NEUTRAL.pkl")
+        return cls(neutral=neutral, male=maybe("SMPL_MALE.pkl"), female=maybe("SMPL_FEMALE.pkl"))
+
+    def for_gender(self, gender) -> SMPLModel:
+        if isinstance(gender, str):
+            gender = GENDER_CODE.get(gender, 0)
+        return {0: self.neutral, 1: self.male or self.neutral, 2: self.female or self.neutral}[int(gender)]

@@ -17,7 +17,8 @@ policy. `env=im_mcp` and `env=im_mcp_getup` (composer weights over a
 fresh frozen PNN), `env.randomize=true` (with PPO, and with AMP re-drawing
 the props) and `env.control_mode=pd|force` train in process. Options the
 port does not have yet raise NotImplementedError (the reference `.pth`
-paths, strike and terrain run in tests/test_torch_checkpoint.py). The port's config
+paths, strike and terrain run in tests/test_torch_checkpoint.py, the
+motion files in tests/test_torch_motion_file.py). The port's config
 dataclasses default as the JAX package's.
 
 One tiny `env=im` run in this process (`trained`) gives the checkpoint
@@ -106,7 +107,7 @@ def test_main_runs_env_im_in_process(trained):
 
 @pytest.mark.parametrize("args", [
     ["env.task=HumanoidImMCPDemo"], ["env=amp_getup", "learning=im_amp", "env.shape_variation=true"],
-    ["env=im_getup", "env.shape_variation=true"], ["env.motion_file=x.pkl"],
+    ["env=im_getup", "env.shape_variation=true"], ["env.task=HumanoidImDemo"],
 ])
 def test_unported_options_raise(args, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
