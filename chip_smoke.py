@@ -143,6 +143,30 @@ Phases, each printed as one JSON line:
                the pre-re-draw model's step differs in more envs than
                that); one more step's obs equal to the DR noise recomputed
                from the held and fresh draws on K2's clean obs
+  demo         scripts/demo_server.demo_loop at 1 env on train_im's
+               checkpoint for 64 steps, a PoseServer on 127.0.0.1 (port 0)
+               and an in-process PoseClient (socket timeout): 64 frames
+               received, body_pos [24, 3] finite, reward in [0, 1]; a clip
+               switch after frame 16 puts the env on that clip (id mod the
+               clip count) at that time with progress 0, a driving pose
+               after frame 40 sets root pos, root rot and dof within 1e-5
+               before the next step; K1 one launch a step, K2 one a step
+               and one more at each reset (the loop's, the switch's), none
+               of K3 or RA; ms a step (utils/benchmarking.Timer)
+  demo_tasks   run.main test=true with env.task=HumanoidImDemo on
+               train_im's checkpoint and HumanoidImMCPDemo on train_mcp's:
+               each builds HumanoidImEnv / HumanoidImMCPEnv, and its
+               launches and metrics equal those of HumanoidIm's (the eval
+               phase's run) and HumanoidImMCP's on the same seed
+  legacy_cli   pulse_tpu_torch.legacy_cli.main --task HumanoidIm --num_envs
+               3072 --max_iterations 1 in process: env=im learning=im_ppo,
+               32 launches of K1, 33 of K2 (one at the reset), none else
+  record_sample  record_rollout (train_im's checkpoint, 4 envs) and
+               sample_pulse (the distill phase's PulseVAE, 2 envs, early
+               termination off) through their mains at 300 steps: 300 K1
+               and 301 K2 launches each, the .npz keys and shapes of the
+               JAX scripts, finite; the sampler terminates no env and ends
+               each episode only at episode_length
   control_modes  8 steps each of isaac_pd, pd and force from the standing
                reference state (velocities zeroed; the pose-holding action,
                zero torque under force): isaac_pd K1 and K2 8 each, pd and
@@ -240,6 +264,15 @@ Phases, each printed as one JSON line:
                card's LBS within 1e-5 m of a float64 CPU LBS of the same
                poses, each fixed first frame's lowest vertex at z = 0; the
                phase's seconds
+  scripts_on_card  play_motion's store of 4 synthetic clips and its
+               trace of the last, joint_monkey's FK sweep (20 frames a DOF)
+               and render_smpl_mesh's batched skinning of 40 frames on a
+               synthetic SMPL model at V = 6890, each on the card and on
+               the CPU on the same inputs: positions within 1e-5 m, the
+               store and its lookups within motion_file's tolerances and
+               floors; the drawing writes PNGs where matplotlib is
+               installed, else raises the ImportError that names it; no
+               kernel launch
   perturb      HumanoidImPerturbEnv (proj_interval 8, early termination
                off) for 24 policy-acting steps: every projectile relaunched
                exactly where the pre-step progress is 7 mod 8 (some at 7,
@@ -344,6 +377,19 @@ MF_POS_TOL = 1e-5
 MF_VEL_REL = 1e-4
 MF_ULPS = 4
 MF_AMASS_SEQS = 20
+STORE_FIELDS = ("gts", "grs", "gvs", "gavs", "lrs", "dvs")   # a motion store's per-frame tables
+# the entry points: the demo loop's steps at 1 env, the frames after which the
+# in-process client sends a clip switch and a driving pose, the seconds any
+# socket wait gives up after; record_rollout's and sample_pulse's steps (their
+# scripts' defaults)
+DEMO_STEPS = 64
+DEMO_MOTION_AT = 16
+DEMO_POSE_AT = 40
+DEMO_SOCKET_S = 30.0
+RS_STEPS = 300
+PLAY_CLIPS = 4                  # scripts_on_card: play_motion plays the last of these synthetic clips
+SWEEP_FRAMES = 20               # joint_monkey --sweep's frames a DOF (its default)
+SKIN_FRAMES = 40                # render_smpl_mesh's frames skinned in one batch
 
 
 def emit(obj) -> None:
@@ -2025,6 +2071,232 @@ def main() -> int:
             or pa_info["reward_max_abs"] > K1_TOL["reward"] or pa_info["obs_max_abs"] > K1_TOL["body_vel"]):
         fail(f"plain_arm: {pa_info}")
     del pa, plain_st, kern_st, aenv_, ast_, nxt_
+
+    # ---- demo: the live pose server's loop at 1 env on train_im's checkpoint - #
+    # scripts/demo_server.demo_loop (what its main runs) with a real PoseServer
+    # on 127.0.0.1 (port 0) and an in-process PoseClient (a socket timeout)
+    # reading every frame; the client sends a clip switch after frame
+    # DEMO_MOTION_AT and a driving pose after DEMO_POSE_AT, each applied
+    # before the next step runs. Each step is K1 then K2; the loop's reset
+    # and the clip switch's reset_to one K2 more each
+    import threading
+
+    from pulse_tpu_torch.ops import quat as dq
+    from pulse_tpu_torch.scripts import common as script_common
+    from pulse_tpu_torch.scripts import demo_server, record_rollout, sample_pulse
+    from pulse_tpu_torch.utils.benchmarking import Timer
+    from pulse_tpu_torch.utils.pose_server import PoseClient, PoseServer
+
+    im_ckpt = os.path.join(out_root, "train_im", "ckpt")
+    denv = script_common.make_env(dev)
+    dpolicy = script_common.load_policy(denv, im_ckpt)
+    drng = torch.Generator().manual_seed(16)
+    dquat = torch.randn(4, generator=drng)
+    d_motion = {"cmd": "motion", "id": 3, "time": 0.75}
+    d_pose = {"cmd": "pose", "root_pos": [0.3, -0.2, 0.95], "root_rot": (dquat / dquat.norm()).tolist(),
+              "dof_pos": (0.4 * torch.rand(69, generator=drng) - 0.2).tolist()}
+    server = PoseServer(port=0)
+    frames, viewer_err, applied = [], [], []
+    try:
+        client = PoseClient(port=server.port, timeout=DEMO_SOCKET_S)
+        deadline = time.monotonic() + DEMO_SOCKET_S
+        while server.num_clients < 1 and time.monotonic() < deadline:
+            time.sleep(0.005)
+
+        def viewer():
+            try:
+                for i_ in range(DEMO_STEPS):
+                    frames.append(client.recv())
+                    if i_ == DEMO_MOTION_AT:
+                        client.send(d_motion)
+                    elif i_ == DEMO_POSE_AT:
+                        client.send(d_pose)
+            except Exception as err:   # a timeout or a closed socket: the frame count tells
+                viewer_err.append(repr(err))
+
+        def on_command(i_, cmd, st_):
+            ph_ = st_.physics
+            rec = {"step": i_, "cmd": cmd["cmd"], "launches": dict(_build.launches)}
+            if cmd["cmd"] == "motion":
+                ref_ = get_motion_state(denv.motion, st_.motion_id, st_.start_time)
+                rec.update(motion_id=int(st_.motion_id[0]), start_time=float(st_.start_time[0]),
+                           progress=int(st_.progress[0]),
+                           root_vs_reference=float((ph_.root_pos - ref_["root_pos"]).abs().max()))
+            else:
+                rec.update(root_pos=float((ph_.root_pos[0].cpu() - torch.tensor(cmd["root_pos"])).abs().max()),
+                           root_rot=float((ph_.root_rot[0].cpu() - torch.tensor(cmd["root_rot"])).abs().max()),
+                           dof=float((dq.quat_to_exp_map(ph_.joint_rot[0]).reshape(-1).cpu()
+                                      - torch.tensor(cmd["dof_pos"])).abs().max()))
+            applied.append(rec)
+
+        th = threading.Thread(target=viewer, daemon=True)
+        th.start()
+        timer = Timer()
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        last = []
+        with timer("demo_loop", block=True, result=last):
+            last.append(demo_server.demo_loop(denv, dpolicy, server, DEMO_STEPS, on_command=on_command))
+        d_launches = dict(_build.launches)
+        th.join(DEMO_SOCKET_S)
+        client.close()
+    finally:
+        server.close()
+    d_ms = 1e3 * timer.totals["demo_loop"] / DEMO_STEPS
+    want_d = {"step_reward_amp": DEMO_STEPS, "observe": DEMO_STEPS + 2, "physics_step": 0, "physics_step_rows": 0,
+              "reward_amp": 0}
+    d_ok_frames = [f_ for f_ in frames if len(f_["body_pos"]) == J and all(len(p_) == 3 for p_ in f_["body_pos"])
+                   and all(math.isfinite(x_) for p_ in f_["body_pos"] for x_ in p_) and 0.0 <= f_["reward"] <= 1.0]
+    demo_info = {"phase": "demo", "card": card, "envs": 1, "steps": DEMO_STEPS, "ms_per_step": d_ms,
+                 "timer_report": timer.report(), "frames": len(frames), "frames_ok": len(d_ok_frames),
+                 "viewer_error": viewer_err, "commands": applied, "launches": d_launches,
+                 "checkpoint": run.latest_checkpoint(im_ckpt)}
+    emit(demo_info)
+    by_cmd = {a_["cmd"]: a_ for a_ in applied}
+    mo, po = by_cmd.get("motion"), by_cmd.get("pose")
+    if (len(frames) != DEMO_STEPS or len(d_ok_frames) != DEMO_STEPS or viewer_err or d_launches != want_d
+            or len(applied) != 2 or mo is None or po is None):
+        fail(f"demo: {demo_info}")
+    if (mo["motion_id"] != d_motion["id"] % int(denv.motion.num_motions) or mo["start_time"] != d_motion["time"]
+            or mo["progress"] != 0 or mo["root_vs_reference"] > MF_POS_TOL):
+        fail(f"demo: the clip switch left {mo}")
+    if max(po["root_pos"], po["root_rot"], po["dof"]) > MF_POS_TOL:
+        fail(f"demo: the driving pose left {po}")
+    # the launches before each command: one K1 a step, K2 one more at the reset
+    # (and after the switch one more for its reset_to)
+    if (mo["launches"]["step_reward_amp"] != mo["step"] or mo["launches"]["observe"] != mo["step"] + 2
+            or po["launches"]["step_reward_amp"] != po["step"] or po["launches"]["observe"] != po["step"] + 2):
+        fail(f"demo: launches at the commands {mo['launches']}, {po['launches']}")
+    del denv, dpolicy, last
+
+    # ---- demo_tasks: the demo task names through run.main's test=true -------- #
+    # HumanoidImDemo on train_im's checkpoint against the eval phase's
+    # HumanoidIm test=true run, HumanoidImMCPDemo and HumanoidImMCP on
+    # train_mcp's: the class each builds, its launches and its metrics equal
+    metric_keys = ("success_rate", "mpjpe_g", "mpjpe_l", "mpjpe_pa", "vel_dist", "accel_dist")
+
+    def test_true(label, env_args, exp) -> tuple:
+        built = []
+        real_build = run.build_env_from_cfg
+
+        def recording_build(*a_):
+            built.append(real_build(*a_))
+            return built[-1]
+
+        run.build_env_from_cfg = recording_build
+        try:
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            t0_ = time.perf_counter()
+            result_ = run.main([*env_args, "learning=im_ppo", f"num_envs={N_ENVS}", "test=true", "epoch=-1",
+                                "device=cuda", f"output_dir={out_root}", f"exp_name={exp}"])
+            torch.cuda.synchronize()
+            s_ = time.perf_counter() - t0_
+        finally:
+            run.build_env_from_cfg = real_build
+        info_ = eval_checks(label, result_, built[0], 1, 1)
+        info_.update(env_class=type(built[0]).__name__, seconds=s_)
+        return result_, info_
+
+    _, mcp_info = test_true("demo_tasks HumanoidImMCP", ["env=im_mcp"], "train_mcp")
+    _, mcpd_info = test_true("demo_tasks HumanoidImMCPDemo", ["env=im_mcp", "env.task=HumanoidImMCPDemo"],
+                             "train_mcp")
+    _, imd_info = test_true("demo_tasks HumanoidImDemo", ["env=im", "env.task=HumanoidImDemo"], "train_im")
+    cli_metrics = {k_: cli_info[k_] for k_ in (*metric_keys, "per_motion_steps", "failed_motions", "launches")}
+    dt_info = {"phase": "demo_tasks", "card": card, "envs": N_ENVS, "HumanoidImDemo": imd_info,
+               "HumanoidIm_eval_phase": cli_metrics, "HumanoidImMCPDemo": mcpd_info, "HumanoidImMCP": mcp_info}
+    emit(dt_info)
+    for demo_, base_, cls_ in ((imd_info, cli_info, "HumanoidImEnv"), (mcpd_info, mcp_info, "HumanoidImMCPEnv")):
+        if demo_["env_class"] != cls_ or any(demo_[k_] != base_[k_] for k_ in (
+                *metric_keys, "per_motion_steps", "failed_motions", "launches")):
+            fail(f"demo_tasks: {demo_} against {base_}")
+    if mcp_info["env_class"] != "HumanoidImMCPEnv":
+        fail(f"demo_tasks: env=im_mcp built {mcp_info['env_class']}")
+    demo_task_launches = {k_: sum(i_["launches"][k_] for i_ in (imd_info, mcpd_info, mcp_info))
+                          for k_ in imd_info["launches"]}
+
+    # ---- legacy_cli: the reference's old flag surface, in process ------------ #
+    # --task HumanoidIm -> env=im learning=im_ppo at N_ENVS, 1 epoch: 32 K1 and
+    # 32 K2, K2 once more at the agent's reset
+    from pulse_tpu_torch import legacy_cli
+    from pulse_tpu_torch.env.humanoid_im import HumanoidImEnv as ImEnv
+
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    lres = legacy_cli.main(["--task", "HumanoidIm", "--num_envs", str(N_ENVS), "--max_iterations", "1",
+                            "--network_path", out_root, "--experiment", "legacy_cli", "--headless", "--rl_device",
+                            "cuda:0"])
+    torch.cuda.synchronize()
+    legacy_s = time.perf_counter() - t0
+    legacy_launches = dict(_build.launches)
+    lcfg = json.load(open(os.path.join(out_root, "legacy_cli", "config.json")))
+    l_info = {"phase": "legacy_cli", "card": card, "envs": N_ENVS, "epochs": len(lres.metrics), "seconds": legacy_s,
+              "launches": legacy_launches, "env_class": type(lres.agent.env).__name__,
+              "groups": [lcfg["env"]["task"], lcfg["learning"]["agent"]],
+              "losses": {k_: lres.metrics[0][k_] for k_ in ("a_loss", "c_loss", "b_loss")},
+              "reward_mean": lres.metrics[0]["reward_mean"],
+              "checkpoint": run.latest_checkpoint(os.path.join(out_root, "legacy_cli", "ckpt"))}
+    emit(l_info)
+    want_l = {"step_reward_amp": HORIZON, "observe": HORIZON + 1, "physics_step": 0, "physics_step_rows": 0,
+              "reward_amp": 0}
+    if (legacy_launches != want_l or type(lres.agent.env) is not ImEnv or len(lres.metrics) != 1
+            or l_info["groups"] != ["HumanoidIm", "ppo"] or not l_info["checkpoint"]
+            or not all(math.isfinite(v_) for v_ in l_info["losses"].values())):
+        fail(f"legacy_cli: {l_info}")
+    del lres
+
+    # ---- record_sample: record_rollout and sample_pulse at their defaults ---- #
+    # each script's main (4 and 2 envs, 300 steps): the policy of train_im's
+    # checkpoint, and PULSE's prior on the distill phase's PulseVAE with
+    # early termination off (no termination; each episode ends only at
+    # episode_length, 300 steps: at the last step); one reset (K2) then
+    # K1 -> K2 each step
+    def script_run(main_fn, argv) -> tuple:
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0_ = time.perf_counter()
+        out_ = main_fn(argv)
+        torch.cuda.synchronize()
+        return out_, dict(_build.launches), time.perf_counter() - t0_
+
+    rec_npz = os.path.join(out_root, "rollout.npz")
+    smp_npz = os.path.join(out_root, "pulse_samples.npz")
+    _, rec_launches, rec_s = script_run(record_rollout.main, ["--ckpt", im_ckpt, "--out", rec_npz])
+    smp, smp_launches, smp_s = script_run(sample_pulse.main,
+                                          ["--ckpt", os.path.join(out_root, "distill", "ckpt"), "--out", smp_npz])
+    import numpy as np
+
+    with np.load(rec_npz) as d_:
+        rec_shapes = {k_: list(d_[k_].shape) for k_ in d_.files}
+        rec_finite = bool(np.isfinite(d_["all_body_pos"]).all() and np.isfinite(d_["body_rot"]).all())
+        rec_reward = [float(d_["rewards"].min()), float(d_["rewards"].max())]
+    with np.load(smp_npz) as d_:
+        smp_shapes = {k_: list(d_[k_].shape) for k_ in d_.files}
+        smp_finite = bool(np.isfinite(d_["all_body_pos"]).all())
+        smp_root_z = [float(d_["all_body_pos"][..., 0, 2].min()), float(d_["all_body_pos"][..., 0, 2].max())]
+    want_rs = {"step_reward_amp": RS_STEPS, "observe": RS_STEPS + 1, "physics_step": 0, "physics_step_rows": 0,
+               "reward_amp": 0}
+    rs_info = {"phase": "record_sample", "card": card, "steps": RS_STEPS,
+               "record_rollout": {"envs": 4, "seconds": rec_s, "ms_per_step": 1e3 * rec_s / RS_STEPS,
+                                  "launches": rec_launches, "shapes": rec_shapes, "finite": rec_finite,
+                                  "reward_min_max": rec_reward},
+               "sample_pulse": {"envs": 2, "seconds": smp_s, "ms_per_step": 1e3 * smp_s / RS_STEPS,
+                                "launches": smp_launches, "shapes": smp_shapes, "finite": smp_finite,
+                                "terminations": smp["terminations"], "episodes_ended": smp["episodes_ended"],
+                                "root_z_min_max": smp_root_z}}
+    emit(rs_info)
+    if (rec_launches != want_rs or rec_shapes != {"body_pos": [RS_STEPS, J, 3], "body_rot": [RS_STEPS, J, 4],
+                                                  "all_body_pos": [RS_STEPS, 4, J, 3], "rewards": [RS_STEPS, 4],
+                                                  "node_names": [J], "parents": [J]}
+            or not rec_finite or rec_reward[0] < 0.0 or rec_reward[1] > 1.0):
+        fail(f"record_sample: record_rollout {rs_info['record_rollout']}")
+    if (smp_launches != want_rs or smp_shapes != {"body_pos": [RS_STEPS, J, 3], "all_body_pos": [RS_STEPS, 2, J, 3],
+                                                  "node_names": [J], "parents": [J]}
+            or not smp_finite or smp["terminations"] != 0
+            or smp["episodes_ended"] != 2 * (RS_STEPS // EnvConfig().episode_length)):
+        fail(f"record_sample: sample_pulse {rs_info['sample_pulse']}")
+    del smp
     shutil.rmtree(out_root, ignore_errors=True)
 
     # ---- control modes: isaac_pd, pd and force on the general step ------------ #
@@ -2556,55 +2828,16 @@ def main() -> int:
     from pulse_tpu_torch.scripts import process_amass
     from pulse_tpu_torch.smpl import body_model as smpl_bm
 
-    t_phase = time.perf_counter()
-    os.makedirs(os.path.dirname(out_root), exist_ok=True)
-    mf_dir = tempfile.mkdtemp(prefix="motion_file_", dir=os.path.dirname(out_root))   # output/: gitignored
-    try:
-        mrng = np.random.default_rng(14)
-        bases = [make_synthetic_clips(spec.skeleton, 1, seconds=20.0, seed=100 + s)[0] for s in range(MF_BASES)]
-        base_T = bases[0]["local_rotation"].shape[0]
-        mf_clips = []
-        for k in range(MF_CLIPS):
-            b_, T_ = bases[k % MF_BASES], int(mrng.integers(MF_MIN_T, MF_MAX_T + 1))
-            o_ = int(mrng.integers(0, base_T - T_ + 1))
-            mf_clips.append({"fps": 30.0, "local_rotation": b_["local_rotation"][o_ : o_ + T_],
-                             "root_translation": b_["root_translation"][o_ : o_ + T_]})
-        mf_frames = sum(c_["local_rotation"].shape[0] for c_ in mf_clips)
-        mtn = os.path.join(mf_dir, "amass_size.mtn")
-        t0 = time.perf_counter()
-        write_archive(mtn, mf_clips)
-        write_s = time.perf_counter() - t0
-        file_bytes = os.path.getsize(mtn)
-        t0 = time.perf_counter()
-        read = read_archive(mtn)
-        read_s = time.perf_counter() - t0
-        sample = mrng.choice(MF_CLIPS, MF_CLIPS // 100, replace=False)
-        round_trip = all(read[i]["fps"] == mf_clips[i]["fps"]
-                         and np.array_equal(read[i]["local_rotation"], mf_clips[i]["local_rotation"])
-                         and np.array_equal(read[i]["root_translation"], mf_clips[i]["root_translation"])
-                         for i in sample)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        mf_store = build_motion_data(spec.skeleton, read, device=dev)
-        torch.cuda.synchronize()
-        build_s = time.perf_counter() - t0
-        fields = ("gts", "grs", "gvs", "gavs", "lrs", "dvs")
-        store_bytes = sum(getattr(mf_store, f_).numel() * 4 for f_ in fields)
-
-        # the card's store of a 200-clip subset and the motion state at
-        # MF_QUERIES (clip, t) against the CPU's build (the tolerances and
-        # floors at MF_CLIPS)
-        sub = np.sort(mrng.choice(MF_CLIPS, MF_SUBSET, replace=False))
-        t0 = time.perf_counter()
-        sub_cpu = build_motion_data(spec.skeleton, [read[i] for i in sub], device="cpu")
-        cpu_build_s = time.perf_counter() - t0
-        starts_ = mf_store.length_starts[torch.as_tensor(sub, device=dev)].tolist()
-        rows_ = torch.cat([torch.arange(s_, s_ + read[i]["local_rotation"].shape[0]) for s_, i in zip(starts_, sub)])
-        q_ids = torch.randint(0, MF_SUBSET, (MF_QUERIES,), generator=torch.Generator().manual_seed(3))
-        q_t = torch.rand(MF_QUERIES, generator=torch.Generator().manual_seed(4)) * sub_cpu.motion_lengths[q_ids]
+    def store_vs_cpu(card_store, card_rows, cpu_store, fps_of, q_ids, q_t, card_q_ids) -> tuple:
+        """(store, motion state): each field of the card's store (its rows
+        `card_rows`) and of its motion state at (`card_q_ids`, `q_t`) against
+        the CPU's build of the same clips (`cpu_store`, each clip's fps in
+        `fps_of`) and its motion state at (`q_ids`, `q_t`), held to the base
+        tolerance (MF_POS_TOL, or MF_VEL_REL of a velocity field's largest
+        magnitude) plus the floor that each element's CPU side sets (MF_*)."""
         with torch.no_grad():
-            ms_card = get_motion_state(mf_store, torch.as_tensor(sub, device=dev)[q_ids.to(dev)], q_t.to(dev))
-            ms_cpu = get_motion_state(sub_cpu, q_ids, q_t)
+            ms_card = get_motion_state(card_store, card_q_ids, q_t.to(dev))
+            ms_cpu = get_motion_state(cpu_store, q_ids, q_t)
 
         # each element's floor from its CPU side (MF_*)
         ulps = MF_ULPS * 2.0**-24
@@ -2624,11 +2857,10 @@ def main() -> int:
             return (v_ * moved / (2.0 * torch.maximum(s2, moved)) + math.pi * delta + torch.where(s2 <= moved, v_, 0.0),
                     s2.sqrt())
 
-        floors = {f_: torch.zeros_like(getattr(sub_cpu, f_), dtype=torch.float64) for f_ in fields}
+        floors = {f_: torch.zeros_like(getattr(cpu_store, f_), dtype=torch.float64) for f_ in STORE_FIELDS}
         s_of = {f_: torch.ones_like(floors[f_]) for f_ in ("gavs", "dvs")}   # the CPU side's s, a witness
-        for s_, n_, c_ in zip(sub_cpu.length_starts.tolist(), sub_cpu.motion_num_frames.tolist(), sub):
-            fps_ = read[c_]["fps"]
-            g_, l_ = sub_cpu.grs[s_ : s_ + n_], sub_cpu.lrs[s_ : s_ + n_, 1:]
+        for s_, n_, fps_ in zip(cpu_store.length_starts.tolist(), cpu_store.motion_num_frames.tolist(), fps_of):
+            g_, l_ = cpu_store.grs[s_ : s_ + n_], cpu_store.lrs[s_ : s_ + n_, 1:]
             jump, sg = angle_axis_floor(oq.quat_mul_norm(g_[1:], oq.quat_inverse(g_[:-1])))
             floors["gavs"][s_ : s_ + n_] = _smooth_time_axis(fps_ * torch.cat([jump, torch.zeros(1, J,
                                                                                                  dtype=jump.dtype)]))[
@@ -2637,9 +2869,9 @@ def main() -> int:
             jump, sl = angle_axis_floor(oq.quat_mul_norm(oq.quat_inverse(l_[:-1]), l_[1:]))
             floors["dvs"][s_ : s_ + n_] = fps_ * torch.cat([jump, jump[-1:]]).repeat_interleave(3, dim=1)
             s_of["dvs"][s_ : s_ + n_] = torch.cat([sl, sl[-1:]]).repeat_interleave(3, dim=1)
-        f0_, f1_, bl_ = _calc_frame_blend(q_t, sub_cpu.motion_lengths[q_ids], sub_cpu.motion_num_frames[q_ids],
-                                          sub_cpu.motion_dt[q_ids])
-        f0_, f1_ = f0_ + sub_cpu.length_starts[q_ids], f1_ + sub_cpu.length_starts[q_ids]
+        f0_, f1_, bl_ = _calc_frame_blend(q_t, cpu_store.motion_lengths[q_ids], cpu_store.motion_num_frames[q_ids],
+                                          cpu_store.motion_dt[q_ids])
+        f0_, f1_ = f0_ + cpu_store.length_starts[q_ids], f1_ + cpu_store.length_starts[q_ids]
         b3, b2 = bl_[:, None, None].double(), bl_[:, None].double()
 
         def slerp_floor(table):
@@ -2655,8 +2887,8 @@ def main() -> int:
             return (rel[..., None] + torch.where(at_cut, d_.abs(), 0.0), rel, torch.where(at_cut, d_, 0.0).norm(dim=-1),
                     s2.clamp(min=0.0).sqrt())
 
-        rb_f, _, _, rb_s = slerp_floor(sub_cpu.grs)
-        lr_f, lr_rel, lr_cut, lr_s = slerp_floor(sub_cpu.lrs)
+        rb_f, _, _, rb_s = slerp_floor(cpu_store.grs)
+        lr_f, lr_rel, lr_cut, lr_s = slerp_floor(cpu_store.lrs)
         dof_f, dof_s = angle_axis_floor(ms_cpu["local_rot"][:, 1:], lr_rel[:, 1:] + lr_cut[:, 1:])
         s_ang = torch.minimum(s_of["gavs"][f0_], s_of["gavs"][f1_])
         s_of.update(root_rot=rb_s[:, :1].expand(-1, 4), rb_rot=rb_s[..., None].expand(-1, -1, 4),
@@ -2692,8 +2924,57 @@ def main() -> int:
                     "ok": bool((err <= base + floor_).all())}
 
         vel_fields = ("gvs", "gavs", "dvs", "root_vel", "body_vel", "root_ang_vel", "body_ang_vel", "dof_vel")
-        store_cmp = {f_: held(f_, getattr(mf_store, f_)[rows_.to(dev)], getattr(sub_cpu, f_)) for f_ in fields}
+        store_cmp = {f_: held(f_, getattr(card_store, f_)[card_rows], getattr(cpu_store, f_)) for f_ in STORE_FIELDS}
         state_cmp = {k_: held(k_, ms_card[k_], ms_cpu[k_]) for k_ in ms_card}
+        return store_cmp, state_cmp
+
+    t_phase = time.perf_counter()
+    os.makedirs(os.path.dirname(out_root), exist_ok=True)
+    mf_dir = tempfile.mkdtemp(prefix="motion_file_", dir=os.path.dirname(out_root))   # output/: gitignored
+    try:
+        mrng = np.random.default_rng(14)
+        bases = [make_synthetic_clips(spec.skeleton, 1, seconds=20.0, seed=100 + s)[0] for s in range(MF_BASES)]
+        base_T = bases[0]["local_rotation"].shape[0]
+        mf_clips = []
+        for k in range(MF_CLIPS):
+            b_, T_ = bases[k % MF_BASES], int(mrng.integers(MF_MIN_T, MF_MAX_T + 1))
+            o_ = int(mrng.integers(0, base_T - T_ + 1))
+            mf_clips.append({"fps": 30.0, "local_rotation": b_["local_rotation"][o_ : o_ + T_],
+                             "root_translation": b_["root_translation"][o_ : o_ + T_]})
+        mf_frames = sum(c_["local_rotation"].shape[0] for c_ in mf_clips)
+        mtn = os.path.join(mf_dir, "amass_size.mtn")
+        t0 = time.perf_counter()
+        write_archive(mtn, mf_clips)
+        write_s = time.perf_counter() - t0
+        file_bytes = os.path.getsize(mtn)
+        t0 = time.perf_counter()
+        read = read_archive(mtn)
+        read_s = time.perf_counter() - t0
+        sample = mrng.choice(MF_CLIPS, MF_CLIPS // 100, replace=False)
+        round_trip = all(read[i]["fps"] == mf_clips[i]["fps"]
+                         and np.array_equal(read[i]["local_rotation"], mf_clips[i]["local_rotation"])
+                         and np.array_equal(read[i]["root_translation"], mf_clips[i]["root_translation"])
+                         for i in sample)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mf_store = build_motion_data(spec.skeleton, read, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        store_bytes = sum(getattr(mf_store, f_).numel() * 4 for f_ in STORE_FIELDS)
+
+        # the card's store of a 200-clip subset and the motion state at
+        # MF_QUERIES (clip, t) against the CPU's build (the tolerances and
+        # floors at MF_CLIPS)
+        sub = np.sort(mrng.choice(MF_CLIPS, MF_SUBSET, replace=False))
+        t0 = time.perf_counter()
+        sub_cpu = build_motion_data(spec.skeleton, [read[i] for i in sub], device="cpu")
+        cpu_build_s = time.perf_counter() - t0
+        starts_ = mf_store.length_starts[torch.as_tensor(sub, device=dev)].tolist()
+        rows_ = torch.cat([torch.arange(s_, s_ + read[i]["local_rotation"].shape[0]) for s_, i in zip(starts_, sub)])
+        q_ids = torch.randint(0, MF_SUBSET, (MF_QUERIES,), generator=torch.Generator().manual_seed(3))
+        q_t = torch.rand(MF_QUERIES, generator=torch.Generator().manual_seed(4)) * sub_cpu.motion_lengths[q_ids]
+        store_cmp, state_cmp = store_vs_cpu(mf_store, rows_.to(dev), sub_cpu, [read[i]["fps"] for i in sub], q_ids, q_t,
+                                            torch.as_tensor(sub, device=dev)[q_ids.to(dev)])
         store_info = {"phase": "motion_file", "card": card, "clips": MF_CLIPS, "frames": mf_frames,
                       "file_bytes": file_bytes, "write_s": write_s, "read_s": read_s,
                       "read_GBps": file_bytes / read_s / 1e9, "build_s": build_s, "store_bytes": store_bytes,
@@ -2706,7 +2987,7 @@ def main() -> int:
             fail(f"motion_file: round trip {round_trip}, {file_bytes} bytes for {mf_frames} frames")
         if not all(c_["ok"] for c_ in (*store_cmp.values(), *state_cmp.values())):
             fail(f"motion_file: the card's store or motion state against the CPU's: {store_cmp}, {state_cmp}")
-        del mf_store, read, sub_cpu, ms_card
+        del mf_store, read, sub_cpu
         torch.cuda.empty_cache()
 
         # train the main path from the file: K1 and K2 32 each an epoch
@@ -2769,7 +3050,7 @@ def main() -> int:
                   "vertices": int(gsmpl.neutral.v_template.shape[0]), "seconds": amass_s,
                   "lbs_card_vs_cpu64_max_abs_m": lbs_err, "lowest_vertex_after_fix_m": [min(lowest), max(lowest)],
                   "gender_codes": codes, "store_finite": all(bool(torch.isfinite(getattr(a_store, f_)).all())
-                                                             for f_ in fields)}
+                                                             for f_ in STORE_FIELDS)}
         emit(a_info)
         if (len(db) != MF_AMASS_SEQS or a_store.num_motions != MF_AMASS_SEQS or not a_info["store_finite"]
                 or a_info["vertices"] != 6890 or codes != sorted(smpl_bm.GENDER_CODE.values())
@@ -2780,6 +3061,92 @@ def main() -> int:
         shutil.rmtree(mf_dir, ignore_errors=True)
         shutil.rmtree(out_root, ignore_errors=True)
     emit({"phase": "motion_file_seconds", "card": card, "seconds": time.perf_counter() - t_phase})
+
+    # ---- scripts_on_card: play_motion, joint_monkey --sweep, the skinning ----- #
+    # each script's device work on the card and on the CPU on the same inputs:
+    # play_motion's store of PLAY_CLIPS synthetic clips held as the
+    # motion_file gate holds a store (store_vs_cpu: the base tolerances plus
+    # the per-element floors) at its trace's lookups, the trace's positions
+    # within 1e-5 m; joint_monkey's FK sweep (20 frames a DOF); and
+    # render_smpl_mesh's batched skinning of SKIN_FRAMES frames on a synthetic
+    # SMPL model at V = 6890, both within 1e-5 m. Then the drawing: PNGs where
+    # matplotlib is installed, else the ImportError that names it. No kernel runs
+    import importlib.util
+
+    import numpy as np
+
+    from pulse_tpu_torch.scripts import joint_monkey, play_motion, render_smpl_mesh
+    from pulse_tpu_torch.smpl.body_model import load_smpl_model
+
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t_phase = time.perf_counter()
+    tree = spec.skeleton
+    pclips = play_motion.load_clips(tree, "", PLAY_CLIPS - 1)
+    p_card = build_motion_data(tree, pclips, device=dev)
+    p_cpu = build_motion_data(tree, pclips, device="cpu")
+    trace_card, trace_cpu = play_motion.playback(p_card, PLAY_CLIPS - 1), play_motion.playback(p_cpu, PLAY_CLIPS - 1)
+    p_times = torch.as_tensor(trace_cpu["times"])
+    p_ids = torch.full(p_times.shape, PLAY_CLIPS - 1, dtype=torch.long)
+    p_store_cmp, p_state_cmp = store_vs_cpu(p_card, torch.arange(p_card.gts.shape[0], device=dev), p_cpu,
+                                            [c_["fps"] for c_ in pclips], p_ids, p_times, p_ids.to(dev))
+    sweep_card = joint_monkey.sweep_dofs(spec, SWEEP_FRAMES, device=dev)
+    sweep_cpu = joint_monkey.sweep_dofs(spec, SWEEP_FRAMES, device="cpu")
+    os.makedirs(os.path.dirname(out_root), exist_ok=True)
+    skin_dir = tempfile.mkdtemp(prefix="skin_", dir=os.path.dirname(out_root))   # output/: gitignored
+    try:
+        skin_pkl = write_smpl_pickle(os.path.join(skin_dir, "SMPL_NEUTRAL.pkl"), tree, num_surface_verts=6866, seed=5)
+        smodel = load_smpl_model(skin_pkl)
+        srng = np.random.default_rng(16)
+        s_quat = srng.standard_normal((3 * SKIN_FRAMES, J, 4)).astype(np.float32)
+        s_quat /= np.linalg.norm(s_quat, axis=-1, keepdims=True)
+        s_trans = (srng.uniform(-1, 1, (3 * SKIN_FRAMES, 3)) + [0, 0, 0.9]).astype(np.float32)
+        s_betas = srng.uniform(-2, 2, 10).astype(np.float32)
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s_frames, v_card, j_card = render_smpl_mesh.skin_frames(smodel, s_quat, s_trans, s_betas, stride=3,
+                                                                    max_frames=SKIN_FRAMES, device=dev)
+            torch.cuda.synchronize()
+            skin_ms = 1e3 * (time.perf_counter() - t0)
+            _, v_cpu, j_cpu = render_smpl_mesh.skin_frames(smodel, s_quat, s_trans, s_betas, stride=3,
+                                                           max_frames=SKIN_FRAMES, device="cpu")
+        have_mpl = importlib.util.find_spec("matplotlib") is not None
+        try:
+            pngs = render_smpl_mesh.render_frames(smodel, s_quat, s_trans, s_betas, os.path.join(skin_dir, "png"),
+                                                  stride=3, max_frames=1, device=dev)
+            draw = {"pngs": len(pngs)}
+        except ImportError as err:
+            draw = {"import_error": str(err)}
+    finally:
+        shutil.rmtree(skin_dir, ignore_errors=True)
+    soc_launches = dict(_build.launches)
+    soc_info = {"phase": "scripts_on_card", "card": card, "seconds": time.perf_counter() - t_phase,
+                "play_motion": {"clips": PLAY_CLIPS, "frames": len(trace_cpu["times"]),
+                                "trace_pos_max_abs_m": float(np.abs(trace_card["body_pos"] - trace_cpu["body_pos"]).max()),
+                                "trace_rot_max_abs": float(np.abs(trace_card["body_rot"] - trace_cpu["body_rot"]).max()),
+                                "store_vs_cpu": p_store_cmp, "motion_state_vs_cpu": p_state_cmp},
+                "joint_monkey": {"frames": int(sweep_cpu["body_pos"].shape[0]),
+                                 "pos_max_abs_m": float(np.abs(sweep_card["body_pos"] - sweep_cpu["body_pos"]).max()),
+                                 "rot_max_abs": float(np.abs(sweep_card["body_rot"] - sweep_cpu["body_rot"]).max())},
+                "render_smpl_mesh": {"frames": len(s_frames), "vertices": int(v_card.shape[1]), "skin_ms": skin_ms,
+                                     "verts_max_abs_m": float((v_card.cpu() - v_cpu).abs().max()),
+                                     "joints_max_abs_m": float((j_card.cpu() - j_cpu).abs().max()),
+                                     "matplotlib": have_mpl, **draw},
+                "launches": soc_launches}
+    emit(soc_info)
+    pm, jm_, rm = soc_info["play_motion"], soc_info["joint_monkey"], soc_info["render_smpl_mesh"]
+    if (pm["trace_pos_max_abs_m"] > MF_POS_TOL or not all(c_["ok"] for c_ in (*p_store_cmp.values(),
+                                                                              *p_state_cmp.values()))):
+        fail(f"scripts_on_card: play_motion {pm}")
+    if max(jm_["pos_max_abs_m"], jm_["rot_max_abs"]) > MF_POS_TOL or jm_["frames"] != SWEEP_FRAMES * 69:
+        fail(f"scripts_on_card: joint_monkey {jm_}")
+    if (rm["vertices"] != 6890 or rm["frames"] != SKIN_FRAMES or max(rm["verts_max_abs_m"], rm["joints_max_abs_m"])
+            > MF_POS_TOL or (rm.get("pngs") != 1 if have_mpl else "matplotlib" not in rm.get("import_error", ""))):
+        fail(f"scripts_on_card: render_smpl_mesh {rm}")
+    if any(soc_launches.values()):
+        fail(f"scripts_on_card: kernel launches {soc_launches}")
+    del p_card, p_cpu, v_card, j_card
 
     # ---- K3's and RA's times on the kernel phase's inputs ---------------------- #
     with torch.no_grad():
@@ -2925,6 +3292,13 @@ def main() -> int:
         return {"train_strike": strike_launches[kernel], "train_terrain": terrain_launches[kernel],
                 "self_collision": sc_launches[kernel]}
 
+    def entry_phases(kernel) -> dict:
+        """The entry points' phases' launches of a kernel (K3, K3-rows and
+        RA gated to 0 in each)."""
+        return {"demo": d_launches[kernel], "demo_tasks": demo_task_launches[kernel],
+                "legacy_cli": legacy_launches[kernel], "record_rollout": rec_launches[kernel],
+                "sample_pulse": smp_launches[kernel], "scripts_on_card": soc_launches[kernel]}
+
     def no_launch_phases(kernel) -> dict:
         """The plain-route phases' and motion_file_train's launches of a kernel
         that neither runs (each gated to 0)."""
@@ -2934,28 +3308,32 @@ def main() -> int:
         {"name": "step_reward_amp", "route": "cuda", "source": src + "step_reward_amp.cu",
          "replaces": "pulse_tpu/env/pallas_obs.py:376",
          "launches": sum(n["step_reward_amp"] for n in (im_launches, amp_im_launches, mcp_launches, im_z_launches,
-                                                         pulse_launches, pth_mcp_launches, mf_launches)),
+                                                         pulse_launches, pth_mcp_launches, mf_launches))
+         + sum(entry_phases("step_reward_amp").values()),
          "launches_by_phase": {"train_im": im_launches["step_reward_amp"],
                                "motion_file_train": mf_launches["step_reward_amp"],
                                "train_amp_im": amp_im_launches["step_reward_amp"],
                                "train_mcp": mcp_launches["step_reward_amp"],
                                "z_im_traj": im_z_launches["step_reward_amp"],
                                "pulse_stages": pulse_launches["step_reward_amp"],
-                               "import_pth_mcp": pth_mcp_launches["step_reward_amp"], **plain_phases("step_reward_amp")},
+                               "import_pth_mcp": pth_mcp_launches["step_reward_amp"], **entry_phases("step_reward_amp"),
+                               **plain_phases("step_reward_amp")},
          "max_abs_err": max_err["step_reward_amp"], "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": None},
         {"name": "observe", "route": "cuda", "source": src + "observe.cuh",
          "replaces": "pulse_tpu/env/pallas_obs.py:558",
          "launches": sum(n["observe"] for n in (im_launches, amp_im_launches, mcp_launches, mcp_getup_launches,
                                                  dr_launches, im_z_launches, pulse_launches, pth_mcp_launches,
-                                                 pth_distill_launches, mf_launches)),
+                                                 pth_distill_launches, mf_launches))
+         + sum(entry_phases("observe").values()),
          "launches_by_phase": {"train_im": im_launches["observe"], "train_amp_im": amp_im_launches["observe"],
                                "motion_file_train": mf_launches["observe"],
                                "train_mcp": mcp_launches["observe"], "train_mcp_getup": mcp_getup_launches["observe"],
                                "train_dr": dr_launches["observe"], "z_im_traj": im_z_launches["observe"],
                                "pulse_stages": pulse_launches["observe"],
                                "import_pth_mcp": pth_mcp_launches["observe"],
-                               "import_pth_distill": pth_distill_launches["observe"], **plain_phases("observe")},
+                               "import_pth_distill": pth_distill_launches["observe"], **entry_phases("observe"),
+                               **plain_phases("observe")},
          "max_abs_err": max_err["observe"], "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": None},
         {"name": "physics_step", "route": "cuda", "source": src + "physics_step.cu",
@@ -2976,14 +3354,16 @@ def main() -> int:
                                "z_im_traj": traj_z_launches["physics_step"],
                                "pulse_stages": pulse_launches["physics_step"],
                                "import_pth_distill": pth_distill_launches["physics_step"],
-                               "import_pth_speed_z": pth_z_launches["physics_step"], **no_launch_phases("physics_step")},
+                               "import_pth_speed_z": pth_z_launches["physics_step"], **no_launch_phases("physics_step"),
+                               **entry_phases("physics_step")},
          "max_abs_err": max_err["physics_step"], "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
          "bound_by": k3_by, "library_ms": None},
         {"name": "physics_step_rows", "route": "cuda", "source": src + "physics_step.cu",
          "replaces": "pulse_tpu/physics/substep_pallas.py:744",
          "launches": shape_launches["physics_step_rows"] + dr_launches["physics_step_rows"],
          "launches_by_phase": {"train_shape": shape_launches["physics_step_rows"],
-                               "train_dr": dr_launches["physics_step_rows"], **no_launch_phases("physics_step_rows")},
+                               "train_dr": dr_launches["physics_step_rows"], **no_launch_phases("physics_step_rows"),
+                               **entry_phases("physics_step_rows")},
          "max_abs_err": max_err["physics_step_rows"], "ms": k3r_ms, "plain_ms": k3r_plain_ms, "bound_ms": k3r_bound,
          "bound_by": k3r_by, "library_ms": None},
         {"name": "reward_amp", "route": "cuda", "source": src + "reward_amp.cu",
@@ -2994,7 +3374,8 @@ def main() -> int:
                                "train_amp_getup": amp_getup_launches["reward_amp"],
                                "train_mcp_getup": mcp_getup_launches["reward_amp"],
                                "train_dr": dr_launches["reward_amp"],
-                               "import_pth_distill": pth_distill_launches["reward_amp"], **no_launch_phases("reward_amp")},
+                               "import_pth_distill": pth_distill_launches["reward_amp"], **no_launch_phases("reward_amp"),
+                               **entry_phases("reward_amp")},
          "max_abs_err": max_err["reward_amp"], "ms": ra_ms, "plain_ms": ra_plain_ms, "bound_ms": ra_bound,
          "bound_by": ra_by, "library_ms": None},
     ]})

@@ -1,6 +1,7 @@
 import os
 
-from pulse_tpu_torch.assets.robot_spec import RobotSpec
+from pulse_tpu_torch.assets.mjcf import parse_mjcf
+from pulse_tpu_torch.assets.robot_spec import GeomType, RobotSpec
 
 _DATA_DIR = os.path.join(os.path.dirname(__file__), "data")
 

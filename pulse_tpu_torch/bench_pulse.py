@@ -82,10 +82,7 @@ def check_targets(report: dict, committed: dict) -> dict:
 def prior_action(net, obs_rms, obs: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
     """The tool's `prior_step` up to the env step: normalize, take the self
     obs, sample z = prior mu + exp(prior logvar / 2) eps, decode, clip."""
-    self_obs = obs_rms.normalize(obs)[..., : net.self_obs_dim]
-    prior_mu, prior_logvar = net.prior(self_obs)
-    z = prior_mu + torch.exp(0.5 * prior_logvar) * eps
-    return torch.clamp(net.decoder(self_obs, z), -1.0, 1.0)
+    return torch.clamp(net.prior_sample(obs_rms.normalize(obs)[..., : net.self_obs_dim], eps)["action"], -1.0, 1.0)
 
 
 def sample_prior(env, net, obs_rms, state, steps: int, generator: torch.Generator):

@@ -253,6 +253,14 @@ class PulseVAE(nn.Module):
         return {"action_mu": self.decoder(self_obs, prior_mu + z), "post_mu": post_mu, "post_logvar": post_logvar,
                 "prior_mu": prior_mu, "prior_logvar": prior_logvar}
 
+    def prior_sample(self, self_obs: torch.Tensor, eps: torch.Tensor) -> dict:
+        """PULSE as a generative model: the prior's mu and logvar on the
+        (normalized) self obs, z = mu + exp(logvar / 2) eps and the decoded
+        action (unclipped)."""
+        prior_mu, prior_logvar = self.prior(self_obs)
+        z = prior_mu + torch.exp(0.5 * prior_logvar) * eps
+        return {"prior_mu": prior_mu, "prior_logvar": prior_logvar, "z": z, "action": self.decoder(self_obs, z)}
+
     def value(self, obs: torch.Tensor) -> torch.Tensor:
         with _autocast(obs, self.full_precision):
             h = self.critic(obs)

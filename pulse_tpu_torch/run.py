@@ -40,7 +40,9 @@ hard-negative mining); the weights are not checkpointed, so a resumed run
 starts uniform.
 
 Ported: the HumanoidIm and HumanoidImGetup tasks (and their distillation
-names HumanoidImDistill and HumanoidImDistillGetup), the pure-AMP tasks
+names HumanoidImDistill and HumanoidImDistillGetup, and the demo names
+HumanoidImDemo and HumanoidImMCPDemo of HumanoidIm and HumanoidImMCP, which
+`scripts/demo_server.py` drives live), the pure-AMP tasks
 HumanoidAMP and HumanoidAMPGetup (`env=amp`, `env=amp_getup`) and the MCP
 tasks HumanoidImMCP and HumanoidImMCPGetup (`env=im_mcp`,
 `env=im_mcp_getup`: composer weights over a frozen PNN, which without
@@ -82,16 +84,16 @@ import time
 
 import torch
 
-# task -> the ROADMAP item that ports it
-_UNPORTED_TASKS = {"HumanoidImMCPDemo": 15, "HumanoidImDemo": 15}
+# the demo task names: the same envs, driven live by scripts/demo_server.py
+# (≙ pulse_tpu/run.py's im_plain registry)
+_DEMO_TASKS = {"HumanoidImDemo": "HumanoidIm", "HumanoidImMCPDemo": "HumanoidImMCP"}
 # the downstream task envs, and their latent-action (Z) names
 _TASK_ENVS = ("HumanoidSpeed", "HumanoidReach", "HumanoidTraj", "HumanoidStrike", "HumanoidPedestrianTerrain")
 
 
 def _unported(what: str, item) -> NotImplementedError:
     """The error of a config the port cannot run yet, naming the ROADMAP
-    item that ports it: the demo task names (item 15) and shape variation
-    with HumanoidImGetup (item 12)."""
+    item that ports it: shape variation with HumanoidImGetup (item 12)."""
     return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, item {item})")
 
 
@@ -148,9 +150,7 @@ def build_env_from_cfg(cfg, model, motion, device):
     from pulse_tpu_torch.env.humanoid_im_mcp import HumanoidImMCPEnv, HumanoidImMCPGetupEnv
 
     e = cfg["env"]
-    task = e["task"]
-    if task in _UNPORTED_TASKS:
-        raise _unported(f"task {task}", _UNPORTED_TASKS[task])
+    task = _DEMO_TASKS.get(e["task"], e["task"])
     if task.removesuffix("Z") in _TASK_ENVS:
         return build_task_env_from_cfg(cfg, model, motion, device)
     # the distillation tasks are the imitation envs under another name;

@@ -45,6 +45,8 @@ from pulse_tpu.motion import build_motion_data as jax_build_motion_data
 from pulse_tpu.motion.synthetic import make_synthetic_clips as jax_clips
 from pulse_tpu.physics import PhysicsConfig as JaxPhysicsConfig, build_model as jax_build_model
 
+from jax_reference import module_reference_compiles
+
 from pulse_tpu_torch.assets import load_smpl_humanoid
 from pulse_tpu_torch.env.humanoid_im import EnvConfig, HumanoidImEnv
 from pulse_tpu_torch.env.humanoid_im_getup import GetupConfig
@@ -58,6 +60,9 @@ from pulse_tpu_torch.learning.running_norm import RunningMeanStd
 from pulse_tpu_torch.motion.motion_lib import MotionData, build_motion_data
 from pulse_tpu_torch.motion.synthetic import make_synthetic_clips
 from pulse_tpu_torch.physics.model import PhysicsConfig, build_model
+
+# every JAX compile of this module's references at -O0 (tests/jax_reference.py)
+reference_compiles_in_module = module_reference_compiles()
 
 DIM = 2320
 UNITS = (32, 16)
@@ -156,10 +161,13 @@ def test_disc_reward_and_combine_match_jax(jax_state):
     got = mod.disc_reward(port, torch.as_tensor(np.asarray(obs)))
     assert got.shape == (4, 6) and (got >= 0).all()
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+    # the combine on identical inputs: both take JAX's style reward, so the
+    # 1e-6 below does not inherit the 1e-5 that holds `got` to `want`
     task = np.random.default_rng(1).uniform(size=(4, 6)).astype(np.float32)
+    style = torch.as_tensor(np.asarray(want))
     for with_state in (False, True):
         w = amp.combine_rewards(jnp.asarray(task), want, state if with_state else None)
-        g = mod.combine_rewards(torch.as_tensor(task), got, port if with_state else None)
+        g = mod.combine_rewards(torch.as_tensor(task), style, port if with_state else None)
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6)
     np.testing.assert_allclose(mod.combine_rewards(torch.ones(2), torch.zeros(2), port).numpy(), 0.25)
 

@@ -22,16 +22,22 @@ from pathlib import Path
 import numpy as np
 import jax
 import jax.numpy as jnp
+
 import pytest
 import torch
 
 from pulse_tpu.learning.networks import PulseVAE as JaxPulseVAE
 from pulse_tpu.learning.running_norm import RunningMeanStd as JaxRMS
 
+from jax_reference import module_reference_compiles
+
 from pulse_tpu_torch import bench_pulse
 from pulse_tpu_torch.learning.networks import pulse_vae_from_jax
 from pulse_tpu_torch.learning.running_norm import RunningMeanStd
 from pulse_tpu_torch.motion import synthetic
+
+# every JAX compile of this module's references at -O0 (tests/jax_reference.py)
+reference_compiles_in_module = module_reference_compiles()
 
 ROOT = Path(__file__).resolve().parent.parent
 R5 = json.loads((ROOT / "quality" / "pulse_stages_r5.json").read_text())

@@ -47,13 +47,16 @@ from pulse_tpu.motion.synthetic import make_synthetic_clips as jax_clips
 from pulse_tpu.physics import PhysicsConfig as JaxPhysicsConfig, build_model as jax_build_model
 from pulse_tpu.physics.state import PhysicsState as JaxPhysicsState
 
-from jax_reference import reference_jit
+from jax_reference import module_reference_compiles, reference_jit
 
 from pulse_tpu_torch.assets import load_smpl_humanoid
 from pulse_tpu_torch.env import kernels
 from pulse_tpu_torch.env.humanoid_im import EnvConfig, HumanoidImEnv, env_state_from_numpy
 from pulse_tpu_torch.motion.motion_lib import MotionData, get_motion_state
 from pulse_tpu_torch.physics.model import PhysicsConfig, build_model
+
+# every JAX compile of this module's references at -O0 (tests/jax_reference.py)
+reference_compiles_in_module = module_reference_compiles()
 
 B = 7
 CFG = dict(dt=1.0 / 120.0, substeps=1, control_freq_inv=1)

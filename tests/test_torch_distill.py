@@ -23,6 +23,7 @@ import types
 import numpy as np
 import jax
 import jax.numpy as jnp
+
 import optax
 import pytest
 import torch
@@ -32,11 +33,16 @@ from pulse_tpu.learning.distill import DistillState as JaxDistillState
 from pulse_tpu.learning.networks import PulseVAE as JaxPulseVAE, kl_multi as jax_kl_multi
 from pulse_tpu.learning.running_norm import RunningMeanStd as JaxRMS
 
+from jax_reference import module_reference_compiles
+
 from pulse_tpu_torch.learning.distill import (
     DistillAgent, DistillConfig, DistillState, distill_state_from_jax, trained_parameters,
 )
 from pulse_tpu_torch.learning.networks import PulseVAE, kl_multi, pulse_vae_from_jax, vae_leaves
 from pulse_tpu_torch.learning.running_norm import RunningMeanStd
+
+# every JAX compile of this module's references at -O0 (tests/jax_reference.py)
+reference_compiles_in_module = module_reference_compiles()
 
 T, B, O, S, A, L = 6, 5, 20, 8, 7, 8     # horizon, envs, obs, self obs, action, latent
 WIDTHS = dict(encoder_units=(64,), prior_units=(32,), decoder_units=(64,), critic_units=(32,))

@@ -50,6 +50,8 @@ from pulse_tpu.physics import PhysicsConfig as JaxPhysicsConfig, build_model as 
 from pulse_tpu.physics.shape_variation import vary_model_scales as jax_vary_model_scales
 from pulse_tpu.physics.state import PhysicsState as JaxPhysicsState
 
+from jax_reference import module_reference_compiles
+
 from pulse_tpu_torch.assets import load_smpl_humanoid
 from pulse_tpu_torch.env import domain_rand as dr
 from pulse_tpu_torch.env.humanoid_im import EnvConfig, HumanoidImEnv, env_state_from_numpy
@@ -61,6 +63,9 @@ from pulse_tpu_torch.motion.motion_lib import MotionData
 from pulse_tpu_torch.physics import substep_cuda
 from pulse_tpu_torch.physics.model import BATCHED_LEAVES, PhysicsConfig, batched_model_from_numpy, build_model
 from pulse_tpu_torch.utils.config import load_config
+
+# every JAX compile of this module's references at -O0 (tests/jax_reference.py)
+reference_compiles_in_module = module_reference_compiles()
 
 B = 4
 CFG = dict(dt=1.0 / 120.0, substeps=1, control_freq_inv=1)

@@ -26,7 +26,7 @@ from pulse_tpu.physics import PhysicsConfig as JaxPhysicsConfig, build_model as 
 from pulse_tpu.physics.state import state_from_kinematics as jax_state_from_kinematics
 from pulse_tpu.physics.step import physics_step as jax_physics_step
 
-from jax_reference import reference_jit
+from jax_reference import module_reference_compiles, reference_jit
 
 from pulse_tpu_torch.assets import load_smpl_humanoid
 from pulse_tpu_torch.env.humanoid_im_getup import GetupConfig, HumanoidImGetupEnv, ragdoll
@@ -36,6 +36,9 @@ from pulse_tpu_torch.ops import quat as tq
 from pulse_tpu_torch.physics.model import PhysicsConfig, build_model
 from pulse_tpu_torch.physics.state import state_from_kinematics
 from pulse_tpu_torch.physics.substep_cuda import physics_step_cuda
+
+# every JAX compile of this module's references at -O0 (tests/jax_reference.py)
+reference_compiles_in_module = module_reference_compiles()
 
 B = 8
 STEPS = 2

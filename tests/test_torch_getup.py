@@ -33,7 +33,7 @@ from pulse_tpu.motion.synthetic import make_synthetic_clips as jax_clips
 from pulse_tpu.physics import PhysicsConfig as JaxPhysicsConfig, build_model as jax_build_model
 from pulse_tpu.physics.state import PhysicsState as JaxPhysicsState
 
-from jax_reference import reference_jit
+from jax_reference import module_reference_compiles, reference_jit
 
 from pulse_tpu_torch.assets import load_smpl_humanoid
 from pulse_tpu_torch.env.humanoid_im import env_state_from_numpy
@@ -42,6 +42,9 @@ from pulse_tpu_torch.motion.motion_lib import build_motion_data
 from pulse_tpu_torch.motion.synthetic import make_synthetic_clips
 from pulse_tpu_torch.physics.model import PhysicsConfig, build_model
 from pulse_tpu_torch.physics.state import physics_state_from_numpy, state_from_kinematics
+
+# every JAX compile of this module's references at -O0 (tests/jax_reference.py)
+reference_compiles_in_module = module_reference_compiles()
 
 B = 16
 N_FALL = 4

@@ -351,14 +351,15 @@ _BLOCKED = '''
 import importlib.abc, pkgutil, runpy, sys
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "flax", "pulse_tpu", "joblib"):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "pulse_tpu", "joblib", "__graft_entry__", "scripts"):
             raise ImportError(f"{name} is blocked")
 sys.meta_path.insert(0, Block())
 import pulse_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(pulse_tpu_torch.__path__, "pulse_tpu_torch.")]
 for m in mods:
     __import__(m)
-assert not any(n.split(".")[0] in ("jax", "pulse_tpu", "joblib") for n in sys.modules), "leaked"
+assert not any(n.split(".")[0] in ("jax", "pulse_tpu", "joblib", "__graft_entry__", "scripts") for n in sys.modules), \
+    "leaked"
 print("imported", len(mods), "modules")
 sys.argv = ["pulse_tpu_torch.run", *sys.argv[1:]]
 runpy.run_module("pulse_tpu_torch.run", run_name="__main__")

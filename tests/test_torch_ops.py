@@ -20,6 +20,7 @@ from pathlib import Path
 import numpy as np
 import jax
 import jax.numpy as jnp
+
 import pytest
 import torch
 
@@ -34,6 +35,8 @@ from pulse_tpu.motion.synthetic import make_synthetic_clips as jax_clips
 from pulse_tpu.ops import quat as jq
 from pulse_tpu.physics import build_model as jax_build_model
 
+from jax_reference import module_reference_compiles
+
 from pulse_tpu_torch.assets import load_smpl_humanoid
 from pulse_tpu_torch.env import cuda_obs
 from pulse_tpu_torch import run
@@ -47,6 +50,9 @@ from pulse_tpu_torch.motion.synthetic import make_synthetic_clips
 from pulse_tpu_torch.ops import quat as tq
 from pulse_tpu_torch.physics import substep_cuda
 from pulse_tpu_torch.physics.model import build_model
+
+# every JAX compile of this module's references at -O0 (tests/jax_reference.py)
+reference_compiles_in_module = module_reference_compiles()
 
 ROOT = Path(__file__).resolve().parent.parent
 B = 16

@@ -21,7 +21,7 @@ from pulse_tpu.physics import PhysicsConfig as JaxPhysicsConfig, build_model as 
 from pulse_tpu.physics.state import PhysicsState as JaxPhysicsState
 from pulse_tpu.physics.step import physics_step as jax_physics_step
 
-from jax_reference import reference_jit
+from jax_reference import module_reference_compiles, reference_jit
 
 from pulse_tpu_torch.assets import load_smpl_humanoid
 from pulse_tpu_torch.env.humanoid_im import HumanoidImEnv
@@ -30,6 +30,9 @@ from pulse_tpu_torch.motion.synthetic import make_synthetic_clips
 from pulse_tpu_torch.physics.model import PhysicsConfig, build_model
 from pulse_tpu_torch.physics.state import physics_state_from_numpy
 from pulse_tpu_torch.physics.step import physics_step
+
+# every JAX compile of this module's references at -O0 (tests/jax_reference.py)
+reference_compiles_in_module = module_reference_compiles()
 
 B = 16
 CFG = dict(substeps=2, control_freq_inv=1)   # steps_per_control = 2

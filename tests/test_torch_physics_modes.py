@@ -49,7 +49,7 @@ from pulse_tpu.physics import aba_fast as jax_aba_fast
 from pulse_tpu.physics import dynamics as jax_dynamics, prop as jax_prop, step as jax_step
 from pulse_tpu.physics.state import PhysicsState as JaxPhysicsState
 
-from jax_reference import reference_jit
+from jax_reference import module_reference_compiles, reference_jit
 
 from pulse_tpu_torch.assets import load_smpl_humanoid
 from pulse_tpu_torch.env.humanoid_im import env_state_from_numpy
@@ -59,6 +59,9 @@ from pulse_tpu_torch.physics import dynamics, prop, step
 from pulse_tpu_torch.physics.aba_fast import aba_fast
 from pulse_tpu_torch.physics.model import PhysicsConfig, build_model
 from pulse_tpu_torch.physics.state import PhysicsState, refresh_kinematics, state_from_kinematics
+
+# every JAX compile of this module's references at -O0 (tests/jax_reference.py)
+reference_compiles_in_module = module_reference_compiles()
 
 B = 6
 CFG = dict(dt=1.0 / 120.0, substeps=1, control_freq_inv=1)

@@ -68,7 +68,7 @@ from pulse_tpu.physics.state import PhysicsState as JaxPhysicsState
 
 from test_torch_task import VERTS_TOL, _lying, _traj_draws
 
-from jax_reference import reference_jit
+from jax_reference import module_reference_compiles, reference_jit
 
 from pulse_tpu_torch import _build
 from pulse_tpu_torch.assets import load_smpl_humanoid
@@ -84,6 +84,9 @@ from pulse_tpu_torch.physics.prop import PropState
 from pulse_tpu_torch.physics.self_collision import self_collision_forces
 from pulse_tpu_torch.physics.state import physics_state_from_numpy, state_from_kinematics
 from pulse_tpu_torch.physics.step import physics_step
+
+# every JAX compile of this module's references at -O0 (tests/jax_reference.py)
+reference_compiles_in_module = module_reference_compiles()
 
 B = 6
 CFG = dict(dt=1.0 / 120.0, substeps=1, control_freq_inv=1)

@@ -17,6 +17,7 @@ import types
 import numpy as np
 import jax
 import jax.numpy as jnp
+
 import optax
 import pytest
 import torch
@@ -26,9 +27,14 @@ from pulse_tpu.learning.ppo import PPOAgent as JaxPPOAgent, PPOConfig as JaxPPOC
 from pulse_tpu.learning.ppo import TrainState as JaxTrainState
 from pulse_tpu.learning.running_norm import RunningMeanStd as JaxRMS
 
+from jax_reference import module_reference_compiles
+
 from pulse_tpu_torch.learning.networks import actor_critic_from_jax, flax_leaves
 from pulse_tpu_torch.learning.ppo import PPOAgent, PPOConfig, Rollout, compute_gae, ppo_loss, train_state_from_jax
 from pulse_tpu_torch.learning.running_norm import RunningMeanStd
+
+# every JAX compile of this module's references at -O0 (tests/jax_reference.py)
+reference_compiles_in_module = module_reference_compiles()
 
 T, B, O, A = 8, 6, 12, 5
 UNITS = (32, 24)

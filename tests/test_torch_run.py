@@ -16,7 +16,8 @@ it with both buffers, and `test=true` evaluates an AMP checkpoint's PPO
 policy. `env=im_mcp` and `env=im_mcp_getup` (composer weights over a
 fresh frozen PNN), `env.randomize=true` (with PPO, and with AMP re-drawing
 the props) and `env.control_mode=pd|force` train in process. Options the
-port does not have yet raise NotImplementedError (the reference `.pth`
+port does not have yet raise NotImplementedError, and the demo task names
+train the envs they alias (the reference `.pth`
 paths, strike and terrain run in tests/test_torch_checkpoint.py, the
 motion files in tests/test_torch_motion_file.py). The port's config
 dataclasses default as the JAX package's.
@@ -26,10 +27,6 @@ that test=true evaluates and that distillation takes as its teacher.
 """
 
 import json
-import os
-import subprocess
-import sys
-from pathlib import Path
 
 import dataclasses
 
@@ -45,6 +42,7 @@ from pulse_tpu.physics import PhysicsConfig as JaxPhysicsConfig
 
 from pulse_tpu_torch import _build, run
 from pulse_tpu_torch.env.humanoid_im import EnvConfig, HumanoidImEnv
+from pulse_tpu_torch.env.humanoid_im_mcp import HumanoidImMCPEnv
 from pulse_tpu_torch.learning.amp import AMPConfig
 from pulse_tpu_torch.learning.distill import DistillConfig
 from pulse_tpu_torch.learning.pnn import PNN
@@ -53,21 +51,12 @@ from pulse_tpu_torch.motion.motion_lib import build_motion_data, update_hard_sam
 from pulse_tpu_torch.motion.synthetic import make_synthetic_clips
 from pulse_tpu_torch.physics.model import PhysicsConfig
 
-ROOT = Path(__file__).resolve().parent.parent
 TINY = ["device=cpu", "num_envs=8", "learning.horizon_length=4", "learning.minibatch_size=16",
         "learning.mini_epochs=2", "learning.actor_units=[32,24]", "learning.critic_units=[32,24]", "log_frequency=1"]
 GETUP = ["env=im_getup", "env.num_fall_states=8", "env.fall_settle_steps=2"]
 DISTILL = ["env=im_vae", "learning=im_z_fit", "device=cpu", "num_envs=8", "learning.horizon_length=4",
            "learning.minibatch_size=16", "learning.encoder_units=[64]", "learning.prior_units=[32]",
            "learning.decoder_units=[64]", "env.num_fall_states=4", "env.fall_settle_steps=2", "log_frequency=1"]
-
-
-def _cli(args, tmp_path):
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
-    out = subprocess.run([sys.executable, "-m", "pulse_tpu_torch.run", *args, f"output_dir={tmp_path}"],
-                         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
-    assert out.returncode == 0, out.stderr[-3000:]
-    return out.stdout
 
 
 @pytest.fixture(scope="module")
@@ -81,7 +70,10 @@ def trained(tmp_path_factory):
 
 
 def test_cli_trains_logs_checkpoints_and_resumes(tmp_path, capsys):
-    first = _cli([*GETUP, "max_epochs=1", "exp_name=g", *TINY], tmp_path)
+    # in process: tests/test_torch_motion_file.py runs the module as a
+    # program (`python -m pulse_tpu_torch.run`'s __main__) in a subprocess
+    run.main([*GETUP, "max_epochs=1", "exp_name=g", f"output_dir={tmp_path}", *TINY])
+    first = capsys.readouterr().out
     exp = tmp_path / "g"
     assert json.loads((exp / "config.json").read_text())["env"]["task"] == "HumanoidImGetup"
     rows = [json.loads(l) for l in (exp / "metrics.jsonl").read_text().splitlines()]
@@ -106,12 +98,23 @@ def test_main_runs_env_im_in_process(trained):
 
 
 @pytest.mark.parametrize("args", [
-    ["env.task=HumanoidImMCPDemo"], ["env=amp_getup", "learning=im_amp", "env.shape_variation=true"],
-    ["env=im_getup", "env.shape_variation=true"], ["env.task=HumanoidImDemo"],
+    ["env=amp_getup", "learning=im_amp", "env.shape_variation=true"], ["env=im_getup", "env.shape_variation=true"],
 ])
 def test_unported_options_raise(args, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run.main(["device=cpu", f"output_dir={tmp_path}", *args])
+
+
+@pytest.mark.parametrize("args,cls", [
+    (["env=im", "env.task=HumanoidImDemo"], HumanoidImEnv),
+    (["env=im_mcp", "env.task=HumanoidImMCPDemo"], HumanoidImMCPEnv),
+])
+def test_demo_task_names_train_their_envs(args, cls, tmp_path):
+    # the demo names are the same envs (pulse_tpu/run.py's im_plain), which
+    # scripts/demo_server.py drives live
+    res = run.main([*args, "max_epochs=1", f"output_dir={tmp_path}", *TINY])
+    assert type(res.agent.env) is cls and len(res.metrics) == 1
+    assert json.loads((tmp_path / "default" / "config.json").read_text())["env"]["task"] == args[1].split("=")[1]
 
 
 def _one_second_clips(monkeypatch):

@@ -32,7 +32,7 @@ from pulse_tpu.physics.substep_pallas import _model_rows_layout, build_model_row
 from pulse_tpu.smpl import body_model as jbody
 from pulse_tpu.smpl.synthetic import synthetic_smpl_data as jax_synthetic_smpl_data
 
-from jax_reference import reference_jit
+from jax_reference import module_reference_compiles, reference_jit
 
 from pulse_tpu_torch.assets import load_smpl_humanoid
 from pulse_tpu_torch.ops import quat as tq
@@ -43,6 +43,9 @@ from pulse_tpu_torch.physics.state import state_from_kinematics
 from pulse_tpu_torch.physics.step import physics_step
 from pulse_tpu_torch.smpl.body_model import load_smpl_model, shaped_joints
 from pulse_tpu_torch.smpl.synthetic import write_smpl_pickle
+
+# every JAX compile of this module's references at -O0 (tests/jax_reference.py)
+reference_compiles_in_module = module_reference_compiles()
 
 ROOT = Path(__file__).resolve().parent.parent
 N = 8
