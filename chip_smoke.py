@@ -133,6 +133,31 @@ Phases, each printed as one JSON line:
                the blend's ms; ms and device-busy ms a step
   train_mcp_getup  env=im_mcp_getup for 2 epochs: 60 K3 launches (the
                settle), then 32 of K3, RA and K2 an epoch
+  train_getup_shape  env=im_getup env.shape_variation=true for 2 epochs:
+               the fall-state bank settled under the shared model (60 K3
+               launches, no more), then 32 of K3-rows, RA and K2 an epoch;
+               fall resets; the model rows as distinct as the envs' models;
+               one step of K3-rows, RA and K2 against their plain versions on
+               identical inputs (<= 1% outlier envs)
+  getup_shape_tasks  env=amp_getup (K3-rows -> RA, no K2), env=im_mcp_getup
+               and env=im_vae learning=im_z_fit, each with
+               env.shape_variation=true for 1 epoch: the route, exact
+               launches, finite losses
+  curriculum   `python -m pulse_tpu_torch.curriculum` at 2048 envs, 2
+               epochs a stage, with the specialists, the sharp-turn ladder,
+               amp_getup and the getup composer with its gate pretrain; two
+               eval outcomes forced (column 0 passes fast_run, the ladder's
+               first eval passes level 0) so that the composer trains and the
+               ladder advances: the stage order the tool's rules give on its
+               evals, exact launches of every epoch (K1 -> K2 for the
+               columns, K3 -> RA -> K2 for amp_getup and the composer), eval
+               (K1 -> K2) and env build, finite losses, each column's first
+               weights the previous column's (column 0's for the others),
+               the JSON's keys a superset of quality/curriculum_r5.json's
+  curriculum_resume  the same command into the same --out: every stage
+               restored, no epoch, only the evals' launches, the same results
+  forward_pmcp column 0 copied onto column 1 of the curriculum's frozen PNN,
+               bit for bit
   train_dr     env=im learning=im_amp env.randomize=true
                env.shape_resampling_interval=2 for 4 epochs: 32 launches of
                K3-rows, RA and K2 an epoch, none of K1 or K3; the friction
@@ -313,6 +338,7 @@ TRAIN_EPOCHS = 2
 DISTILL_EPOCHS = 3
 PULSE_ENVS = 2048               # the PULSE harness's own batch
 PULSE_EPOCHS = 2                # its epochs a stage here
+CUR_EPOCHS = 2                  # the curriculum phase's epochs a stage (at PULSE_ENVS)
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_FP32_OPS_PER_S = 67e12     # fp32 outside the tensor cores, H100 SXM
 L2_BYTES = 50 * 2**20           # H100 SXM L2
@@ -560,7 +586,7 @@ def main() -> int:
     from pulse_tpu_torch.motion.motion_lib import build_motion_data, get_motion_state
     from pulse_tpu_torch.motion.synthetic import make_synthetic_clips
     from pulse_tpu_torch.physics import substep_cuda
-    from pulse_tpu_torch.physics.model import PhysicsConfig, build_model
+    from pulse_tpu_torch.physics.model import BATCHED_LEAVES, PhysicsConfig, build_model
     from pulse_tpu_torch.physics.shape_variation import vary_model_scales
     from pulse_tpu_torch.physics.step import physics_step
 
@@ -997,7 +1023,7 @@ def main() -> int:
     per_epoch = HORIZON * N_ENVS
 
     def train(exp: str, env_args: list, want_epoch: dict, learning: str = "im_ppo", epochs: int = TRAIN_EPOCHS,
-              on_epoch=None, trace_rollout: bool = True) -> tuple:
+              on_epoch=None, trace_rollout: bool = True, device_trace: bool = True) -> tuple:
         """run.main for `epochs` epochs; returns (result, the run's launch
         counts, its info dict) after the checks every training path shares.
         `on_epoch(agent, (ts, metrics))` runs after each epoch of an AMP
@@ -1005,7 +1031,9 @@ def main() -> int:
         rewards checked in [0, 1] are the env's (the task reward). Without
         `trace_rollout` the rollout's device time is one env step's trace
         times HORIZON (for the eager plain-route steps of ~20k kernels a
-        32-step trace would hold ~700k events and take minutes)."""
+        32-step trace would hold ~700k events and take minutes). Without
+        `device_trace` no device time is read (a phase gated on its route
+        and launches alone)."""
         epoch_launches = []
         ppo_epoch, amp_epoch = PPOAgent.train_epoch, AMPAgent.train_epoch
 
@@ -1040,7 +1068,7 @@ def main() -> int:
         fresh = ActorCritic(res.agent.env.obs_dim, res.agent.env.action_dim, actor_units=units["actor"],
                             critic_units=units["critic"], device=dev, seed=0).state_dict()
         changed = [k for k, v in ts.network.state_dict().items() if not torch.equal(v, fresh[k])]
-        timed = ms[1:]
+        timed = ms[1:] or ms      # the first epoch's times hold the warm-up, unless it is the only one
         epoch_s = [sum(v for k, v in m.items() if k.endswith("_s")) for m in timed]
         rewards = pagent._buffers.rewards
         info = {"phase": exp, "card": card, "envs": N_ENVS, "epochs": len(ms), "seconds_all": seconds,
@@ -1068,6 +1096,8 @@ def main() -> int:
         # trace (after the checks; the profiler slows the host, so the idle
         # share is taken against the unprofiled phase times above)
         agent = pagent
+        if not device_trace:
+            return res, counts, info
         if trace_rollout:
             roll_busy, roll_kernels = device_busy(lambda: agent.rollout(ts))
         else:
@@ -1502,7 +1532,7 @@ def main() -> int:
         return hook
 
     def train_amp(exp: str, env_args: list, want_epoch: dict, epochs: int, on_epoch=None,
-                  learning: str = "im_amp", trace_rollout: bool = True) -> tuple:
+                  learning: str = "im_amp", trace_rollout: bool = True, device_trace: bool = True) -> tuple:
         """`train` with learning=im_amp (or another AMP config), then the AMP
         gates every path shares:
         the discriminator changed, the buffers and amp_rms grown by exactly
@@ -1519,7 +1549,7 @@ def main() -> int:
                 on_epoch(agent, out)
 
         res_, counts_, info_ = train(exp, env_args, want_epoch, learning=learning, epochs=epochs, on_epoch=hooks,
-                                     trace_rollout=trace_rollout)
+                                     trace_rollout=trace_rollout, device_trace=device_trace)
         agent_, ts_ = res_.agent, res_.train_state
         a_, pa_ = ts_.amp, agent_.ppo
         acfg = agent_.amp.config
@@ -1527,7 +1557,7 @@ def main() -> int:
         fresh_d = Discriminator(agent_.env.amp_obs_dim, acfg.disc_units, device=dev, seed=agent_.amp.seed).state_dict()
         d_changed = sum(not torch.equal(v, fresh_d[k]) for k, v in a_.disc.state_dict().items())
         ms_ = res_.metrics
-        timed_ = ms_[1:]
+        timed_ = ms_[1:] or ms_
         info_.update(
             amp_obs_dim=agent_.env.amp_obs_dim, obs_dim=agent_.env.obs_dim, disc_units=list(acfg.disc_units),
             amp_batch_size=n_, per_epoch=rows, disc_params_changed=d_changed,
@@ -1554,6 +1584,8 @@ def main() -> int:
                 fail(f"{exp}: non-finite {k} {info_[k]}")
         if not all(0.0 <= v <= 1.0 for k in ("disc_acc_agent", "disc_acc_demo") for v in info_[k]):
             fail(f"{exp}: accuracies outside [0, 1]")
+        if not device_trace:
+            return res_, counts_, info_, rows
         # the style reward over the rollout is ~17 kernels, two of them fp32
         # GEMMs: its device time from CUDA events around 5 calls (a
         # one-call profiler trace was seen to lose its first kernels), its
@@ -1684,6 +1716,337 @@ def main() -> int:
     if mcp_getup_launches != want_total or mgenv.action_dim != 3:
         fail(f"train_mcp_getup: launches {mcp_getup_launches} (expected {want_total})")
     del res, mgenv
+
+    # ---- train_getup_shape: shape variation under the getup env -------------- #
+    # env=im_getup env.shape_variation=true: every env its own body scale
+    # (K3-rows -> RA -> K2 a step), the fall-state bank settled once under the
+    # shared model (K3 on the settle only) and not rebuilt by the shapes
+    want_gs = {"step_reward_amp": 0, "observe": HORIZON, "physics_step": 0, "physics_step_rows": HORIZON,
+               "reward_amp": HORIZON}
+    res, gs_launches, info = train("train_getup_shape", ["env=im_getup", "env.shape_variation=true"], want_gs)
+    gsenv, gst = res.agent.env, res.train_state.env_state
+    gs_rows = gsenv._model_rows(N_ENVS)
+    # one step's physics, reward terms and obs, kernel against plain on identical inputs
+    with torch.no_grad():
+        gs_pd = gsenv.action_to_pd_target(0.3 * torch.randn(N_ENVS, gsenv.action_dim, generator=g, device=dev))
+        gs_k = substep_cuda.physics_step_cuda(gsenv.model, gst.physics, gs_pd, model_rows=gs_rows)
+        gs_p = physics_step(gsenv.batched_model, gst.physics, gs_pd)
+        _, gs_ref = gsenv._post_step_ref(gst, gst.progress + 1)
+        gs_parts = gsenv._disc_parts(N_ENVS)
+        gs_ra = cuda_obs.reward_amp(gsenv.consts, gs_k, gs_ref, *gs_parts)
+        gs_pra = cuda_obs.reward_amp_plain(gsenv.consts, gs_k, gs_ref, *gs_parts)
+        gs_shape = gsenv._shape_obs(N_ENVS)
+        gs_obs = cuda_obs.observe(gsenv.consts, gs_k, gs_ref, gs_shape)
+        gs_pobs = cuda_obs.observe_plain(gsenv.consts, gs_k, gs_ref, gs_shape)
+    gs_cmp = {f: compare(getattr(gs_k, f), getattr(gs_p, f), K1_TOL[f], N_ENVS) for f in phys}
+    gs_cmp.update({n: compare(a, b, K1_TOL[n], N_ENVS) for n, a, b in zip(names, gs_ra, gs_pra)})
+    gs_cmp["obs"] = compare(gs_obs, gs_pobs, K2_TOL, N_ENVS)
+    gs_settle = gs_launches["physics_step"]
+    # isotropic scales drawn in float32 can repeat (a few of 3072 draws):
+    # each env's rows must be its own model's, so the rows are as distinct
+    # as the models
+    gs_bm = gsenv.batched_model
+    gs_models = torch.cat([getattr(gs_bm, k).reshape(N_ENVS, -1).float() for k in BATCHED_LEAVES], dim=1)
+    info.update(per_step(info), fall_settle_launches=gs_settle, fall_resets=int(gsenv.fall_resets),
+                grace_holds=int(gsenv.grace_holds), distinct_model_rows=int(torch.unique(gs_rows, dim=0).shape[0]),
+                distinct_models=int(torch.unique(gs_models, dim=0).shape[0]),
+                model_rows_width=int(gs_rows.shape[1]), route=gsenv.physics_route, fused=gsenv._fused_step_ok(),
+                fall_bank_root_height_median=float(gsenv.fall_states.root_pos[:, 2].median()),
+                kernel_vs_plain_one_step=gs_cmp)
+    emit(info)
+    want_total = {"step_reward_amp": 0, "observe": TRAIN_EPOCHS * HORIZON + 1,
+                  "physics_step": gsenv.config.fall_settle_steps, "physics_step_rows": TRAIN_EPOCHS * HORIZON,
+                  "reward_amp": TRAIN_EPOCHS * HORIZON}
+    if gs_launches != want_total or info["fused"] or info["route"] != "kernel":
+        fail(f"train_getup_shape: launches {gs_launches} (expected {want_total}), route {info['route']}, "
+             f"fused {info['fused']}")
+    if (info["fall_resets"] == 0 or info["distinct_model_rows"] != info["distinct_models"]
+            or info["distinct_models"] < N_ENVS - allowed):
+        fail(f"train_getup_shape: {info['fall_resets']} fall resets, {info['distinct_model_rows']} distinct "
+             f"model rows for {info['distinct_models']} distinct models of {N_ENVS} envs")
+    for name, c in gs_cmp.items():
+        if not c["outlier_envs"] <= allowed:
+            fail(f"train_getup_shape kernel vs plain {name}: {c['outlier_envs']} envs beyond {c['tol']} "
+                 f"(max {c['max']})")
+    del res, gsenv, gst, gs_rows, gs_k, gs_p, gs_bm, gs_models
+
+    # ---- getup_shape_tasks: the other getup tasks with shapes, 1 epoch each ---- #
+    # env=amp_getup (K3-rows -> RA, the self obs in PyTorch: no K2),
+    # env=im_mcp_getup over 3 fresh frozen columns and env=im_vae with
+    # learning=im_z_fit (distillation from train_im's policy), each
+    # K3-rows -> RA -> K2; the bank settled under the shared model (K3)
+    gst_launches, gst_info = {}, {}
+
+    def shape_route(env_) -> dict:
+        return {"env": type(env_).__name__, "route": env_.physics_route, "fused": env_._fused_step_ok(),
+                "shapes": env_.batched_model is not None and env_.batched_model.batched,
+                "fall_settle_steps": env_.config.fall_settle_steps}
+
+    want_tag = {"step_reward_amp": 0, "observe": 0, "physics_step": 0, "physics_step_rows": HORIZON,
+                "reward_amp": HORIZON}
+    res, n_, info, _ = train_amp("getup_shape_amp_getup", ["env=amp_getup", "env.shape_variation=true"], want_tag, 1,
+                                 device_trace=False)
+    gst_launches["amp_getup"], gst_info["amp_getup"] = n_, {**shape_route(res.agent.env), "losses": info["losses"],
+                                                             "disc_loss": info["disc_loss"]}
+    del res
+    want_tmg = {"step_reward_amp": 0, "observe": HORIZON, "physics_step": 0, "physics_step_rows": HORIZON,
+                "reward_amp": HORIZON}
+    res, n_, info = train("getup_shape_mcp_getup", ["env=im_mcp_getup", "env.shape_variation=true"], want_tmg,
+                          epochs=1, device_trace=False)
+    gst_launches["im_mcp_getup"], gst_info["im_mcp_getup"] = n_, {**shape_route(res.agent.env),
+                                                                  "losses": info["losses"]}
+    del res
+    d_epochs, d_epoch = [], DistillAgent.train_epoch
+
+    def counted_shape_distill(agent, ds):
+        before = dict(_build.launches)
+        out = d_epoch(agent, ds)
+        d_epochs.append({k: n - before[k] for k, n in _build.launches.items()})
+        return out
+
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    DistillAgent.train_epoch = counted_shape_distill
+    try:
+        res = run.main(["env=im_vae", "learning=im_z_fit", "env.shape_variation=true", f"num_envs={N_ENVS}",
+                        "max_epochs=1", "log_frequency=1", "device=cuda", f"output_dir={out_root}",
+                        "exp_name=getup_shape_distill", f"learning.teacher_checkpoint={teacher_dir}"])
+    finally:
+        DistillAgent.train_epoch = d_epoch
+    torch.cuda.synchronize()
+    gst_launches["im_vae"] = dict(_build.launches)
+    gst_info["im_vae"] = {**shape_route(res.agent.env), "launches_per_epoch": d_epochs,
+                          "losses": [{k: m[k] for k in ("bc_loss", "kld", "ar1", "prior_reg")} for m in res.metrics]}
+    if d_epochs != [want_tmg] or not all(math.isfinite(v) for m in gst_info["im_vae"]["losses"] for v in m.values()):
+        fail(f"getup_shape_tasks im_vae: launches per epoch {d_epochs} (expected {want_tmg}), losses "
+             f"{gst_info['im_vae']['losses']}")
+    del res
+    emit({"phase": "getup_shape_tasks", "card": card, "envs": N_ENVS, "launches": gst_launches, "tasks": gst_info})
+    for task_, t_info in gst_info.items():
+        settle_ = gst_launches[task_]["physics_step"]
+        if (t_info["route"], t_info["fused"], t_info["shapes"]) != ("kernel", False, True) \
+                or settle_ != t_info["fall_settle_steps"] or gst_launches[task_]["step_reward_amp"]:
+            fail(f"getup_shape_tasks {task_}: {t_info}, launches {gst_launches[task_]}: expected K3-rows -> RA with "
+                 f"per-env shapes and K3 on the settle only")
+
+    # ---- curriculum: the PHC curriculum tool at 2048 envs, every stage -------- #
+    # python -m pulse_tpu_torch.curriculum on the hard suite with r5's flags
+    # (getup composer, sharp-turn ladder, specialists, amp_getup, gate
+    # pretrain) at 2 epochs a stage (amp_getup 3: its schedule flips after
+    # epoch 1), the specialists' and the ladder's evals every epoch. Two
+    # eval outcomes are forced, since 2-epoch policies pass nothing: column
+    # 0 passes fast_run (so that the composer has a column union to reach
+    # and trains past its gate pretrain) and the ladder's first eval passes
+    # level 0 (so that it advances); the real results are kept beside them.
+    # Launches are read stage by stage (Curriculum._stage), epoch by epoch
+    # and eval by eval
+    from pulse_tpu_torch import curriculum as cur_mod
+
+    cur_out = os.path.join(out_root, "curriculum")
+    cur_args = ["--envs", str(PULSE_ENVS), "--epochs", str(CUR_EPOCHS), "--hard_epochs", str(CUR_EPOCHS),
+                "--specialist_epochs", str(CUR_EPOCHS), "--composer_epochs", str(CUR_EPOCHS),
+                "--amp_getup_epochs", str(CUR_EPOCHS + 1), "--max_specialists", "4", "--sharp_curriculum",
+                "--composer_env", "getup", "--gate_pretrain_rounds", "2", "--spec_eval_every", "1",
+                "--ladder_eval_every", "1", "--out", cur_out]
+    r5_keys = json.load(open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "quality",
+                                          "curriculum_r5.json")))
+
+    def curriculum_run(label) -> tuple:
+        """cur_mod.main(cur_args) with its launches read stage by stage:
+        (report, stage records with launches, epochs, evals, forced)."""
+        rec = {"stage": None, "stages": [], "epochs": [], "evals": [], "forced": [], "first_weights": {}}
+        real_stage, real_eval = cur_mod.Curriculum._stage, cur_mod.im_eval
+        ppo_epoch_, amp_epoch_ = PPOAgent.train_epoch, AMPAgent.train_epoch
+
+        def stage(self, lbl, kind, body):
+            rec["stage"] = lbl
+            before = dict(_build.launches)
+            t0_ = time.perf_counter()
+            real_stage(self, lbl, kind, body)
+            torch.cuda.synchronize()
+            rec["stages"].append({"stage": lbl, "kind": kind, "seconds": time.perf_counter() - t0_,
+                                  "launches": {k: n - before[k] for k, n in _build.launches.items()}})
+
+        def counted(real):
+            def epoch(agent, ts):
+                net_ = getattr(ts, "ppo", ts).network
+                rec["first_weights"].setdefault(rec["stage"], {k: v.detach().cpu().clone()
+                                                               for k, v in net_.state_dict().items()})
+                before = dict(_build.launches)
+                out = real(agent, ts)
+                rec["epochs"].append({"stage": rec["stage"], "env": type(agent.env).__name__,
+                                      "launches": {k: n - before[k] for k, n in _build.launches.items()}})
+                return out
+            return epoch
+
+        def evaluated(env_, policy_fn, batch_size=64):
+            before = dict(_build.launches)
+            r_ = real_eval(env_, policy_fn, batch_size=batch_size)
+            kind = "mcp" if hasattr(env_, "pnn") else ("ladder" if env_.motion.num_motions == 5 else "suite")
+            rec["evals"].append({"stage": rec["stage"], "kind": kind, "failed": r_.failed_motions.tolist(),
+                                 "steps": math.ceil(float(env_.motion.motion_lengths.max())
+                                                    / env_.model.config.control_dt),
+                                 "launches": {k: n - before[k] for k, n in _build.launches.items()}})
+            force = ((kind == "suite" and rec["stage"] == "col0")
+                     or (kind == "ladder" and not any(e["kind"] == "ladder" for e in rec["evals"][:-1])))
+            if force:
+                failed_ = r_.failed_motions.copy()
+                failed_[0] = False
+                rec["forced"].append({"stage": rec["stage"], "kind": kind, "real": r_.failed_motions.tolist(),
+                                      "forced": failed_.tolist()})
+                r_ = dataclasses.replace(r_, failed_motions=failed_)
+            return r_
+
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        cur_mod.Curriculum._stage, cur_mod.im_eval = stage, evaluated
+        PPOAgent.train_epoch, AMPAgent.train_epoch = counted(ppo_epoch_), counted(amp_epoch_)
+        t0_ = time.perf_counter()
+        try:
+            report_ = cur_mod.main(cur_args)
+        finally:
+            cur_mod.Curriculum._stage, cur_mod.im_eval = real_stage, real_eval
+            PPOAgent.train_epoch, AMPAgent.train_epoch = ppo_epoch_, amp_epoch_
+        torch.cuda.synchronize()
+        rec["seconds"] = time.perf_counter() - t0_
+        rec["launches"] = dict(_build.launches)
+        return report_, rec
+
+    shutil.rmtree(cur_out, ignore_errors=True)
+    cur_report, cur_rec = curriculum_run("curriculum")
+    stage_labels = [x_["stage"] for x_ in cur_report["stages"]]
+    kinds = [x_["kind"] for x_ in cur_report["stages"]]
+    epoch_kinds = {"HumanoidImEnv": {"step_reward_amp": HORIZON, "observe": HORIZON, "physics_step": 0,
+                                     "physics_step_rows": 0, "reward_amp": 0},
+                   "HumanoidImGetupEnv": {"step_reward_amp": 0, "observe": HORIZON, "physics_step": HORIZON,
+                                          "physics_step_rows": 0, "reward_amp": HORIZON}}
+    epoch_kinds["HumanoidImMCPGetupEnv"] = epoch_kinds["HumanoidImGetupEnv"]
+    # expected per stage: the stage's env builds, resets and evals beside its epochs
+    settle_n = GetupConfig().fall_settle_steps
+    stage_rows = []
+    for st_ in cur_rec["stages"]:
+        lbl = st_["stage"]
+        ev = [x_ for x_ in cur_rec["evals"] if x_["stage"] == lbl]
+        ep = [x_ for x_ in cur_rec["epochs"] if x_["stage"] == lbl]
+        other = {k: st_["launches"][k] - sum(x_["launches"][k] for x_ in ev + ep) for k in st_["launches"]}
+        want_other = dict.fromkeys(st_["launches"], 0)
+        if lbl == "col0" or lbl.endswith("_ladder"):
+            want_other["observe"] = 1                                   # the train state's reset
+        if lbl == "amp_getup":
+            want_other.update(physics_step=settle_n, observe=1)          # the getup env's settle and reset
+        if lbl == "composer":
+            rounds = 2 * 32                                             # gate pretrain: 2 rounds of 32 steps
+            want_other.update(physics_step=settle_n, observe=2 + rounds, step_reward_amp=rounds)
+        stage_rows.append({"stage": lbl, "seconds": st_["seconds"], "launches": st_["launches"],
+                           "epochs": len(ep), "evals": len(ev), "other": other, "other_expected": want_other,
+                           "epoch_envs": sorted({x_["env"] for x_ in ep})})
+    emit({"phase": "curriculum", "card": card, "envs": PULSE_ENVS, "seconds": cur_rec["seconds"],
+          "launches": cur_rec["launches"], "stages": stage_rows, "forced_evals": cur_rec["forced"],
+          "report_stages": cur_report["stages"], "specialists": cur_report["specialists"],
+          "columns_success": [c["success"] for c in cur_report["columns"]],
+          "composer": {k: cur_report["composer"][k] for k in ("success", "mpjpe_pa_mm")},
+          "column_union_success": cur_report["column_union_success"]})
+    # the stages the tool's rules give on the evals it saw: 3 columns (no
+    # column passes every clip), then up to 4 specialists, in clip order,
+    # for the clips no column passes and no earlier specialist covers
+    cols_ = cur_report["columns"]
+    clip_names = list(cols_[0]["per_clip"])
+
+    def fails(entry, n):
+        return not entry["per_clip"][n]["success"]
+
+    seen_ = cols_[:3]
+    want_specs = []
+    for clip_ in [x_ for x_ in clip_names if all(fails(c, x_) for c in cols_[:3])]:
+        if len(want_specs) < 4 and all(fails(c, clip_) for c in seen_):
+            want_specs.append(clip_)
+            seen_ = cols_[:3 + len(want_specs)]
+    spec_labels = [f"spec_{x_}" + ("_ladder" if x_ == "sharp_turns" else "") for x_ in want_specs]
+    want_stages = [f"col{k}" for k in range(3)] + spec_labels + ["amp_getup", "composer"]
+    if (stage_labels != want_stages or [c["stage"] for c in cols_] != want_stages[:-1]
+            or cur_report["specialists"] != want_specs or "sharp_turns" not in want_specs):
+        fail(f"curriculum: stages {stage_labels} (expected {want_stages} from the evals), columns "
+             f"{[c['stage'] for c in cols_]}, specialists {cur_report['specialists']}")
+    if kinds != ["column"] * 3 + ["specialist"] * len(want_specs) + ["amp_getup", "composer"]:
+        fail(f"curriculum: stage kinds {kinds}")
+    if not all(x_["finite_losses"] for x_ in cur_report["stages"]):
+        fail(f"curriculum: a non-finite loss in {cur_report['stages']}")
+    for ep_ in cur_rec["epochs"]:
+        if ep_["launches"] != epoch_kinds.get(ep_["env"]):
+            fail(f"curriculum {ep_['stage']}: an epoch on {ep_['env']} launched {ep_['launches']}")
+    for ev_ in cur_rec["evals"]:
+        want_e = {"step_reward_amp": ev_["steps"], "observe": ev_["steps"] + 1, "physics_step": 0,
+                  "physics_step_rows": 0, "reward_amp": 0}
+        if ev_["launches"] != want_e:
+            fail(f"curriculum {ev_['stage']}: an eval launched {ev_['launches']} (expected {want_e})")
+    for row in stage_rows:
+        if row["other"] != row["other_expected"]:
+            fail(f"curriculum {row['stage']}: launches beside its epochs and evals {row['other']} (expected "
+                 f"{row['other_expected']})")
+    want_epoch_envs = {"amp_getup": ["HumanoidImGetupEnv"], "composer": ["HumanoidImMCPGetupEnv"]}
+    for row in stage_rows:
+        if row["epochs"] == 0 or row["epoch_envs"] != want_epoch_envs.get(row["stage"], ["HumanoidImEnv"]):
+            fail(f"curriculum {row['stage']}: {row['epochs']} epochs on {row['epoch_envs']}")
+    ladder_levels = next(x_["ladder_levels"] for x_ in cur_report["stages"] if x_["stage"] == "spec_sharp_turns_ladder")
+    if not ladder_levels or max(lv for _, lv in ladder_levels) < 1:
+        fail(f"curriculum: the sharp-turn ladder did not advance: {ladder_levels}")
+    # each column's first weights: the last column's, or column 0's
+    for first_, src_ in [("col1", "col0"), ("col2", "col1"), ("amp_getup", "col0")] + [(x_, "col0") for x_ in spec_labels]:
+        src_sd = torch.load(os.path.join(cur_out, f"{src_}.pt"), map_location="cpu", weights_only=True)["network"]
+        w_ = cur_rec["first_weights"][first_]
+        if not all(torch.equal(w_[k], v) for k, v in src_sd.items()):
+            fail(f"curriculum: {first_}'s first weights are not {src_}'s last")
+    missing = set(r5_keys) - set(cur_report)
+    missing |= set(r5_keys["columns"][0]) - set(cur_report["columns"][0])
+    partial = json.load(open(os.path.join(cur_out, "partial.json")))
+    if missing or partial["status"] != "complete" or cur_report["composer"] is None:
+        fail(f"curriculum: keys missing {missing}, partial.json status {partial['status']}")
+
+    # ---- curriculum_resume: the same command into the same --out --------------- #
+    res_report, res_rec = curriculum_run("curriculum_resume")
+    emit({"phase": "curriculum_resume", "card": card, "seconds": res_rec["seconds"], "launches": res_rec["launches"],
+          "stages": [{"stage": x_["stage"], "seconds": x_["seconds"], "launches": x_["launches"]}
+                     for x_ in res_rec["stages"]], "evals": len(res_rec["evals"]),
+          "report_equal_bitwise": {k: res_report[k] == cur_report[k] for k in ("columns", "composer", "final")}})
+    eval_sum = {k: sum(x_["launches"][k] for x_ in res_rec["evals"]) for k in res_rec["launches"]}
+    if res_rec["epochs"] or not all(x_["restored"] for x_ in res_report["stages"]) or res_rec["launches"] != eval_sum:
+        fail(f"curriculum_resume: {len(res_rec['epochs'])} epochs trained, stages {res_report['stages']}, "
+             f"launches {res_rec['launches']} against the evals' {eval_sum}")
+    def same_result(a_, b_) -> bool:
+        """Two result entries: the same stage, successes and per-clip
+        outcomes, MPJPEs within 0.05 mm (the JSON's two decimals)."""
+        return (a_["stage"] == b_["stage"] and a_["success"] == b_["success"]
+                and all(a_["per_clip"][n]["success"] == b_["per_clip"][n]["success"] for n in a_["per_clip"])
+                and all(abs(a_[k] - b_[k]) <= 0.05 for k in ("mpjpe_g_mm", "mpjpe_l_mm", "mpjpe_pa_mm")))
+
+    res_cols = res_report["columns"] + [res_report["composer"]]
+    cur_cols = cur_report["columns"] + [cur_report["composer"]]
+    if (len(res_cols) != len(cur_cols) or not all(same_result(a_, b_) for a_, b_ in zip(res_cols, cur_cols))
+            or res_report["specialists"] != cur_report["specialists"]):
+        fail(f"curriculum_resume: columns {res_cols} differ from the first run's {cur_cols}")
+    cur_phase_launches = {"curriculum": cur_rec["launches"], "curriculum_resume": res_rec["launches"]}
+    del cur_rec, res_rec
+
+    # ---- forward_pmcp: column k onto k+1 of the curriculum's frozen PNN -------- #
+    from pulse_tpu_torch.scripts import forward_pmcp
+
+    n_cols = len(cur_report["columns"])
+    pnn_src = os.path.join(cur_out, f"pnn{n_cols}.pt")
+    pnn_dst = os.path.join(cur_out, "pnn_forward.pt")
+    t0 = time.perf_counter()
+    forward_pmcp.main(["--ckpt", pnn_src, "--column", "0", "--out", pnn_dst])
+    fp_s = time.perf_counter() - t0
+    src_p = torch.load(pnn_src, weights_only=True)["params"]
+    dst_p = torch.load(pnn_dst, weights_only=True)["params"]
+    copied = all(torch.equal(dst_p[n.replace("col0_", "col1_")][leaf], src_p[n][leaf])
+                 for n in src_p if n.startswith("col0_") for leaf in ("kernel", "bias"))
+    kept = all(torch.equal(dst_p[n][leaf], src_p[n][leaf])
+               for n in src_p if not n.startswith("col1_") for leaf in ("kernel", "bias"))
+    emit({"phase": "forward_pmcp", "card": card, "columns": n_cols, "seconds": fp_s,
+          "file_MB": os.path.getsize(pnn_src) / 2**20, "column0_copied_bitwise": copied, "others_kept": kept})
+    if not (copied and kept) or sorted(dst_p) != sorted(src_p):
+        fail(f"forward_pmcp: column 0 copied {copied}, other columns kept {kept}")
+    shutil.rmtree(cur_out, ignore_errors=True)
 
     # ---- domain randomization: env=im learning=im_amp env.randomize=true ------ #
     # im.yaml's randomization_params: obs and action noise with held
@@ -3299,6 +3662,13 @@ def main() -> int:
                 "legacy_cli": legacy_launches[kernel], "record_rollout": rec_launches[kernel],
                 "sample_pulse": smp_launches[kernel], "scripts_on_card": soc_launches[kernel]}
 
+    def getup_shape_curriculum_phases(kernel) -> dict:
+        """train_getup_shape's, getup_shape_tasks' and the curriculum's
+        launches of a kernel."""
+        return {"train_getup_shape": gs_launches[kernel],
+                **{f"getup_shape_{t}": n[kernel] for t, n in gst_launches.items()},
+                **{ph: n[kernel] for ph, n in cur_phase_launches.items()}}
+
     def no_launch_phases(kernel) -> dict:
         """The plain-route phases' and motion_file_train's launches of a kernel
         that neither runs (each gated to 0)."""
@@ -3309,7 +3679,8 @@ def main() -> int:
          "replaces": "pulse_tpu/env/pallas_obs.py:376",
          "launches": sum(n["step_reward_amp"] for n in (im_launches, amp_im_launches, mcp_launches, im_z_launches,
                                                          pulse_launches, pth_mcp_launches, mf_launches))
-         + sum(entry_phases("step_reward_amp").values()),
+         + sum(entry_phases("step_reward_amp").values())
+         + sum(getup_shape_curriculum_phases("step_reward_amp").values()),
          "launches_by_phase": {"train_im": im_launches["step_reward_amp"],
                                "motion_file_train": mf_launches["step_reward_amp"],
                                "train_amp_im": amp_im_launches["step_reward_amp"],
@@ -3317,7 +3688,7 @@ def main() -> int:
                                "z_im_traj": im_z_launches["step_reward_amp"],
                                "pulse_stages": pulse_launches["step_reward_amp"],
                                "import_pth_mcp": pth_mcp_launches["step_reward_amp"], **entry_phases("step_reward_amp"),
-                               **plain_phases("step_reward_amp")},
+                               **plain_phases("step_reward_amp"), **getup_shape_curriculum_phases("step_reward_amp")},
          "max_abs_err": max_err["step_reward_amp"], "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": None},
         {"name": "observe", "route": "cuda", "source": src + "observe.cuh",
@@ -3325,7 +3696,7 @@ def main() -> int:
          "launches": sum(n["observe"] for n in (im_launches, amp_im_launches, mcp_launches, mcp_getup_launches,
                                                  dr_launches, im_z_launches, pulse_launches, pth_mcp_launches,
                                                  pth_distill_launches, mf_launches))
-         + sum(entry_phases("observe").values()),
+         + sum(entry_phases("observe").values()) + sum(getup_shape_curriculum_phases("observe").values()),
          "launches_by_phase": {"train_im": im_launches["observe"], "train_amp_im": amp_im_launches["observe"],
                                "motion_file_train": mf_launches["observe"],
                                "train_mcp": mcp_launches["observe"], "train_mcp_getup": mcp_getup_launches["observe"],
@@ -3333,7 +3704,7 @@ def main() -> int:
                                "pulse_stages": pulse_launches["observe"],
                                "import_pth_mcp": pth_mcp_launches["observe"],
                                "import_pth_distill": pth_distill_launches["observe"], **entry_phases("observe"),
-                               **plain_phases("observe")},
+                               **plain_phases("observe"), **getup_shape_curriculum_phases("observe")},
          "max_abs_err": max_err["observe"], "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": None},
         {"name": "physics_step", "route": "cuda", "source": src + "physics_step.cu",
@@ -3342,7 +3713,8 @@ def main() -> int:
                                                      amp_getup_launches, mcp_getup_launches, speedz_launches,
                                                      speedz_eval_launches, reachz_launches, reachz_eval_launches,
                                                      traj_z_launches, pulse_launches, pth_distill_launches,
-                                                     pth_z_launches)),
+                                                     pth_z_launches))
+         + sum(getup_shape_curriculum_phases("physics_step").values()),
          "launches_by_phase": {"train_getup": getup_launches["physics_step"],
                                "train_vr": vr_launches["physics_step"], "train_amp": amp_launches["physics_step"],
                                "train_amp_getup": amp_getup_launches["physics_step"],
@@ -3355,27 +3727,29 @@ def main() -> int:
                                "pulse_stages": pulse_launches["physics_step"],
                                "import_pth_distill": pth_distill_launches["physics_step"],
                                "import_pth_speed_z": pth_z_launches["physics_step"], **no_launch_phases("physics_step"),
-                               **entry_phases("physics_step")},
+                               **entry_phases("physics_step"), **getup_shape_curriculum_phases("physics_step")},
          "max_abs_err": max_err["physics_step"], "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
          "bound_by": k3_by, "library_ms": None},
         {"name": "physics_step_rows", "route": "cuda", "source": src + "physics_step.cu",
          "replaces": "pulse_tpu/physics/substep_pallas.py:744",
-         "launches": shape_launches["physics_step_rows"] + dr_launches["physics_step_rows"],
+         "launches": shape_launches["physics_step_rows"] + dr_launches["physics_step_rows"]
+         + sum(getup_shape_curriculum_phases("physics_step_rows").values()),
          "launches_by_phase": {"train_shape": shape_launches["physics_step_rows"],
                                "train_dr": dr_launches["physics_step_rows"], **no_launch_phases("physics_step_rows"),
-                               **entry_phases("physics_step_rows")},
+                               **entry_phases("physics_step_rows"), **getup_shape_curriculum_phases("physics_step_rows")},
          "max_abs_err": max_err["physics_step_rows"], "ms": k3r_ms, "plain_ms": k3r_plain_ms, "bound_ms": k3r_bound,
          "bound_by": k3r_by, "library_ms": None},
         {"name": "reward_amp", "route": "cuda", "source": src + "reward_amp.cu",
          "replaces": "pulse_tpu/env/pallas_obs.py:309",
          "launches": sum(n["reward_amp"] for n in (getup_launches, amp_launches, amp_getup_launches,
-                                                   mcp_getup_launches, dr_launches, pth_distill_launches)),
+                                                   mcp_getup_launches, dr_launches, pth_distill_launches))
+         + sum(getup_shape_curriculum_phases("reward_amp").values()),
          "launches_by_phase": {"train_getup": getup_launches["reward_amp"], "train_amp": amp_launches["reward_amp"],
                                "train_amp_getup": amp_getup_launches["reward_amp"],
                                "train_mcp_getup": mcp_getup_launches["reward_amp"],
                                "train_dr": dr_launches["reward_amp"],
                                "import_pth_distill": pth_distill_launches["reward_amp"], **no_launch_phases("reward_amp"),
-                               **entry_phases("reward_amp")},
+                               **entry_phases("reward_amp"), **getup_shape_curriculum_phases("reward_amp")},
          "max_abs_err": max_err["reward_amp"], "ms": ra_ms, "plain_ms": ra_plain_ms, "bound_ms": ra_bound,
          "bound_by": ra_by, "library_ms": None},
     ]})

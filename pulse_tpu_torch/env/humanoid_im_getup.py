@@ -12,6 +12,14 @@ ragdoll (gains off, light damping). On the card those steps are K3
 launches at B = `num_fall_states` (plain steps with `use_pallas_physics`
 false or on a model outside the kernel's surface). Because this env overrides termination
 and reset, its step runs K3 → RA instead of K1 (`HumanoidImEnv.step`).
+
+With per-env body shapes (`enable_shape_variation`, after the build) the
+step runs K3-rows → RA and a reset builds its reference-state init under
+the env's own model, but, as in the JAX package, the bank of fall states
+stays the one settled under the shared model and is not rebuilt: a fall
+reset takes the bank's physics as it is (the shared skeleton's body
+positions) until its first step, and its observation carries the env's
+shape row.
 """
 
 from __future__ import annotations
@@ -47,14 +55,20 @@ def ragdoll(model):
                                joint_kd=torch.full_like(model.joint_kd, 5.0))
 
 
-def fall_drop_start(model, n: int, drop_height: float, device) -> PhysicsState:
-    """The drop's first state: [n] random poses at rest at `drop_height`
-    (drawn from FALL_STATE_SEED), lifted so that no contact point starts
-    inside the ground (a buried limb would see kN forces and launch the
-    body)."""
+def fall_drop_poses(model, n: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The drop's [n] random poses (root rotation, dof), drawn from
+    FALL_STATE_SEED."""
     g = torch.Generator(device=device).manual_seed(FALL_STATE_SEED)
     root_rot = q.quat_unit(torch.randn(n, 4, generator=g, device=device))
     dof = torch.clamp(0.4 * torch.randn(n, model.num_dof, generator=g, device=device), model.dof_lower, model.dof_upper)
+    return root_rot, dof
+
+
+def fall_drop_start(model, n: int, drop_height: float, device) -> PhysicsState:
+    """The drop's first state: the `fall_drop_poses` at rest at
+    `drop_height`, lifted so that no contact point starts inside the ground
+    (a buried limb would see kN forces and launch the body)."""
+    root_rot, dof = fall_drop_poses(model, n, device)
     root_pos = torch.tensor([0.0, 0.0, drop_height], device=device).expand(n, 3)
     zero3 = torch.zeros(n, 3, device=device)
     st = state_from_kinematics(model, root_pos, root_rot, dof, zero3, zero3, torch.zeros_like(dof))
@@ -94,9 +108,6 @@ class HumanoidImGetupEnv(HumanoidImEnv):
             st = step(rag, st, pd)
         st = st.replace(root_vel6=torch.zeros_like(st.root_vel6), joint_omega=torch.zeros_like(st.joint_omega))
         return refresh_kinematics(m, st)
-
-    def enable_shape_variation(self, *args, **kwargs) -> None:
-        raise NotImplementedError("shape variation with HumanoidImGetup is not ported yet (ROADMAP queue 1, item 12)")
 
     def set_getup_phase(self, past_schedule: bool) -> bool:
         """Before the schedule epoch every episode starts from a fall state

@@ -53,7 +53,8 @@ VR three-point tracking), the isaac_pd, pd and force control modes
 (`env.control_mode`), domain randomization (`env.randomize=true` with
 `env.randomization_params`), and HumanoidIm with per-env body
 shapes (`env=im_shape`: isotropic scales, or SMPL-beta skeletons with
-`env.smpl_model_path`); PULSE's downstream tasks HumanoidSpeed,
+`env.smpl_model_path`, also under the four getup tasks with
+`env.shape_variation=true`); PULSE's downstream tasks HumanoidSpeed,
 HumanoidReach, HumanoidTraj, HumanoidStrike and HumanoidPedestrianTerrain
 (`env=speed`, `env=reach`, `env=traj`, `env=strike`,
 `env=pedestrian_terrain`), and with latent actions decoded by a frozen
@@ -66,9 +67,8 @@ PHC `.pth` checkpoints load as the MCP envs' frozen PNN
 (`learning.teacher_pnn_checkpoint`, `learning.teacher_composer_checkpoint`).
 A checkpoint file is read as a reference one by its content (a "model"
 dict of `a2c_network.*` keys), not by its suffix as the JAX package does,
-which would take the port's own `epoch_N.pt` for one. Other tasks, agents
-and options raise NotImplementedError naming the ROADMAP item that ports
-them. The distill agent has no evaluator: `test=true` and `eval_frequency`
+which would take the port's own `epoch_N.pt` for one. Other tasks raise
+ValueError. The distill agent has no evaluator: `test=true` and `eval_frequency`
 raise with it.
 """
 
@@ -89,12 +89,6 @@ import torch
 _DEMO_TASKS = {"HumanoidImDemo": "HumanoidIm", "HumanoidImMCPDemo": "HumanoidImMCP"}
 # the downstream task envs, and their latent-action (Z) names
 _TASK_ENVS = ("HumanoidSpeed", "HumanoidReach", "HumanoidTraj", "HumanoidStrike", "HumanoidPedestrianTerrain")
-
-
-def _unported(what: str, item) -> NotImplementedError:
-    """The error of a config the port cannot run yet, naming the ROADMAP
-    item that ports it: shape variation with HumanoidImGetup (item 12)."""
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, item {item})")
 
 
 def build_model_from_cfg(cfg, device):
@@ -158,9 +152,6 @@ def build_env_from_cfg(cfg, model, motion, device):
     getup = task in ("HumanoidImGetup", "HumanoidImDistillGetup", "HumanoidAMPGetup", "HumanoidImMCPGetup")
     if not getup and task not in ("HumanoidIm", "HumanoidImDistill", "HumanoidAMP", "HumanoidImMCP", "HumanoidImZ"):
         raise ValueError(f"unknown task {task!r}")
-    shape_variation = bool(e.get("shape_variation", False))
-    if shape_variation and getup:
-        raise _unported("shape variation with HumanoidImGetup", 12)
     common = dict(
         termination_distance=float(e["termination_distance"]),
         enable_early_termination=bool(e["enable_early_termination"]),
@@ -208,35 +199,36 @@ def build_env_from_cfg(cfg, model, motion, device):
             env = HumanoidImMCPEnv(model, motion, ec, device=device, seed=seed, pnn=pnn, obs_rms=pnn_rms)
         else:
             env = HumanoidImEnv(model, motion, ec, device=device, seed=seed)
-        if shape_variation:
-            # per-env body shapes (PHC's has_shape_variation), drawn from a
-            # stream of their own as the JAX package's seed + 7 key
-            smpl = None
-            if str(e.get("smpl_model_path", "") or ""):
-                from pulse_tpu_torch.smpl.body_model import load_smpl_model
-
-                smpl = load_smpl_model(str(e["smpl_model_path"]))
-            env.enable_shape_variation(int(cfg["num_envs"]), smpl_model=smpl,
-                                       beta_std=float(e.get("shape_beta_std", 1.0)),
-                                       generator=torch.Generator(device=env.device).manual_seed(seed + 7))
-        env = _randomize_props(cfg, env)
-        return wrap_env_z(cfg, env) if task == "HumanoidImZ" else env
-    gc = GetupConfig(
-        recovery_steps=int(e.get("recovery_steps", 90)),
-        recovery_episode_prob=float(e.get("recovery_episode_prob", 0.3)),
-        fall_init_prob=float(e.get("fall_init_prob", 0.1)),
-        num_fall_states=int(e.get("num_fall_states", 256)),
-        fall_settle_steps=int(e.get("fall_settle_steps", 60)),
-        **common,
-    )
-    if task == "HumanoidAMPGetup":
-        env = HumanoidAMPGetupEnv(model, motion, gc, device=device, seed=seed, **amp_kw)
-    elif task == "HumanoidImMCPGetup":
-        pnn, pnn_rms = build_pnn_from_cfg(cfg, model, motion, gc, device)
-        env = HumanoidImMCPGetupEnv(model, motion, gc, device=device, seed=seed, pnn=pnn, obs_rms=pnn_rms)
     else:
-        env = HumanoidImGetupEnv(model, motion, gc, device=device, seed=seed)
-    return _randomize_props(cfg, env)
+        gc = GetupConfig(
+            recovery_steps=int(e.get("recovery_steps", 90)),
+            recovery_episode_prob=float(e.get("recovery_episode_prob", 0.3)),
+            fall_init_prob=float(e.get("fall_init_prob", 0.1)),
+            num_fall_states=int(e.get("num_fall_states", 256)),
+            fall_settle_steps=int(e.get("fall_settle_steps", 60)),
+            **common,
+        )
+        if task == "HumanoidAMPGetup":
+            env = HumanoidAMPGetupEnv(model, motion, gc, device=device, seed=seed, **amp_kw)
+        elif task == "HumanoidImMCPGetup":
+            pnn, pnn_rms = build_pnn_from_cfg(cfg, model, motion, gc, device)
+            env = HumanoidImMCPGetupEnv(model, motion, gc, device=device, seed=seed, pnn=pnn, obs_rms=pnn_rms)
+        else:
+            env = HumanoidImGetupEnv(model, motion, gc, device=device, seed=seed)
+    if bool(e.get("shape_variation", False)):
+        # per-env body shapes (PHC's has_shape_variation), drawn from a
+        # stream of their own as the JAX package's seed + 7 key; a getup
+        # env keeps the fall states it settled under the shared model
+        smpl = None
+        if str(e.get("smpl_model_path", "") or ""):
+            from pulse_tpu_torch.smpl.body_model import load_smpl_model
+
+            smpl = load_smpl_model(str(e["smpl_model_path"]))
+        env.enable_shape_variation(int(cfg["num_envs"]), smpl_model=smpl,
+                                   beta_std=float(e.get("shape_beta_std", 1.0)),
+                                   generator=torch.Generator(device=env.device).manual_seed(seed + 7))
+    env = _randomize_props(cfg, env)
+    return wrap_env_z(cfg, env) if task == "HumanoidImZ" else env
 
 
 def _randomize_props(cfg, env):

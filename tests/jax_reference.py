@@ -10,8 +10,11 @@ emitters: the same -O0 step then compiles in 9.3 s instead of 17.3 s
 against the default build can move by an ulp, so a test that holds the
 port to the JAX package's exact bits, or below what the default build's
 rounding allows, keeps `jax.jit` (`test_torch_task.py`'s traj task state;
-`test_torch_eval.py`'s free rollouts, whose accel_dist moves 14%). No
-tolerance changes.
+`test_torch_eval.py`'s free rollouts, whose accel_dist moves 14%); their
+eager set-up runs inside `reference_compiles()` where what it feeds the
+comparison stays the same (the task test's JAX store, which both packages
+read, and its reset draws and AMP windows, equal to the bit; the eval
+test's env tables, which its metrics do not read). No tolerance changes.
 
 `reference_compiles` does the same for every XLA compile inside a block:
 the jits the JAX package makes itself (the motion store's per-group

@@ -39,6 +39,8 @@ from pulse_tpu.motion import motion_lib as jax_motion_lib
 from pulse_tpu.motion import synthetic as jax_synthetic
 from pulse_tpu.physics import PhysicsConfig as JaxPhysicsConfig, build_model as jax_build_model
 
+from jax_reference import reference_compiles
+
 from pulse_tpu_torch.assets import load_smpl_humanoid
 from pulse_tpu_torch.env.humanoid_im import EnvConfig, HumanoidImEnv
 from pulse_tpu_torch.env.humanoid_im_getup import GetupConfig, HumanoidImGetupEnv
@@ -64,9 +66,14 @@ def spec():
 @pytest.fixture(scope="module")
 def evals(spec):
     jspec = jax_load_smpl()
-    jenv = JaxEnv(jax_build_model(jspec, JaxPhysicsConfig()),
-                  jax_build_motion_data(jspec.skeleton, jax_synthetic.make_synthetic_clips(jspec.skeleton, 2, 1.0)),
-                  JaxEnvConfig(**EVAL_CFG))
+    jmodel = jax_build_model(jspec, JaxPhysicsConfig())
+    jmotion = jax_build_motion_data(jspec.skeleton, jax_synthetic.make_synthetic_clips(jspec.skeleton, 2, 1.0))
+    # the env's own tables (AMP frames, ids) at the reference compile options
+    # (tests/jax_reference.py): the metrics come out equal to the bit; the
+    # model and the store keep the default build, which the free rollout
+    # reads (at -O0 its accel_dist moves 23%)
+    with reference_compiles():
+        jenv = JaxEnv(jmodel, jmotion, JaxEnvConfig(**EVAL_CFG))
     want = jax_im_eval(jenv, _zero_policy(jenv.action_dim, jnp.zeros), batch_size=2, collect_pa=True)
 
     clips = synthetic.make_synthetic_clips(spec.skeleton, 2, 1.0)
@@ -141,7 +148,8 @@ def test_hard_clips_equal_jax_bit_for_bit(spec):
 
 def test_graded_suite_matches_jax(spec):
     clips, names, fams = synthetic.make_graded_suite(spec.skeleton)
-    jclips, jnames, jfams = jax_synthetic.make_graded_suite(jax_load_smpl().skeleton)
+    with reference_compiles():     # its eager FK at the reference compile options (tests/jax_reference.py)
+        jclips, jnames, jfams = jax_synthetic.make_graded_suite(jax_load_smpl().skeleton)
     assert names == jnames and fams == jfams and len(names) == 30
     for c, j in zip(clips, jclips):
         np.testing.assert_array_equal(c["local_rotation"], j["local_rotation"])

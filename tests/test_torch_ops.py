@@ -125,12 +125,14 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch, port):
 
 
 def test_unported_config_raises(port):
-    """Shape variation with the getup env is not ported (item 12); an
-    unknown control mode is refused."""
+    """Shape variation with the getup env gives each env its own model and
+    keeps the fall-state bank settled under the shared one (item 12, as the
+    JAX package); an unknown control mode is refused."""
     _, model, motion, _ = port
     genv = HumanoidImGetupEnv(model, motion, GetupConfig(num_fall_states=2, fall_settle_steps=1), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        genv.enable_shape_variation(4)
+    bank = genv.fall_states
+    genv.enable_shape_variation(4)
+    assert genv.fall_states is bank and genv.batched_model.batched
     with pytest.raises(ValueError, match="control_mode"):
         HumanoidImEnv(model, motion, EnvConfig(control_mode="torque"), device="cpu")
 

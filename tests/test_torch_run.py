@@ -16,7 +16,7 @@ it with both buffers, and `test=true` evaluates an AMP checkpoint's PPO
 policy. `env=im_mcp` and `env=im_mcp_getup` (composer weights over a
 fresh frozen PNN), `env.randomize=true` (with PPO, and with AMP re-drawing
 the props) and `env.control_mode=pd|force` train in process. Options the
-port does not have yet raise NotImplementedError, and the demo task names
+port once lacked (shape variation under the getup envs) now train, and the demo task names
 train the envs they alias (the reference `.pth`
 paths, strike and terrain run in tests/test_torch_checkpoint.py, the
 motion files in tests/test_torch_motion_file.py). The port's config
@@ -101,8 +101,15 @@ def test_main_runs_env_im_in_process(trained):
     ["env=amp_getup", "learning=im_amp", "env.shape_variation=true"], ["env=im_getup", "env.shape_variation=true"],
 ])
 def test_unported_options_raise(args, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run.main(["device=cpu", f"output_dir={tmp_path}", *args])
+    # shape variation under the getup envs is ported (item 12): each env
+    # trains under its own body shape, the fall states stay the shared
+    # model's
+    amp = ["learning.amp_batch_size=8", "learning.amp_buffer_size=64", "learning.disc_units=[32]"]
+    res = run.main([*args, "max_epochs=1", "env.num_fall_states=8", "env.fall_settle_steps=2",
+                    f"output_dir={tmp_path}", *TINY, *(amp if "learning=im_amp" in args else [])])
+    env = res.agent.env
+    assert len(res.metrics) == 1 and env.batched_model is not None and env.batched_model.batched
+    assert all(np.isfinite(res.metrics[0][k]) for k in ("a_loss", "c_loss", "b_loss"))
 
 
 @pytest.mark.parametrize("args,cls", [

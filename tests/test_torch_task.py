@@ -46,6 +46,8 @@ from pulse_tpu.motion.synthetic import make_synthetic_clips as jax_clips
 from pulse_tpu.physics import PhysicsConfig as JaxPhysicsConfig, build_model as jax_build_model
 from pulse_tpu.physics.state import PhysicsState as JaxPhysicsState
 
+from jax_reference import reference_compiles
+
 from pulse_tpu_torch import _build
 from pulse_tpu_torch.assets import load_smpl_humanoid
 from pulse_tpu_torch.env.humanoid_task import (
@@ -71,13 +73,17 @@ VERTS_TOL = 4e-6
 
 @pytest.fixture(scope="module")
 def setup():
-    jspec = jax_load_smpl()
-    jm = jax_build_motion_data(jspec.skeleton, jax_clips(jspec.skeleton, 4))
+    # the JAX store and model at the reference compile options
+    # (tests/jax_reference.py): both packages read the JAX store's tables
+    with reference_compiles():
+        jspec = jax_load_smpl()
+        jm = jax_build_motion_data(jspec.skeleton, jax_clips(jspec.skeleton, 4))
+        jmodel = jax_build_model(jspec, JaxPhysicsConfig(**CFG))
     fields = {f.name: torch.float32 for f in dataclasses.fields(MotionData)}
     fields.update(length_starts=torch.long, motion_num_frames=torch.long)
     motion = MotionData(**{k: torch.tensor(np.asarray(getattr(jm, k)), dtype=dt) for k, dt in fields.items()})
     model = build_model(load_smpl_humanoid(), PhysicsConfig(**CFG), device="cpu")
-    return model, motion, jax_build_model(jspec, JaxPhysicsConfig(**CFG)), jm
+    return model, motion, jmodel, jm
 
 
 def _lying(model, n: int, rng) -> dict:
@@ -182,9 +188,13 @@ def stepped(setup):
         mid = jax_sample_motions(k_motion, jmotion, 1)[0]
         return mid, jax_sample_time(k_time, jmotion, mid[None])[0], k_task
 
-    mids, t0s, k_tasks = jax.vmap(reset_draws)(keys)
-    # the reset envs' AMP window, computed eagerly (see test_step_outputs_match_jax)
-    fresh_hist = np.asarray(jax.vmap(jenvs["speed"]._init_amp_hist)(mids, t0s))
+    # the reset envs' clips, times and AMP window, computed eagerly (see
+    # test_step_outputs_match_jax) at the reference compile options (equal
+    # to the default build's to the bit); the task draws keep the default
+    # build, whose uniform rounds the reach and traj draws an ulp apart
+    with reference_compiles():
+        mids, t0s, k_tasks = jax.vmap(reset_draws)(keys)
+        fresh_hist = np.asarray(jax.vmap(jenvs["speed"]._init_amp_hist)(mids, t0s))
     got = {}
     before = dict(_build.launches)
     for name, env in envs.items():
@@ -286,16 +296,17 @@ def test_traj_vertices_and_positions_match_jax(setup):
     jenv = JaxTrajEnv(jmodel, jmotion, JaxTaskConfig())
     keys = jax.random.split(jax.random.PRNGKey(9), 6)
     start = np.random.default_rng(2).uniform(-3, 3, (6, 2)).astype(np.float32)
-    want = jax.vmap(jenv._gen_traj)(keys, jnp.asarray(start))
-    draws = _torch_tree(jax.vmap(lambda k: _traj_draws(jenv.config, k))(keys))
+    t = np.array([[0.0, 0.7, 2.0, 5.3, 15.99, 40.0]] * 6, np.float32) + np.arange(6, dtype=np.float32)[:, None]
+    with reference_compiles():     # the eager JAX side at the reference compile options, its draws included
+        want = jax.vmap(jenv._gen_traj)(keys, jnp.asarray(start))
+        draws = _torch_tree(jax.vmap(lambda k: _traj_draws(jenv.config, k))(keys))
+        want_pos = jax.vmap(jenv._traj_pos)(want, jnp.asarray(t))
+        want_one = jax.vmap(jenv._traj_pos)(want, jnp.asarray(t[:, 1]))
     assert draws["sharp"].any() and not draws["sharp"].all()
     verts = env._gen_traj(draws, torch.as_tensor(start))
     np.testing.assert_allclose(verts.numpy(), np.asarray(want), rtol=0, atol=VERTS_TOL)
-    t = np.array([[0.0, 0.7, 2.0, 5.3, 15.99, 40.0]] * 6, np.float32) + np.arange(6, dtype=np.float32)[:, None]
-    want_pos = jax.vmap(jenv._traj_pos)(want, jnp.asarray(t))
     np.testing.assert_allclose(env._traj_pos(verts, torch.as_tensor(t)).numpy(), np.asarray(want_pos), rtol=0,
                                atol=VERTS_TOL)
-    want_one = jax.vmap(jenv._traj_pos)(want, jnp.asarray(t[:, 1]))
     np.testing.assert_allclose(env._traj_pos(verts, torch.as_tensor(t[:, 1])).numpy(), np.asarray(want_one), rtol=0,
                                atol=VERTS_TOL)
 
