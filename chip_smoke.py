@@ -114,6 +114,29 @@ Phases, each printed as one JSON line:
                discriminator's reward and update ms, device busy ms, kernels
                and idle share of each (the style reward's device ms from
                CUDA events, beside its bound and one trace's kernels)
+  train_rnn    RNNActorCritic (trunk 1024-512, LSTM 256) in a PPOAgent of
+               env=im learning=im_ppo's configs (built through run's
+               builders; no config builds it) at 3072 envs for 2 epochs,
+               seq_len 4 (4096 sequences a minibatch): 32 K1 and 32 K2 an
+               epoch, finite losses, each epoch from the last one's carry;
+               before the first optimizer step every stored sequence
+               replayed through the cell at the rollout's parameters in
+               update_rnn's layout, its neg-log-probs and values against
+               the rollout's (RNN_REPLAY_TOL); a done env's output that of
+               a zero carry, bit for bit; its env steps/s, rollout and
+               update ms beside train_im's, device busy ms of a rollout and
+               an update
+  train_amp_rnn  the same network in env=im learning=im_amp's AMPAgent:
+               train_amp_im's launches and AMP rows an epoch, a
+               discriminator step an epoch, the carried hidden
+  train_sept   SeptActorCritic (self / task / actor 1024-512, critic
+               2048-1024, float32) in im_ppo's PPOAgent on env=im: the
+               launches, finite metrics, device busy ms
+  z_embedding  ZEmbedding of each z type (16384 rows of a 1024-wide
+               feature, latent 32, a codebook of 512) on the card against
+               the same module on the CPU: float32 tolerance (Z_TOL), equal
+               indexes but where two codes tie (Z_TIE); quantize and
+               ema_update
   train_amp    the same with env=amp (HumanoidAMPEnv, the self obs only, 358
                wide; task reward exactly 1): 32 launches of K3 and RA an
                epoch, no K1 and no K2, not even at the reset; RA's AMP row
@@ -208,8 +231,9 @@ Phases, each printed as one JSON line:
                the policy and discriminator changed, the task reward in
                [0, 1], some terminations; K3 on the run's last state against
                physics_step (<= 1% outlier envs); then test=true on the run's
-               checkpoint: task_eval over one 300-step episode at 3072 envs
-               (300 K3 launches), finite return, length, terminate rate; ms,
+               checkpoint: task_eval over one episode cut to 100 steps at
+               3072 envs (100 K3 launches), finite return, length,
+               terminate rate; ms,
                device-busy ms and device kernels a step, the idle share, the
                training env steps/s and the decode's ms alone
   train_reach_z  the same with env=reach_z (R_Hand)
@@ -251,7 +275,7 @@ Phases, each printed as one JSON line:
                launches, finite losses, the imported networks bit-unchanged,
                the kernels on each run's last state against their plain
                versions (<= 1% outlier envs)
-  train_strike 2 epochs of env=strike learning=pulse_z_task (PPO 1024-512
+  train_strike 1 epoch of env=strike learning=pulse_z_task (PPO 1024-512
                with the discriminator): the physics route "plain" and no
                launch (the box's coupled step), reward in [0, 1], some box
                tipped or pushed; one step of 64 envs on the card against the
@@ -264,6 +288,11 @@ Phases, each printed as one JSON line:
                walkable cells with the lowest foot within FOOT_TOL of the
                ground under it in FOOT_FRAC of the envs; 8 steps of
                HumanoidPedestrianTerrainZ
+  train_terrain_cnn  CNNActorCritic (conv 16-32 on the 16 x 16 height
+               map, then 1024-512 towers) in train_terrain's AMPAgent, 1
+               epoch at 3072 envs on the plain route: no launch, finite
+               metrics, the conv features of every env moved by a shifted
+               height map and the flat ones not
   self_collision  8 steps of HumanoidImEnv on a self-collision model at
                3072 envs: the plain route, no launch, finite states, one
                step of 64 envs on the card against the CPU
@@ -413,6 +442,14 @@ DEMO_MOTION_AT = 16
 DEMO_POSE_AT = 40
 DEMO_SOCKET_S = 30.0
 RS_STEPS = 300
+PLAIN_EPOCHS = 1                # train_strike's and train_terrain's epochs (the plain route, ~0.4 s a step)
+Z_EVAL_STEPS = 100              # train_speed_z's and train_reach_z's test=true episode
+# train_rnn's replay of the stored sequences against the rollout: the trunk's
+# bf16 GEMMs may round apart at another row count, the cell and heads are float32
+RNN_REPLAY_TOL = {"neglogp": 0.05, "value": 0.01}   # value: x (1 + the values' largest |v|)
+Z_ROWS, Z_FEAT, Z_LATENT, Z_CODES = 16384, 1024, 32, 512   # z_embedding's batch, feature, latent, codebook
+Z_TOL = 1e-5                    # z_embedding, card against CPU in float32: x (1 + the CPU side's largest)
+Z_TIE = 1e-5                    # two codes tie within this of |z|^2 + |c|^2
 PLAY_CLIPS = 4                  # scripts_on_card: play_motion plays the last of these synthetic clips
 SWEEP_FRAMES = 20               # joint_monkey --sweep's frames a DOF (its default)
 SKIN_FRAMES = 40                # render_smpl_mesh's frames skinned in one batch
@@ -1124,6 +1161,7 @@ def main() -> int:
                                                             "reward_amp": 0})
     emit(info)
     im_steps_per_s = info["train_env_steps_per_s"]
+    im_rollout_ms, im_update_ms = info["rollout_ms"], info["update_ms"]
 
     # ---- eval: train_im's policy on the hard clips, then test=true ----------- #
     # im_eval of train_im's train state on the 6 hard clips at a batch of 6,
@@ -1618,6 +1656,267 @@ def main() -> int:
     if amp_im_launches != want_total or any((r["task_w"], r["disc_w"]) != (0.5, 0.5) for r in rows):
         fail(f"train_amp_im: launches {amp_im_launches} (expected {want_total}), weights {rows}")
     del res
+
+    # ---- the learning layer's other networks: recurrent, Sept, Z ------------ #
+    # No config or CLI of either package builds these networks, so each phase
+    # builds its env and agent through run's builders from the config named,
+    # then an agent of the same class and configs around the new network.
+    # Each phase's launches are read around its epochs (the init's reset
+    # launches K2 once more), its gates after them
+    from pulse_tpu_torch.learning import vq_quantizer as vq
+    from pulse_tpu_torch.learning.networks import CNNActorCritic, RNNActorCritic, SeptActorCritic, ZEmbedding
+    from pulse_tpu_torch.learning.ppo import gaussian_neglogp
+    from pulse_tpu_torch.utils.config import load_config
+
+    def built(args: list, learning: str) -> tuple:
+        """(env, the agent run.main builds) of a config at N_ENVS."""
+        cfg_ = load_config([*args, f"learning={learning}", f"num_envs={N_ENVS}", "device=cuda"])
+        spec_, model_ = run.build_model_from_cfg(cfg_, dev)
+        env_ = run.build_env_from_cfg(cfg_, model_, run.build_motion_from_cfg(cfg_, spec_, dev), dev)
+        return env_, run.build_agent_from_cfg(cfg_, env_)
+
+    def with_network(agent_, net_):
+        """An agent of agent_'s class and configs around net_."""
+        if isinstance(agent_, AMPAgent):
+            return AMPAgent(agent_.env, agent_.ppo.config, agent_.amp.config, net_, seed=1)
+        return PPOAgent(agent_.env, agent_.config, net_, seed=1)
+
+    def lib_train(label: str, agent_, epochs: int, want_epoch: dict, device_trace: bool = False) -> tuple:
+        """agent_.init() and `epochs` train_epochs: (train state, the
+        phase's launches, its info). Gates the launches of every epoch,
+        finite PPO losses and changed parameters; a recurrent agent's every
+        epoch starts from the carry the last one left. With `device_trace`,
+        after the gates, the device-busy ms and kernels of one more rollout
+        and of one update on it (the profiler)."""
+        pag = getattr(agent_, "ppo", agent_)
+        fresh_ = {k: v.clone() for k, v in pag.network.state_dict().items()}
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0_ = time.perf_counter()
+        ts_ = agent_.init()
+        per_, ms_, carried = [], [], []
+        for _ in range(epochs):
+            pts = getattr(ts_, "ppo", ts_)
+            carry_in = tuple(h.clone() for h in pts.hidden) if pag.recurrent else None
+            before = dict(_build.launches)
+            ts_, m_ = agent_.train_epoch(ts_)
+            per_.append({k: n - before[k] for k, n in _build.launches.items()})
+            ms_.append({k: float(v) for k, v in m_.items()})
+            if pag.recurrent:
+                carried.append(all(torch.equal(a[0], b) for a, b in zip(pag._buffers.hiddens, carry_in)))
+        torch.cuda.synchronize()
+        launches_ = dict(_build.launches)
+        pts = getattr(ts_, "ppo", ts_)
+        changed_ = sum(not torch.equal(v, fresh_[k]) for k, v in pts.network.state_dict().items())
+        timed_ = ms_[1:] or ms_
+        epoch_s = [sum(v for k, v in m.items() if k.endswith("_s")) for m in timed_]
+        info_ = {"phase": label, "card": card, "envs": N_ENVS, "epochs": epochs, "network": type(pag.network).__name__,
+                 "parameters": sum(p_.numel() for p_ in pag.network.parameters()),
+                 "seconds_all": time.perf_counter() - t0_, "launches": launches_, "launches_per_epoch": per_,
+                 "losses": [{k: m[k] for k in ("a_loss", "c_loss", "b_loss")} for m in ms_],
+                 "reward_mean": [m["reward_mean"] for m in ms_], "params_changed": changed_,
+                 "rollout_ms": [1e3 * m["rollout_s"] for m in timed_],
+                 "update_ms": [1e3 * m["update_s"] for m in timed_],
+                 "train_env_steps_per_s": [per_epoch / s_ for s_ in epoch_s],
+                 "obs_finite": bool(torch.isfinite(pts.env_state.obs).all())}
+        info_.update({k: [m[k] for m in ms_] for k in ("disc_loss", "disc_grad_pen") if k in ms_[0]})
+        if pag.recurrent:
+            info_["epoch_started_from_last_carry"] = carried
+        losses_ = [v for m in info_["losses"] for v in m.values()] + info_.get("disc_loss", [])
+        if not all(math.isfinite(v) for v in losses_ + info_["reward_mean"]) or not info_["obs_finite"]:
+            fail(f"{label}: non-finite loss, reward or obs: {info_}")
+        if any(pe != want_epoch for pe in per_):
+            fail(f"{label}: launches per epoch {per_}, expected {want_epoch}")
+        if not changed_:
+            fail(f"{label}: no parameter changed")
+        if pag.recurrent and not all(carried):
+            fail(f"{label}: an epoch did not start from the last one's carry: {carried}")
+        if device_trace:
+            roll_busy, roll_kernels = device_busy(lambda: pag.rollout(pts))
+            with torch.no_grad():
+                last_v = pag._value(pts, pts.env_state.obs, pts.env_state.done)
+            adv_, ret_ = compute_gae(pag.config, pag._buffers, last_v)
+            upd_busy, upd_kernels = device_busy(lambda: pag.update(pts, pag._buffers, adv_, ret_))
+            info_.update(rollout_device_busy_ms=roll_busy, rollout_device_kernels=roll_kernels,
+                         rollout_device_idle_share=1.0 - roll_busy / median(info_["rollout_ms"]),
+                         update_device_busy_ms=upd_busy, update_device_kernels=upd_kernels,
+                         update_device_idle_share=1.0 - upd_busy / median(info_["update_ms"]))
+        return ts_, launches_, info_
+
+    def bptt_replay(pag, ts_, roll) -> dict:
+        """Every stored sequence of a recurrent rollout replayed through the
+        cell at the rollout's parameters, in update_rnn's layout and
+        minibatches (L steps from the carry stored at the sequence's first
+        step, reset by the stored entry done flags): its neg-log-probs and
+        values against the rollout's."""
+        T_, B_ = roll.rewards.shape
+        L_ = pag.config.seq_len
+        n_seq = (T_ // L_) * B_
+
+        def to_seq(x):
+            return x.reshape(T_ // L_, L_, B_, *x.shape[2:]).transpose(1, 2).reshape(n_seq, L_, *x.shape[2:])
+
+        obs_n, dones, acts = to_seq(ts_.obs_rms.normalize(roll.obs)), to_seq(roll.prev_dones), to_seq(roll.actions)
+        hid = tuple(h.reshape(T_ // L_, L_, B_, -1)[:, 0].reshape(n_seq, -1) for h in roll.hiddens)
+        mb_ = max(min(pag.config.minibatch_size // L_, n_seq), 1)
+        nl, val = torch.empty(n_seq, L_, device=dev), torch.empty(n_seq, L_, device=dev)
+        with torch.no_grad():
+            for i in range(0, n_seq, mb_):
+                carry = tuple(h[i:i + mb_] for h in hid)
+                for s_ in range(L_):
+                    carry, (mu_, ls_, v_) = ts_.network(carry, obs_n[i:i + mb_, s_], dones[i:i + mb_, s_])
+                    nl[i:i + mb_, s_] = gaussian_neglogp(mu_, ls_, acts[i:i + mb_, s_])
+                    val[i:i + mb_, s_] = ts_.value_rms.denormalize(v_[:, None])[:, 0]
+        dn, dv = (nl - to_seq(roll.neglogp)).abs(), (val - to_seq(roll.values)).abs()
+        return {"sequences": n_seq, "seq_len": L_, "minibatch_sequences": mb_,
+                "resets_inside_sequences": int(dones[:, 1:].sum()),
+                "neglogp_max_abs_err": float(dn.max()), "neglogp_median_abs_err": float(dn.median()),
+                "neglogp_scale": float(to_seq(roll.neglogp).abs().max()),
+                "value_max_abs_err": float(dv.max()), "value_median_abs_err": float(dv.median()),
+                "value_scale": float(to_seq(roll.values).abs().max()),
+                "ratio_max_abs_dev": float((torch.exp(to_seq(roll.neglogp) - nl) - 1.0).abs().max())}
+
+    def replayed_first(pag, out: dict):
+        """Wrap pag.update_rnn so that its first call first runs bptt_replay
+        on the rollout it is handed, before any optimizer step."""
+        real = pag.update_rnn
+
+        def update_rnn(ts_, roll, adv, ret):
+            if not out:
+                out.update(bptt_replay(pag, ts_, roll))
+            return real(ts_, roll, adv, ret)
+
+        pag.update_rnn = update_rnn
+
+    want_k12 = {"step_reward_amp": HORIZON, "observe": HORIZON, "physics_step": 0, "physics_step_rows": 0,
+                "reward_amp": 0}
+    lib_launches = {}
+
+    # train_rnn: RNNActorCritic (trunk 1024-512, LSTM 256) under im_ppo's PPO
+    # (horizon 32, minibatch 16384 = 4096 sequences of 4, 6 mini-epochs) on
+    # env=im, K1 -> K2; the replay gate in bf16: the trunk's bf16 GEMMs at
+    # 4096 rows may round apart from the rollout's at 3072 (RNN_REPLAY_TOL;
+    # on an H100 they have given the same bits)
+    rnn_env, im_agent = built(["env=im"], "im_ppo")
+    rnn_net = RNNActorCritic(rnn_env.obs_dim, rnn_env.action_dim, device=dev, seed=0)
+    rnn_agent = with_network(im_agent, rnn_net)
+    replay = {}
+    replayed_first(rnn_agent, replay)
+    rts, lib_launches["train_rnn"], info = lib_train("train_rnn", rnn_agent, TRAIN_EPOCHS, want_k12,
+                                                     device_trace=True)
+    with torch.no_grad():
+        st_ = rts.env_state
+        obs_n = rts.obs_rms.normalize(st_.obs)
+        done_ = torch.zeros(N_ENVS, dtype=torch.bool, device=dev)
+        done_[::3] = True
+        (c_d, h_d), (mu_d, _, v_d) = rnn_net(rts.hidden, obs_n, done_)
+        (c_0, h_0), (mu_0, _, v_0) = rnn_net(rnn_net.initial_carry(N_ENVS), obs_n)
+    pairs_ = ((c_d, c_0), (h_d, h_0), (mu_d, mu_0), (v_d, v_0))
+    reset = {"done_envs": int(done_.sum()),
+             "equal_to_zero_carry": all(torch.equal(a[done_], b[done_]) for a, b in pairs_),
+             "others_differ": all(not torch.equal(a[~done_], b[~done_]) for a, b in pairs_[2:])}
+    info.update(rnn_size=rnn_net.rnn_size, seq_len=rnn_agent.config.seq_len, bptt_replay=replay,
+                replay_tol=RNN_REPLAY_TOL, done_reset=reset, train_im_train_env_steps_per_s=im_steps_per_s,
+                train_im_rollout_ms=im_rollout_ms, train_im_update_ms=im_update_ms)
+    emit(info)
+    if not (replay and replay["neglogp_max_abs_err"] <= RNN_REPLAY_TOL["neglogp"]
+            and replay["value_max_abs_err"] <= RNN_REPLAY_TOL["value"] * (1.0 + replay["value_scale"])):
+        fail(f"train_rnn: the BPTT replay missed the rollout: {replay} (tolerance {RNN_REPLAY_TOL})")
+    if replay["resets_inside_sequences"] == 0:
+        fail("train_rnn: no reset inside a replayed sequence: the stored resets were not exercised")
+    if not (reset["equal_to_zero_carry"] and reset["others_differ"]):
+        fail(f"train_rnn: a done env's output is not a zero carry's, or the others' are: {reset}")
+    del rnn_env, im_agent, rnn_agent, rts, st_
+
+    # train_amp_rnn: the same network in the AMPAgent of env=im learning=im_amp
+    ar_env, ar_base = built(["env=im"], "im_amp")
+    ar_agent = with_network(ar_base, RNNActorCritic(ar_env.obs_dim, ar_env.action_dim, device=dev, seed=0))
+    ar_ts, lib_launches["train_amp_rnn"], info = lib_train("train_amp_rnn", ar_agent, TRAIN_EPOCHS, want_k12)
+    acfg = ar_agent.amp.config
+    n_ = acfg.amp_batch_size
+    a_ = ar_ts.amp
+    info.update(replay_size=a_.replay_buffer.size, demo_size=a_.demo_buffer.size, amp_rms_count=float(a_.amp_rms.count),
+                amp_batch_size=n_, last_window_is_env_amp_hist=bool(torch.equal(
+                    ar_agent.ppo.amp_obs[-1], ar_ts.ppo.env_state.amp_hist.flatten(1))))
+    emit(info)
+    want_demo, want_count = acfg.amp_buffer_size // 4 + n_ * TRAIN_EPOCHS, TRAIN_EPOCHS * (per_epoch + n_)
+    if ((info["replay_size"], info["demo_size"]) != (n_ * TRAIN_EPOCHS, want_demo)
+            or abs(info["amp_rms_count"] - want_count) > 1.0 or not info["last_window_is_env_amp_hist"]
+            or len(info.get("disc_loss", [])) != TRAIN_EPOCHS):
+        fail(f"train_amp_rnn: AMP rows or discriminator steps: {info}")
+    del ar_env, ar_base, ar_agent, ar_ts, a_
+
+    # train_sept: SeptActorCritic (self / task / actor 1024-512, critic
+    # 2048-1024, float32) under im_ppo's PPO on env=im, K1 -> K2
+    se_env, se_base = built(["env=im"], "im_ppo")
+    se_agent = with_network(se_base, SeptActorCritic(se_env.obs_dim, se_env.action_dim, se_env.self_obs_dim,
+                                                     device=dev, seed=0))
+    _, lib_launches["train_sept"], info = lib_train("train_sept", se_agent, TRAIN_EPOCHS, want_k12)
+    info["self_obs_dim"] = se_env.self_obs_dim
+    emit(info)
+    if se_env.self_obs_dim != 358 or not all(math.isfinite(v) for v in info["reward_mean"]):
+        fail(f"train_sept: self obs {se_env.self_obs_dim} wide, rewards {info['reward_mean']}")
+    del se_env, se_base, se_agent
+
+    # z_embedding: each z type at PULSE's latent (32) on 16384 rows of a
+    # 1024-wide feature with a codebook of Z_CODES entries, on the card
+    # against the same module on the CPU; then quantize and ema_update
+    zf = torch.randn(Z_ROWS, Z_FEAT, generator=torch.Generator().manual_seed(5))
+    zf_dev = zf.to(dev)
+    cb_cpu = vq.create_codebook(Z_CODES, Z_LATENT, torch.Generator().manual_seed(6), device="cpu")
+    cb_dev = vq.CodebookState(**{k: v.to(dev) for k, v in vars(cb_cpu).items()})
+
+    def tied(x: torch.Tensor, cb: torch.Tensor, i_a: torch.Tensor, i_b: torch.Tensor) -> torch.Tensor:
+        """Rows whose two indexes lie within Z_TIE of each other's squared
+        distance (float64, relative to |x|^2 + |c|^2)."""
+        x64, c64 = x.double(), cb.double()
+        d_a, d_b = ((x64 - c64[i_a]) ** 2).sum(-1), ((x64 - c64[i_b]) ** 2).sum(-1)
+        return (d_a - d_b).abs() <= Z_TIE * ((x64 ** 2).sum(-1) + (c64 ** 2).sum(-1).max())
+
+    z_info = {"phase": "z_embedding", "card": card, "rows": Z_ROWS, "feature": Z_FEAT, "latent": Z_LATENT,
+              "codes": Z_CODES, "tol": Z_TOL, "tie_tol": Z_TIE, "types": {}}
+    for z_type in ZEmbedding.Z_TYPES:
+        zn_cpu = ZEmbedding(Z_FEAT, Z_LATENT, z_type, device="cpu", seed=7)
+        zn_dev = ZEmbedding(Z_FEAT, Z_LATENT, z_type, device=dev, seed=7)
+        zn_dev.load_state_dict(zn_cpu.state_dict())
+        with torch.no_grad():
+            z_c, ex_c = zn_cpu(zf, cb_cpu)
+            z_d, ex_d = zn_dev(zf_dev, cb_dev)
+        z_d, ex_d = z_d.cpu(), {k: v.cpu() for k, v in ex_d.items()}
+        row_err = (z_d - z_c).abs().amax(dim=-1)
+        zi = {"z_max_abs_err": float(row_err.max()), "z_scale": float(z_c.abs().max()),
+              "ms": cuda_ms(lambda: zn_dev(zf_dev, cb_dev), 5)}
+        ok = True
+        if z_type != "sphere":
+            same = ex_d["indexes"] == ex_c["indexes"]
+            q_in = ex_c["z_before_quant"]
+            if z_type == "vq_vae_res":
+                q_in = vq.project_to_norm(q_in, zn_cpu.embedding_norm, "sphere")
+            ties = tied(q_in[~same], cb_cpu.codebook, ex_d["indexes"][~same], ex_c["indexes"][~same])
+            zi.update(index_mismatches=int((~same).sum()), mismatches_within_tie=int(ties.sum()),
+                      z_max_abs_err_equal_index_rows=float(row_err[same].max()),
+                      **{f"{k}_err": abs(float(ex_d[k]) - float(ex_c[k])) for k in ("commit_loss", "codebook_loss")},
+                      pre_quant_max_abs_err=float((ex_d["z_before_quant"] - ex_c["z_before_quant"]).abs().max()))
+            ok = bool(ties.all()) and zi["z_max_abs_err_equal_index_rows"] <= Z_TOL * (1.0 + zi["z_scale"]) and all(
+                zi[f"{k}_err"] <= Z_TOL * (1.0 + abs(float(ex_c[k]))) for k in ("commit_loss", "codebook_loss"))
+        else:
+            ok = zi["z_max_abs_err"] <= Z_TOL * (1.0 + zi["z_scale"])
+        z_info["types"][z_type] = zi
+        if not ok:
+            fail(f"z_embedding {z_type}: card against CPU {zi}")
+    zq_in = 0.1 * zf[:, :Z_LATENT]
+    with torch.no_grad():
+        _, idx_c, _ = vq.quantize(cb_cpu, zq_in)
+        ema_c = vq.ema_update(cb_cpu, zq_in, idx_c)
+        ema_d = vq.ema_update(cb_dev, zq_in.to(dev), idx_c.to(dev))
+    z_info["ema_update"] = {k: float((getattr(ema_d, k).cpu() - getattr(ema_c, k)).abs().max())
+                            for k in ("codebook", "ema_counts", "ema_means")}
+    z_info["ema_codes_used"] = int((torch.bincount(idx_c, minlength=Z_CODES) > 0).sum())
+    emit(z_info)
+    ema_err = z_info["ema_update"]
+    if ema_err["ema_counts"] > Z_TOL or any(ema_err[k] > Z_TOL * (1.0 + float(getattr(ema_c, k).abs().max()))
+                                            for k in ("codebook", "ema_means")):
+        fail(f"z_embedding: ema_update card against CPU {z_info['ema_update']}")
 
     want_a = {"step_reward_amp": 0, "observe": 0, "physics_step": HORIZON, "physics_step_rows": 0,
               "reward_amp": HORIZON}
@@ -2144,8 +2443,8 @@ def main() -> int:
     # the distill phase's checkpoint. Each step: the frozen prior and decoder
     # (float32, autocast off), K3, then the task's reward, self obs, AMP row,
     # fall check and resets in plain PyTorch. Then test=true on each run's
-    # checkpoint (task_eval at N_ENVS envs over one 300-step episode: 300 K3
-    # launches), and 8 acting steps each of env=im_z (K1 -> K2) and
+    # checkpoint (task_eval at N_ENVS envs over one episode of Z_EVAL_STEPS:
+    # that many K3 launches), and 8 acting steps each of env=im_z (K1 -> K2) and
     # env=traj_z (K3)
     from pulse_tpu_torch.env.humanoid_z import ZActionWrapper
     from pulse_tpu_torch.utils.config import load_config
@@ -2177,10 +2476,11 @@ def main() -> int:
         _build.reset_launch_counts()
         t0_ = time.perf_counter()
         ev = run.main([*z_args, "learning=pulse_z_task", f"num_envs={N_ENVS}", "test=true", "epoch=-1",
-                       "device=cuda", f"output_dir={out_root}", f"exp_name={exp}"])
+                       f"env.episode_length={Z_EVAL_STEPS}", "device=cuda", f"output_dir={out_root}",
+                       f"exp_name={exp}"])
         torch.cuda.synchronize()
         ev_s, ev_launches = time.perf_counter() - t0_, dict(_build.launches)
-        ev_steps = int(zenv.config.episode_length)
+        ev_steps = Z_EVAL_STEPS
         info_.update(per_step(info_), device_kernels_per_step=info_["rollout_device_kernels"] / HORIZON,
                      env=type(zenv.env).__name__, action_dim=zenv.action_dim,
                      policy_units=[m_.out_features for m_ in zts.network.actor if isinstance(m_, torch.nn.Linear)],
@@ -3090,7 +3390,7 @@ def main() -> int:
             fail(f"{label}: {out_}")
         return out_
 
-    # strike: 2 epochs of env=strike learning=pulse_z_task, then strike_z
+    # strike: 1 epoch of env=strike learning=pulse_z_task, then strike_z
     box_moved, box_at_clamp, box_max_w = [], [], []
 
     def strike_hook(agent, out):
@@ -3104,7 +3404,7 @@ def main() -> int:
                                  | (prop_.lin_vel.abs().amax(dim=-1) >= 0.999 * pc_.max_linear_velocity)).sum()))
         box_max_w.append(float(prop_.ang_vel.norm(dim=-1).max()))
 
-    res, strike_launches, info, _ = train_amp("train_strike", ["env=strike"], zero_launches, TRAIN_EPOCHS,
+    res, strike_launches, info, _ = train_amp("train_strike", ["env=strike"], zero_launches, PLAIN_EPOCHS,
                                               on_epoch=strike_hook, learning="pulse_z_task", trace_rollout=False)
     senv_, sts = res.agent.env, res.train_state.ppo
     s_cmp = card_vs_cpu(senv_, HumanoidStrikeEnv(cpu_spec_model, cpu_store(senv_), senv_.config, device="cpu"), sts.env_state)
@@ -3120,9 +3420,9 @@ def main() -> int:
         fail(f"train_strike: boxes moved {box_moved}, card vs CPU {s_cmp}")
     del res, senv_, sts
 
-    # pedestrian terrain: 2 epochs on the default 8 x 8 tiles of 8 m
+    # pedestrian terrain: 1 epoch on the default 8 x 8 tiles of 8 m
     res, terrain_launches, info, _ = train_amp("train_terrain", ["env=pedestrian_terrain"], zero_launches,
-                                               TRAIN_EPOCHS, learning="pulse_z_task", trace_rollout=False)
+                                               PLAIN_EPOCHS, learning="pulse_z_task", trace_rollout=False)
     tenv_, tts = res.agent.env, res.train_state.ppo
     with torch.no_grad():
         spawned = walkable_and_grounded(tenv_, tenv_.reset(N_ENVS))
@@ -3142,6 +3442,32 @@ def main() -> int:
             or abs(spawned["foot_height_median_m"]) > FOOT_TOL or t_cmp["outlier_envs"] > OUTLIER_FRAC * n_cmp):
         fail(f"train_terrain: spawns {spawned}, card vs CPU {t_cmp}")
     del res, tenv_, tts
+
+    # train_terrain_cnn: CNNActorCritic (conv 16-32, k 3, stride 2 on the
+    # obs' 16 x 16 height map, then 1024-512 towers) in train_terrain's
+    # AMPAgent on env=pedestrian_terrain, 1 epoch on the plain route; then
+    # the conv features of the final obs against those of its height map
+    # shifted by 0.5 m
+    cnn_env, cnn_base = built(["env=pedestrian_terrain"], "pulse_z_task")
+    cnn_net = CNNActorCritic(cnn_env.obs_dim, cnn_env.action_dim, grid_shape=(16, 16), device=dev, seed=0)
+    cnn_agent = with_network(cnn_base, cnn_net)
+    cnn_ts, lib_launches["train_terrain_cnn"], info = lib_train("train_terrain_cnn", cnn_agent, 1, zero_launches)
+    with torch.no_grad():
+        o_ = cnn_ts.ppo.obs_rms.normalize(cnn_ts.ppo.env_state.obs)
+        o_shift = o_.clone()
+        o_shift[:, -cnn_env.height_map_dim:] += 0.5
+        f0, f1 = cnn_net.features(o_), cnn_net.features(o_shift)
+    n_flat = cnn_env.obs_dim - cnn_env.height_map_dim
+    info.update(physics_route=cnn_env.physics_route, obs_dim=cnn_env.obs_dim, height_map_dim=cnn_env.height_map_dim,
+                conv_features=f0.shape[1] - n_flat,
+                flat_features_unchanged=bool(torch.equal(f0[:, :n_flat], f1[:, :n_flat])),
+                conv_features_changed_frac=float(((f0[:, n_flat:] - f1[:, n_flat:]).abs().amax(dim=1) > 0)
+                                                 .float().mean()))
+    emit(info)
+    if (cnn_env.physics_route != "plain" or cnn_env.height_map_dim != 256 or not info["flat_features_unchanged"]
+            or info["conv_features_changed_frac"] != 1.0 or lib_launches["train_terrain_cnn"] != zero_launches):
+        fail(f"train_terrain_cnn: {info}")
+    del cnn_env, cnn_base, cnn_agent, cnn_ts
     shutil.rmtree(out_root, ignore_errors=True)
     shutil.rmtree(pth_dir, ignore_errors=True)
 
@@ -3669,6 +3995,11 @@ def main() -> int:
                 **{f"getup_shape_{t}": n[kernel] for t, n in gst_launches.items()},
                 **{ph: n[kernel] for ph, n in cur_phase_launches.items()}}
 
+    def lib_phases(kernel) -> dict:
+        """The learning-layer phases' launches of a kernel (train_rnn,
+        train_amp_rnn, train_sept on K1 -> K2; train_terrain_cnn none)."""
+        return {ph: n[kernel] for ph, n in lib_launches.items()}
+
     def no_launch_phases(kernel) -> dict:
         """The plain-route phases' and motion_file_train's launches of a kernel
         that neither runs (each gated to 0)."""
@@ -3680,7 +4011,8 @@ def main() -> int:
          "launches": sum(n["step_reward_amp"] for n in (im_launches, amp_im_launches, mcp_launches, im_z_launches,
                                                          pulse_launches, pth_mcp_launches, mf_launches))
          + sum(entry_phases("step_reward_amp").values())
-         + sum(getup_shape_curriculum_phases("step_reward_amp").values()),
+         + sum(getup_shape_curriculum_phases("step_reward_amp").values())
+         + sum(lib_phases("step_reward_amp").values()),
          "launches_by_phase": {"train_im": im_launches["step_reward_amp"],
                                "motion_file_train": mf_launches["step_reward_amp"],
                                "train_amp_im": amp_im_launches["step_reward_amp"],
@@ -3688,7 +4020,8 @@ def main() -> int:
                                "z_im_traj": im_z_launches["step_reward_amp"],
                                "pulse_stages": pulse_launches["step_reward_amp"],
                                "import_pth_mcp": pth_mcp_launches["step_reward_amp"], **entry_phases("step_reward_amp"),
-                               **plain_phases("step_reward_amp"), **getup_shape_curriculum_phases("step_reward_amp")},
+                               **plain_phases("step_reward_amp"), **getup_shape_curriculum_phases("step_reward_amp"),
+                               **lib_phases("step_reward_amp")},
          "max_abs_err": max_err["step_reward_amp"], "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": None},
         {"name": "observe", "route": "cuda", "source": src + "observe.cuh",
@@ -3696,7 +4029,8 @@ def main() -> int:
          "launches": sum(n["observe"] for n in (im_launches, amp_im_launches, mcp_launches, mcp_getup_launches,
                                                  dr_launches, im_z_launches, pulse_launches, pth_mcp_launches,
                                                  pth_distill_launches, mf_launches))
-         + sum(entry_phases("observe").values()) + sum(getup_shape_curriculum_phases("observe").values()),
+         + sum(entry_phases("observe").values()) + sum(getup_shape_curriculum_phases("observe").values())
+         + sum(lib_phases("observe").values()),
          "launches_by_phase": {"train_im": im_launches["observe"], "train_amp_im": amp_im_launches["observe"],
                                "motion_file_train": mf_launches["observe"],
                                "train_mcp": mcp_launches["observe"], "train_mcp_getup": mcp_getup_launches["observe"],
@@ -3704,7 +4038,8 @@ def main() -> int:
                                "pulse_stages": pulse_launches["observe"],
                                "import_pth_mcp": pth_mcp_launches["observe"],
                                "import_pth_distill": pth_distill_launches["observe"], **entry_phases("observe"),
-                               **plain_phases("observe"), **getup_shape_curriculum_phases("observe")},
+                               **plain_phases("observe"), **getup_shape_curriculum_phases("observe"),
+                               **lib_phases("observe")},
          "max_abs_err": max_err["observe"], "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": None},
         {"name": "physics_step", "route": "cuda", "source": src + "physics_step.cu",
@@ -3714,7 +4049,8 @@ def main() -> int:
                                                      speedz_eval_launches, reachz_launches, reachz_eval_launches,
                                                      traj_z_launches, pulse_launches, pth_distill_launches,
                                                      pth_z_launches))
-         + sum(getup_shape_curriculum_phases("physics_step").values()),
+         + sum(getup_shape_curriculum_phases("physics_step").values())
+         + sum(lib_phases("physics_step").values()),
          "launches_by_phase": {"train_getup": getup_launches["physics_step"],
                                "train_vr": vr_launches["physics_step"], "train_amp": amp_launches["physics_step"],
                                "train_amp_getup": amp_getup_launches["physics_step"],
@@ -3727,29 +4063,35 @@ def main() -> int:
                                "pulse_stages": pulse_launches["physics_step"],
                                "import_pth_distill": pth_distill_launches["physics_step"],
                                "import_pth_speed_z": pth_z_launches["physics_step"], **no_launch_phases("physics_step"),
-                               **entry_phases("physics_step"), **getup_shape_curriculum_phases("physics_step")},
+                               **entry_phases("physics_step"), **getup_shape_curriculum_phases("physics_step"),
+                               **lib_phases("physics_step")},
          "max_abs_err": max_err["physics_step"], "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
          "bound_by": k3_by, "library_ms": None},
         {"name": "physics_step_rows", "route": "cuda", "source": src + "physics_step.cu",
          "replaces": "pulse_tpu/physics/substep_pallas.py:744",
          "launches": shape_launches["physics_step_rows"] + dr_launches["physics_step_rows"]
-         + sum(getup_shape_curriculum_phases("physics_step_rows").values()),
+         + sum(getup_shape_curriculum_phases("physics_step_rows").values())
+         + sum(lib_phases("physics_step_rows").values()),
          "launches_by_phase": {"train_shape": shape_launches["physics_step_rows"],
                                "train_dr": dr_launches["physics_step_rows"], **no_launch_phases("physics_step_rows"),
-                               **entry_phases("physics_step_rows"), **getup_shape_curriculum_phases("physics_step_rows")},
+                               **entry_phases("physics_step_rows"),
+                               **getup_shape_curriculum_phases("physics_step_rows"),
+                               **lib_phases("physics_step_rows")},
          "max_abs_err": max_err["physics_step_rows"], "ms": k3r_ms, "plain_ms": k3r_plain_ms, "bound_ms": k3r_bound,
          "bound_by": k3r_by, "library_ms": None},
         {"name": "reward_amp", "route": "cuda", "source": src + "reward_amp.cu",
          "replaces": "pulse_tpu/env/pallas_obs.py:309",
          "launches": sum(n["reward_amp"] for n in (getup_launches, amp_launches, amp_getup_launches,
                                                    mcp_getup_launches, dr_launches, pth_distill_launches))
-         + sum(getup_shape_curriculum_phases("reward_amp").values()),
+         + sum(getup_shape_curriculum_phases("reward_amp").values())
+         + sum(lib_phases("reward_amp").values()),
          "launches_by_phase": {"train_getup": getup_launches["reward_amp"], "train_amp": amp_launches["reward_amp"],
                                "train_amp_getup": amp_getup_launches["reward_amp"],
                                "train_mcp_getup": mcp_getup_launches["reward_amp"],
                                "train_dr": dr_launches["reward_amp"],
                                "import_pth_distill": pth_distill_launches["reward_amp"], **no_launch_phases("reward_amp"),
-                               **entry_phases("reward_amp"), **getup_shape_curriculum_phases("reward_amp")},
+                               **entry_phases("reward_amp"), **getup_shape_curriculum_phases("reward_amp"),
+                               **lib_phases("reward_amp")},
          "max_abs_err": max_err["reward_amp"], "ms": ra_ms, "plain_ms": ra_plain_ms, "bound_ms": ra_bound,
          "bound_by": ra_by, "library_ms": None},
     ]})

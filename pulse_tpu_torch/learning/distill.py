@@ -10,9 +10,10 @@ not ported):
     buffers allocated once the raw observation, the teacher's action on it,
     the noise and the env's reward.
   * `update` absorbs the rollout into `obs_rms`, normalizes the observations
-    once with the new stats, and runs `mini_epochs` passes of shuffled
-    minibatches over the (T - 1) B consecutive (t - 1, t) pairs, gathered
-    by index, minimizing
+    once with the new stats (with `normalize_input` off, neither: the
+    rollout and the update read the raw obs), and runs `mini_epochs`
+    passes of shuffled minibatches over the (T - 1) B consecutive
+    (t - 1, t) pairs, gathered by index, minimizing
 
         RMSE(student mu_t, teacher action_t)
           + kld_coef(epoch) KL(posterior_t || learned prior_t)
@@ -55,6 +56,7 @@ class DistillConfig:
     ar1_coefficient: float = 0.005
     ar1_rho: float = 0.95
     prior_reg_coefficient: float = 0.0001
+    normalize_input: bool = True     # off: the student reads and trains on the raw obs
 
 
 @dataclasses.dataclass
@@ -124,7 +126,8 @@ class DistillAgent:
         st = ds.env_state
         for t in range(T):
             z = torch.randn(B, net.latent_dim, generator=self.generator, device=self.device)
-            action = torch.clamp(net.latent_action(ds.obs_rms.normalize(st.obs), z)["action_mu"], -1.0, 1.0)
+            obs_in = ds.obs_rms.normalize(st.obs) if cfg.normalize_input else st.obs
+            action = torch.clamp(net.latent_action(obs_in, z)["action_mu"], -1.0, 1.0)
             roll.obs[t] = st.obs
             roll.gt_action[t] = self.teacher_fn(st.obs)
             roll.z_noise[t] = z
@@ -163,8 +166,8 @@ class DistillAgent:
         cfg = self.config
         T, B = roll.obs.shape[:2]
         flat = roll.obs.reshape(T * B, -1)
-        obs_rms = ds.obs_rms.update(flat)
-        obs_n = obs_rms.normalize(flat)
+        obs_rms = ds.obs_rms.update(flat) if cfg.normalize_input else ds.obs_rms
+        obs_n = obs_rms.normalize(flat) if cfg.normalize_input else flat
         z_noise, gt = roll.z_noise.reshape(T * B, -1), roll.gt_action.reshape(T * B, -1)
         # pair p = (t - 1, t) of env b is rows (p, p + B) of the [T * B] views, p = (t - 1) B + b
         N = (T - 1) * B

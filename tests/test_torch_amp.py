@@ -46,6 +46,7 @@ from pulse_tpu.motion.synthetic import make_synthetic_clips as jax_clips
 from pulse_tpu.physics import PhysicsConfig as JaxPhysicsConfig, build_model as jax_build_model
 
 from jax_reference import module_reference_compiles
+from torch_close import assert_close
 
 from pulse_tpu_torch.assets import load_smpl_humanoid
 from pulse_tpu_torch.env.humanoid_im import EnvConfig, HumanoidImEnv
@@ -53,7 +54,7 @@ from pulse_tpu_torch.env.humanoid_im_getup import GetupConfig
 from pulse_tpu_torch.learning.amp import AMPConfig, AMPModule, RingBuffer, amp_state_from_jax
 from pulse_tpu_torch.learning.amp_agent import AMPAgent, JointAMPDistillAgent
 from pulse_tpu_torch.learning.distill import DistillAgent, DistillConfig
-from pulse_tpu_torch.learning.networks import (ActorCritic, Discriminator, PulseVAE, disc_leaves,
+from pulse_tpu_torch.learning.networks import (ActorCritic, Discriminator, PulseVAE, RNNActorCritic, disc_leaves,
                                                discriminator_from_jax)
 from pulse_tpu_torch.learning.ppo import PPOConfig
 from pulse_tpu_torch.learning.running_norm import RunningMeanStd
@@ -293,7 +294,7 @@ def test_demo_pairs_nest(shaped):
     lengths = env.motion.motion_lengths[ids]
     assert obs0.shape == obs1.shape == (8, 12 * A)
     assert (t0 <= t1).all() and (t1 - t0 <= 0.5 + 1e-6).all() and (t1 <= lengths + 1e-6).all()
-    torch.testing.assert_close(obs0, amp._build_demo_steps(ids, t0, 12), rtol=0, atol=0)
+    assert_close(obs0, amp._build_demo_steps(ids, t0, 12), rtol=0, atol=0)
 
 
 @pytest.fixture(scope="module")
@@ -398,8 +399,12 @@ def test_shape_resample_schedule(env):
 
 
 def test_recurrent_network_raises(env):
-    with pytest.raises(NotImplementedError, match="item 16"):
-        AMPAgent(env, network=types.SimpleNamespace(is_recurrent=True))
+    """A recurrent network trains (tests/test_torch_rnn.py); what still
+    raises is a horizon that its BPTT sequences do not divide."""
+    net = RNNActorCritic(env.obs_dim, env.action_dim, trunk_units=(8,), rnn_size=4, device="cpu")
+    with pytest.raises(ValueError, match="divisible by seq_len"):
+        AMPAgent(env, PPOConfig(horizon_length=6, seq_len=4), network=net)
+    assert AMPAgent(env, PPOConfig(horizon_length=8, seq_len=4), network=net).ppo.recurrent
 
 
 def test_amp_agent_epoch(env):
@@ -419,9 +424,9 @@ def test_amp_agent_epoch(env):
     assert all(not torch.equal(a, b) for a, b in zip(disc0, ts.amp.disc.parameters()))
     assert (ts.amp.demo_buffer.size, ts.amp.replay_buffer.size) == (16 + 8, 8)
     assert float(ts.amp.amp_rms.count) == pytest.approx(count0 + 4 * 4 + 8)
-    torch.testing.assert_close(agent.ppo.amp_obs[-1], ts.ppo.env_state.amp_hist.flatten(1), rtol=0, atol=0)
+    assert_close(agent.ppo.amp_obs[-1], ts.ppo.env_state.amp_hist.flatten(1), rtol=0, atol=0)
     r = agent.last_rewards
-    torch.testing.assert_close(r["mixed"], 0.5 * r["task"] + 0.5 * r["disc"])
+    assert_close(r["mixed"], 0.5 * r["task"] + 0.5 * r["disc"])
     assert ts.ppo.epoch == 1
 
 

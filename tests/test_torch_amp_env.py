@@ -48,6 +48,7 @@ from pulse_tpu.physics import PhysicsConfig as JaxPhysicsConfig, build_model as 
 from pulse_tpu.physics.state import PhysicsState as JaxPhysicsState
 
 from jax_reference import module_reference_compiles, reference_jit
+from torch_close import assert_close
 
 from pulse_tpu_torch import _build
 from pulse_tpu_torch.assets import load_smpl_humanoid
@@ -236,9 +237,9 @@ def test_reset_and_general_path_observe_self_obs_only(setup):
     env = HumanoidAMPEnv(model, motion, EnvConfig(self_obs_v=2), device="cpu")
     st = env.reset(4)
     assert not env._kernel_surface() and env.obs_dim == 5 * 358
-    torch.testing.assert_close(st.obs, st.self_obs_hist.flatten(1), rtol=0, atol=0)
+    assert_close(st.obs, st.self_obs_hist.flatten(1), rtol=0, atol=0)
     nxt = env.step(st, torch.zeros(4, env.action_dim))
-    torch.testing.assert_close(nxt.obs, nxt.self_obs_hist.flatten(1), rtol=0, atol=0)
+    assert_close(nxt.obs, nxt.self_obs_hist.flatten(1), rtol=0, atol=0)
     assert torch.equal(nxt.reward, torch.ones(4))
     row = cuda_obs.amp_row_plain(env.consts, nxt.physics)
-    torch.testing.assert_close(nxt.amp_hist[:, 0][~nxt.done], row[~nxt.done], rtol=0, atol=0)
+    assert_close(nxt.amp_hist[:, 0][~nxt.done], row[~nxt.done], rtol=0, atol=0)

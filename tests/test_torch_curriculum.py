@@ -41,6 +41,7 @@ from pulse_tpu.learning.networks import ActorCritic as JaxActorCritic
 from pulse_tpu.learning.pnn import PNN as JaxPNN
 
 from jax_reference import module_reference_compiles
+from torch_close import assert_close
 
 from pulse_tpu_torch import curriculum
 from pulse_tpu_torch.eval.im_eval import EvalResult
@@ -241,10 +242,10 @@ def test_each_stage_trains_from_its_source_on_its_pmcp_weights(runs):
         by_stage.setdefault(e["stage"], []).append(e)
     assert list(by_stage) == STAGES
     uniform = torch.full((6,), 1 / 6)
-    torch.testing.assert_close(by_stage["col0"][0]["prob"], uniform)
-    torch.testing.assert_close(by_stage["col1"][0]["prob"], torch.tensor([0, 1, 0, 1, 1, 0]) / 3.0)
-    torch.testing.assert_close(by_stage["col2"][0]["prob"], torch.tensor([0, 1, 0, 1, 1, 0]) / 3.0)
-    torch.testing.assert_close(by_stage["spec_getup_supine"][0]["prob"], torch.tensor([0, 0, 0, 1.0, 0, 0]))
+    assert_close(by_stage["col0"][0]["prob"], uniform)
+    assert_close(by_stage["col1"][0]["prob"], torch.tensor([0, 1, 0, 1, 1, 0]) / 3.0)
+    assert_close(by_stage["col2"][0]["prob"], torch.tensor([0, 1, 0, 1, 1, 0]) / 3.0)
+    assert_close(by_stage["spec_getup_supine"][0]["prob"], torch.tensor([0, 0, 0, 1.0, 0, 0]))
     ladder = by_stage["spec_sharp_turns_ladder"]
     assert {e["envs"] for e in ladder} == {5}
     np.testing.assert_allclose(ladder[0]["prob"].numpy(), curriculum.ladder_prob(0, 5), rtol=1e-6)
@@ -252,7 +253,7 @@ def test_each_stage_trains_from_its_source_on_its_pmcp_weights(runs):
     assert by_stage["amp_getup"][0]["env"] == "HumanoidImGetupEnv"
     assert by_stage["composer"][0]["env"] == "HumanoidImMCPGetupEnv"
     for s in ("amp_getup", "composer"):
-        torch.testing.assert_close(by_stage[s][0]["prob"], uniform)
+        assert_close(by_stage[s][0]["prob"], uniform)
     # column k+1 starts from column k's last weights; the specialists and
     # amp_getup from column 0's
     out = runs["out"]

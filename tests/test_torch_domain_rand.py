@@ -51,6 +51,7 @@ from pulse_tpu.physics.shape_variation import vary_model_scales as jax_vary_mode
 from pulse_tpu.physics.state import PhysicsState as JaxPhysicsState
 
 from jax_reference import module_reference_compiles
+from torch_close import assert_close
 
 from pulse_tpu_torch.assets import load_smpl_humanoid
 from pulse_tpu_torch.env import domain_rand as dr
@@ -271,7 +272,7 @@ def test_randomize_physical_props_redraws_without_compounding(models, motions):
     assert env.batched_model is not first and env._prop_rand_base is model
     assert not torch.equal(env._model_rows(6), rows)
     lay = substep_cuda.model_rows_layout(24, int(model.cp_body.shape[0]))[0]["cp_friction"]
-    torch.testing.assert_close(env._model_rows(6)[:, lay[0]:lay[1]], env.batched_model.cp_friction)
+    assert_close(env._model_rows(6)[:, lay[0]:lay[1]], env.batched_model.cp_friction)
     for m in (_friction_mult(env), env.batched_model.body_mass[:, 0] / model.body_mass[0]):
         assert ((m >= 0.7) & (m <= 1.3)).all()
     # a config without prop ranges leaves the model shared
@@ -290,7 +291,7 @@ def test_resample_shapes_relayers_the_props(models, motions):
     assert env._prop_rand_base is not shapes and env._prop_rand_base.batched
     base = env._prop_rand_base
     m = env.batched_model.cp_friction / base.cp_friction
-    torch.testing.assert_close(env.batched_model.local_translation, base.local_translation)
+    assert_close(env.batched_model.local_translation, base.local_translation)
     assert ((m >= 0.7) & (m <= 1.3)).all() and m[:, 0].unique().numel() == 5
 
 

@@ -40,6 +40,7 @@ from pulse_tpu.motion import synthetic as jax_synthetic
 from pulse_tpu.physics import PhysicsConfig as JaxPhysicsConfig, build_model as jax_build_model
 
 from jax_reference import reference_compiles
+from torch_close import assert_close
 
 from pulse_tpu_torch.assets import load_smpl_humanoid
 from pulse_tpu_torch.env.humanoid_im import EnvConfig, HumanoidImEnv
@@ -214,4 +215,4 @@ def test_with_config_rebuilds_the_getup_env(spec):
     env = HumanoidImGetupEnv(model, motion, cfg, device="cpu")
     new = env.with_config(dataclasses.replace(cfg, enable_early_termination=False))
     assert type(new) is HumanoidImGetupEnv and new.fall_states.root_pos.shape == (4, 3)
-    torch.testing.assert_close(new.fall_states.root_pos, env.fall_states.root_pos, rtol=0, atol=0)
+    assert_close(new.fall_states.root_pos, env.fall_states.root_pos, rtol=0, atol=0)

@@ -48,6 +48,7 @@ from pulse_tpu.physics import PhysicsConfig as JaxPhysicsConfig, build_model as 
 from pulse_tpu.physics.state import PhysicsState as JaxPhysicsState
 
 from jax_reference import module_reference_compiles, reference_jit
+from torch_close import assert_close
 
 from pulse_tpu_torch import run
 from pulse_tpu_torch.assets import load_smpl_humanoid
@@ -345,7 +346,7 @@ def test_general_step_equals_the_kernel_path_on_its_surface(motions, models, pat
     for f in ("done", "terminate", "motion_id", "start_time", "progress", "recovery_counter"):
         assert torch.equal(getattr(general, f), getattr(kernel, f)), f
     for f, tol in (("reward", 1e-6), ("reward_raw", 1e-6), ("amp_hist", 1e-5), ("obs", 1e-5)):
-        torch.testing.assert_close(getattr(general, f), getattr(kernel, f), atol=tol, rtol=0, msg=f)
+        assert_close(getattr(general, f), getattr(kernel, f), atol=tol, rtol=0, msg=f)
 
 
 # --------------------------------------------------------------------------- #

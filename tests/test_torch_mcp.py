@@ -48,6 +48,7 @@ from pulse_tpu.physics import PhysicsConfig as JaxPhysicsConfig, build_model as 
 from pulse_tpu.physics.state import PhysicsState as JaxPhysicsState
 
 from jax_reference import module_reference_compiles, reference_jit
+from torch_close import assert_close
 
 from pulse_tpu_torch.assets import load_smpl_humanoid
 from pulse_tpu_torch.env.humanoid_im import EnvConfig, HumanoidImEnv, env_state_from_numpy
@@ -93,7 +94,7 @@ def test_pnn_matches_flax(lateral, column_inputs):
     assert got.shape == (2, 3, N, A)
     np.testing.assert_allclose(got.detach().numpy(), want, atol=1e-5, rtol=0)
     if not lateral:   # the batched GEMMs against the column-by-column loop
-        torch.testing.assert_close(got, port._columns(torch.tensor(x)), atol=1e-6, rtol=0)
+        assert_close(got, port._columns(torch.tensor(x)), atol=1e-6, rtol=0)
 
 
 @pytest.mark.parametrize("final", ["softmax", "relu"])
@@ -230,8 +231,8 @@ def test_mcp_kernel_path_equals_general_step(stepped):
     d, w = stepped[1], torch.tensor(stepped[2])
     a = env.step(env_state_from_numpy(d), w)
     b = env._step_general(env_state_from_numpy(d), w)
-    torch.testing.assert_close(a.obs, b.obs, atol=1e-4, rtol=0)
-    torch.testing.assert_close(a.reward, b.reward, atol=1e-5, rtol=0)
+    assert_close(a.obs, b.obs, atol=1e-4, rtol=0)
+    assert_close(a.reward, b.reward, atol=1e-5, rtol=0)
     assert torch.equal(a.done, b.done)
 
 
@@ -248,4 +249,4 @@ def test_pd_mode_env_step_is_the_explicit_pd_step(stepped, setup):
     got = penv.step(st, actions)
     want = physics_step_pd_explicit(model, st.physics, penv.action_to_pd_target(actions))
     for f in STATE_TOL:
-        torch.testing.assert_close(getattr(got.physics, f), getattr(want, f), atol=0, rtol=0)
+        assert_close(getattr(got.physics, f), getattr(want, f), atol=0, rtol=0)

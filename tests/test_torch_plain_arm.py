@@ -24,6 +24,8 @@ import dataclasses
 import pytest
 import torch
 
+from torch_close import assert_close
+
 from pulse_tpu_torch import _build, run
 from pulse_tpu_torch.assets import load_smpl_humanoid
 from pulse_tpu_torch.env import cuda_obs
@@ -93,9 +95,9 @@ def test_the_plain_arm_calls_no_wrapper(kind, monkeypatch):
         if dataclasses.is_dataclass(a):
             for p in dataclasses.fields(a):
                 t = 80 * tol if p.name == "contact_force" else tol
-                torch.testing.assert_close(getattr(a, p.name), getattr(b, p.name), rtol=0, atol=t, msg=p.name)
+                assert_close(getattr(a, p.name), getattr(b, p.name), rtol=0, atol=t, msg=p.name)
         elif a is not None:
-            torch.testing.assert_close(a, b, rtol=0, atol=tol, msg=f.name)
+            assert_close(a, b, rtol=0, atol=tol, msg=f.name)
     with pytest.raises(AssertionError, match="kernel wrapper"):
         _step(_env(kind, "cpu", kernels=True))
 
@@ -133,5 +135,5 @@ def test_the_plain_arm_matches_the_kernels_on_the_card(card, kind):
         bad |= (getattr(plain.physics, f) - getattr(kern.physics, f)).abs().reshape(B, -1).amax(dim=1) > tol
     assert int(bad.sum()) <= 0.01 * B
     assert torch.equal(plain.done[~bad], kern.done[~bad])
-    torch.testing.assert_close(plain.reward[~bad], kern.reward[~bad], rtol=0, atol=1e-4)
-    torch.testing.assert_close(plain.obs[~bad], kern.obs[~bad], rtol=0, atol=PHYS_TOL["body_vel"])
+    assert_close(plain.reward[~bad], kern.reward[~bad], rtol=0, atol=1e-4)
+    assert_close(plain.obs[~bad], kern.obs[~bad], rtol=0, atol=PHYS_TOL["body_vel"])

@@ -2,7 +2,9 @@
 from a numpy seed: `compute_gae`, `RunningMeanStd.update`, the PPO loss and
 its gradients on a narrow float32 ActorCritic (units (32, 24)), and one
 `update` (one mini-epoch, one minibatch of the whole rollout) started from
-a JAX train state converted by `train_state_from_jax`.
+a JAX train state converted by `train_state_from_jax`, with the global-norm
+clip and the epoch-start obs stats (`truncate_grads`, `temp_running_mean`)
+on and off.
 
 Tolerances (float32, sums in another order): GAE and the running moments
 1e-5 relative; the loss terms 1e-5 and the gradients 1e-5 absolute with
@@ -151,8 +153,18 @@ def test_loss_and_gradients_match_jax(normalize_value):
 
 @pytest.mark.parametrize("grad_norm", [50.0, 0.05])     # the clip idle, and the clip scaling every step
 def test_update_from_converted_state_matches_jax(grad_norm):
+    _update_matches_jax(grad_norm=grad_norm)
+
+
+def test_update_without_clip_or_temp_running_mean_matches_jax():
+    """truncate_grads off (no clip at a grad_norm that would scale every
+    step) and temp_running_mean off (the loss reads the updated obs stats)."""
+    _update_matches_jax(grad_norm=0.05, truncate_grads=False, temp_running_mean=False)
+
+
+def _update_matches_jax(**switches):
     lr = 1e-3
-    cfg = dict(mini_epochs=1, minibatch_size=T * B, learning_rate=lr, grad_norm=grad_norm, entropy_coef=0.0)
+    cfg = dict(mini_epochs=1, minibatch_size=T * B, learning_rate=lr, entropy_coef=0.0, **switches)
     agent, net = _jax_agent(**cfg)
     params = jax.jit(net.init)(jax.random.PRNGKey(1), jnp.zeros((1, O)))["params"]
     rms0 = JaxRMS(mean=jnp.full(O, 0.2), var=jnp.full(O, 1.7), count=jnp.asarray(50.0))

@@ -47,6 +47,7 @@ from pulse_tpu.physics import PhysicsConfig as JaxPhysicsConfig, build_model as 
 from pulse_tpu.physics.state import PhysicsState as JaxPhysicsState
 
 from jax_reference import reference_compiles
+from torch_close import assert_close
 
 from pulse_tpu_torch import _build
 from pulse_tpu_torch.assets import load_smpl_humanoid
@@ -273,7 +274,7 @@ def test_step_outputs_match_jax(stepped, name):
     np.testing.assert_allclose(g.obs.numpy()[done], np.asarray(w.obs)[done], rtol=0, atol=2e-4)
     np.testing.assert_allclose(g.amp_hist.numpy()[~done], np.asarray(w.amp_hist)[~done], rtol=0, atol=1e-4)
     np.testing.assert_allclose(g.amp_hist.numpy()[done], fresh_hist[done], rtol=0, atol=1e-4)
-    torch.testing.assert_close(g.amp_obs, g.amp_hist.flatten(1), rtol=0, atol=0)
+    assert_close(g.amp_obs, g.amp_hist.flatten(1), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("field,atol", [
@@ -321,16 +322,16 @@ def test_reset_amp_hist_and_obs(setup):
     assert st.obs.shape == (6, 361) and st.amp_hist.shape == (6, 10, 232) and st.progress.dtype == torch.int32
     assert st.task["change_step"].dtype == torch.int32
     assert ((st.task["change_step"] >= 100) & (st.task["change_step"] < 200)).all()
-    torch.testing.assert_close(st.obs[:, -1], st.task["tar_speed"], rtol=0, atol=0)
+    assert_close(st.obs[:, -1], st.task["tar_speed"], rtol=0, atol=0)
     again = HumanoidSpeedEnv(model, motion, TaskConfig(), device="cpu", seed=5).reset(6)
-    torch.testing.assert_close(again.obs, st.obs, rtol=0, atol=0)
+    assert_close(again.obs, st.obs, rtol=0, atol=0)
     ids, t0, draws = HumanoidSpeedEnv(model, motion, TaskConfig(), device="cpu", seed=5)._sample_reset(6)
     fresh = env._fresh(ids, t0, draws)
-    torch.testing.assert_close(fresh.amp_hist, st.amp_hist, rtol=0, atol=0)
+    assert_close(fresh.amp_hist, st.amp_hist, rtol=0, atol=0)
     t_first = torch.clamp(t0 - 9 * model.config.control_dt, min=0.0)
     from pulse_tpu_torch.motion.motion_lib import get_motion_state
     row = env.amp_obs_from_motion_state(get_motion_state(motion, ids, t_first))
-    torch.testing.assert_close(st.amp_hist[:, -1], row, rtol=0, atol=0)
+    assert_close(st.amp_hist[:, -1], row, rtol=0, atol=0)
 
 
 def test_power_reward_and_terrain(setup):
@@ -349,8 +350,8 @@ def test_power_reward_and_terrain(setup):
     tenv = HumanoidReachEnv(flat, motion, TaskConfig(), device="cpu", seed=1)
     assert tenv.physics_route == "plain" and flat.has_terrain and not model.has_terrain
     c = tenv.step(tenv.reset(4), act)
-    torch.testing.assert_close(c.reward, a.reward, rtol=0, atol=1e-6)
-    torch.testing.assert_close(c.obs, a.obs, rtol=0, atol=1e-5)
+    assert_close(c.reward, a.reward, rtol=0, atol=1e-6)
+    assert_close(c.obs, a.obs, rtol=0, atol=1e-5)
 
 
 def test_speed_obs_reads_the_heading(setup):
@@ -363,5 +364,5 @@ def test_speed_obs_reads_the_heading(setup):
     rot = torch.stack([torch.zeros(3), torch.zeros(3), torch.sin(yaw / 2), torch.cos(yaw / 2)], dim=-1)
     st = st.replace(physics=st.physics.replace(root_rot=rot))
     obs = env._task_obs(st)
-    torch.testing.assert_close(obs[:, :2], torch.stack([torch.cos(-yaw), torch.sin(-yaw)], dim=-1), rtol=0,
+    assert_close(obs[:, :2], torch.stack([torch.cos(-yaw), torch.sin(-yaw)], dim=-1), rtol=0,
                                atol=1e-6)

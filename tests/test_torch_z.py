@@ -38,6 +38,7 @@ from pulse_tpu.physics import PhysicsConfig as JaxPhysicsConfig, build_model as 
 from pulse_tpu.physics.state import PhysicsState as JaxPhysicsState
 
 from jax_reference import module_reference_compiles, reference_jit
+from torch_close import assert_close
 
 from pulse_tpu_torch.assets import load_smpl_humanoid
 from pulse_tpu_torch.env.humanoid_im import EnvConfig, HumanoidImEnv
@@ -137,7 +138,7 @@ def test_wrapped_step_matches_jax(frozen, setup):
     motor = torch.clamp(w.decode_z(task_env_state_from_numpy(d).obs[:, :358], torch.as_tensor(z)), -1.0, 1.0)
     env.generator.manual_seed(0)
     plain = env.step(task_env_state_from_numpy(d), motor)
-    torch.testing.assert_close(plain.obs, got.obs, rtol=0, atol=0)
+    assert_close(plain.obs, got.obs, rtol=0, atol=0)
 
 
 def test_decode_is_float32_and_frozen(frozen):
@@ -150,9 +151,9 @@ def test_decode_is_float32_and_frozen(frozen):
     with torch.autocast("cpu", dtype=torch.bfloat16):
         auto = w.decode_z(obs, z)
     assert auto.dtype == torch.float32
-    torch.testing.assert_close(auto, plain, rtol=0, atol=0)
+    assert_close(auto, plain, rtol=0, atol=0)
     # the self obs is normalized with the first 358 entries of the distill stats
-    torch.testing.assert_close(w._self_rms.mean, fz.obs_rms.mean[:358], rtol=0, atol=0)
+    assert_close(w._self_rms.mean, fz.obs_rms.mean[:358], rtol=0, atol=0)
 
 
 def test_wrapped_imitation_env_reaches_reset_to_and_rewraps(setup):
