@@ -327,7 +327,26 @@ Phases, each printed as one JSON line:
                floors; the drawing writes PNGs where matplotlib is
                installed, else raises the ImportError that names it; no
                kernel launch
-  perturb      HumanoidImPerturbEnv (proj_interval 8, early termination
+  dp_world1    in process, an NCCL process group of one rank on the card
+               (`pulse_tpu_torch.parallel`): one epoch each of env=im
+               learning=im_amp and env=im_vae learning=im_z_fit at 3072 envs
+               through run's build functions, every update its data-parallel
+               variant (exact launches an epoch: 32 K1 and K2; 32 K3, RA and
+               K2);
+               then, from one state and one more rollout, the DP update
+               against the plain update (DP_WORLD1_TOL)
+  dp_two_ranks `python -m pulse_tpu_torch.parallel.dryrun`'s ranks, two
+               processes of 1536 envs on the one card over gloo (NCCL
+               refuses two ranks on one device; the phase says so on a
+               line): one epoch each of AMP, distillation and the joint
+               agent, one sharded im_eval batch, K3 on each rank's rows
+               against the full batch (bit for bit), and a one-minibatch
+               PPO update against one process's update on the gathered
+               rollout (dryrun.ONE_MB_TOL); every replicated tensor
+               bit-identical across the ranks after each stage, each rank's
+               launches exact; each stage's seconds and the collectives'
+               ms a gradient step
+  perturb     HumanoidImPerturbEnv (proj_interval 8, early termination
                off) for 24 policy-acting steps: every projectile relaunched
                exactly where the pre-step progress is 7 mod 8 (some at 7,
                15 and 23), some envs hit, no kernel launch; ms, device-busy
@@ -446,6 +465,15 @@ PLAIN_EPOCHS = 1                # train_strike's and train_terrain's epochs (the
 Z_EVAL_STEPS = 100              # train_speed_z's and train_reach_z's test=true episode
 # train_rnn's replay of the stored sequences against the rollout: the trunk's
 # bf16 GEMMs may round apart at another row count, the cell and heads are float32
+# dp_world1: from one state and rollout, the DP update (world size 1) against
+# the plain update: every parameter within half a learning rate and the
+# parameter updates within 1% in L2 norm (36 PPO and 10 distillation Adam
+# steps of bf16 networks, whose rounding the E[x²] - m² moments move; the H100
+# read 0 and 0.025 learning rates, PERF.md), the moments within 1e-5 and the
+# metrics within 1e-3 of their scale (dryrun.update_diff)
+DP_WORLD1_TOL = {"params_over_lr": 0.5, "update_rel_l2": 1e-2, "moments": 1e-5, "metrics": 1e-3}
+DP_RANKS = 2                    # dp_two_ranks: gloo ranks on the one card, N_ENVS / DP_RANKS envs each
+DP_RANKS_TIMEOUT_S = 300
 RNN_REPLAY_TOL = {"neglogp": 0.05, "value": 0.01}   # value: x (1 + the values' largest |v|)
 Z_ROWS, Z_FEAT, Z_LATENT, Z_CODES = 16384, 1024, 32, 512   # z_embedding's batch, feature, latent, codebook
 Z_TOL = 1e-5                    # z_embedding, card against CPU in float32: x (1 + the CPU side's largest)
@@ -604,6 +632,160 @@ def as_float64(obj):
     return dataclasses.replace(obj, **{f.name: getattr(obj, f.name).double() for f in dataclasses.fields(obj)
                                        if isinstance(getattr(obj, f.name), torch.Tensor)
                                        and getattr(obj, f.name).is_floating_point()})
+
+
+# --------------------------------------------------------------------------- #
+# the data-parallel phases: main() calls them on the card; on the CPU,
+# dp_world1(torch.device("cpu"), "gloo", 8, "cpu") and dp_two_ranks("cpu", 8,
+# "cpu") rehearse them at the configs' widths (no launches expected there)
+# --------------------------------------------------------------------------- #
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def dp_world1(dev, backend: str, n_envs: int, card: str) -> dict:
+    """One rank's process group on dev (NCCL on the card): one epoch each of
+    env=im learning=im_amp and env=im_vae learning=im_z_fit at n_envs
+    through run's build functions, env.mesh routing every update through its
+    data-parallel variant (the collectives run, over one rank); then, from
+    one state and one more rollout, the DP update against the plain update
+    (DP_WORLD1_TOL). Launches exact on the card, none elsewhere. Emits and
+    returns the phase's record; fail()s on a breach."""
+    import copy
+    import tempfile
+
+    import torch.distributed as tdist
+
+    from pulse_tpu_torch import _build
+    from pulse_tpu_torch.learning.ppo import compute_gae
+    from pulse_tpu_torch.parallel import dryrun as dpr
+    from pulse_tpu_torch.parallel import mesh as pmesh
+
+    no_launch = {k: 0 for k in _build.launches}
+    t_dp = time.perf_counter()
+    dp_tmp = tempfile.mkdtemp(prefix="dp_world1_")
+    pmesh.init_process_group(backend, 0, 1, os.path.join(dp_tmp, "store"), device=dev)
+    try:
+        mesh1 = pmesh.make_mesh(dev)
+        mesh1.timed = True
+
+        def world1_epoch(label, args, kernels):
+            """(env, agent, state, info) after one epoch through the DP
+            path; gates its launches (horizon of each of `kernels` on the
+            card) and finite metrics."""
+            cfg_, env_, agent_ = dpr.build([*args, f"num_envs={n_envs}"], dev)
+            horizon = int(cfg_["learning"]["horizon_length"])
+            want_epoch = dict(no_launch, **{k: horizon for k in kernels}) if dev.type == "cuda" else no_launch
+            pmesh.use_mesh(env_, mesh1)
+            ts_ = pmesh.shard_train_state(mesh1, agent_.init())
+            if hasattr(agent_, "pre_epoch"):
+                ts_ = agent_.pre_epoch(ts_, 0)
+            _sync(dev)
+            before_, c0_ = dict(_build.launches), mesh1.collective_s
+            t0_ = time.perf_counter()
+            ts_, m_ = agent_.train_epoch(ts_)
+            _sync(dev)
+            per_ = {k: n - before_[k] for k, n in _build.launches.items()}
+            info_ = {"epoch_s": time.perf_counter() - t0_, "collective_s": mesh1.collective_s - c0_,
+                     "launches": per_, "metrics": {k: float(v) for k, v in m_.items()}}
+            if per_ != want_epoch:
+                fail(f"dp_world1 {label}: launches {per_}, expected {want_epoch}")
+            if not all(math.isfinite(v) for v in info_["metrics"].values()):
+                fail(f"dp_world1 {label}: non-finite metrics {info_['metrics']}")
+            return env_, agent_, ts_, info_
+
+        def dp_against_plain(env_, agent_, state_, data, rms_of, lr):
+            """The DP update and the plain one from copies of state_ and the
+            same generator state; update_diff of the two."""
+            base_ = copy.deepcopy(dataclasses.replace(state_, env_state=None))
+            start_ = [p_.detach().clone() for p_ in base_.network.parameters()]
+            g_state = agent_.generator.get_state()
+            dp_s, dp_m = agent_.update(copy.deepcopy(base_), *data)
+            env_.mesh = None
+            agent_.generator.set_state(g_state)
+            try:
+                pl_s, pl_m = agent_.update(copy.deepcopy(base_), *data)
+            finally:
+                env_.mesh = mesh1
+            diff_ = dpr.update_diff(dp_s.network, pl_s.network, list(zip(rms_of(dp_s), rms_of(pl_s))), dp_m, pl_m,
+                                    start=start_)
+            diff_["params_over_lr"] = diff_["params"] / lr
+            return diff_
+
+        w1_reset = dict(_build.launches)
+        env_w, amp_w, ts_w, amp_info = world1_epoch("amp", ["env=im", "learning=im_amp"],
+                                                    ("step_reward_amp", "observe"))
+        pag_w = amp_w.ppo
+        pts_w, roll_w, last_w = pag_w.rollout(ts_w.ppo)
+        adv_w, ret_w = compute_gae(pag_w.config, roll_w, last_w)
+        amp_info["dp_vs_plain"] = dp_against_plain(env_w, pag_w, pts_w, (roll_w, adv_w, ret_w),
+                                                   lambda t_: (t_.obs_rms, t_.value_rms),
+                                                   pag_w.config.learning_rate)
+        del env_w, amp_w, ts_w, pts_w, roll_w, pag_w
+        denv_w, dag_w, ds_w, dist_info = world1_epoch("distill", ["env=im_vae", "learning=im_z_fit"],
+                                                      ("physics_step", "reward_amp", "observe"))
+        ds_w, droll_w = dag_w.rollout(ds_w)
+        dist_info["dp_vs_plain"] = dp_against_plain(denv_w, dag_w, ds_w, (droll_w,), lambda t_: (t_.obs_rms,),
+                                                    dag_w.config.kin_lr)
+        del denv_w, dag_w, ds_w, droll_w
+        _sync(dev)
+        w1_launches = {k: n - w1_reset[k] for k, n in _build.launches.items()}
+    finally:
+        tdist.destroy_process_group()
+        shutil.rmtree(dp_tmp, ignore_errors=True)
+    w1_info = {"phase": "dp_world1", "card": card, "envs": n_envs, "backend": backend, "world_size": 1,
+               "amp": amp_info, "distill": dist_info, "launches": w1_launches, "tol": DP_WORLD1_TOL,
+               "seconds": time.perf_counter() - t_dp}
+    emit(w1_info)
+    for label_, info_ in (("amp", amp_info), ("distill", dist_info)):
+        d_ = info_["dp_vs_plain"]
+        bad_ = {k: d_[k] for k in DP_WORLD1_TOL if not d_[k] <= DP_WORLD1_TOL[k]}
+        if bad_:
+            fail(f"dp_world1 {label_}: the DP update against the plain one beyond {DP_WORLD1_TOL}: {bad_}")
+    return w1_info
+
+
+def dp_two_ranks(device: str, n_envs: int, card: str) -> dict:
+    """`python -m pulse_tpu_torch.parallel.dryrun`'s DP_RANKS ranks over gloo,
+    n_envs / DP_RANKS envs each, on `device` ("cuda": the one card, which
+    NCCL refuses to two ranks); its gates (every rank exits 0, the digests
+    agree, launches exact on the card, K3's rows bit-equal, the one-minibatch
+    update within dryrun.ONE_MB_TOL). Emits and returns the phase's record,
+    its launches summed over the ranks; fail()s if a rank failed."""
+    import tempfile
+
+    from pulse_tpu_torch import _build
+    from pulse_tpu_torch.parallel import dryrun as dpr
+
+    print("dp_two_ranks: NCCL refuses two ranks on one device, so the two ranks share the card over gloo",
+          flush=True)
+    t_dp2 = time.perf_counter()
+    dp2_out = tempfile.mkdtemp(prefix="dp_two_ranks_")
+    try:
+        dpr.wait_ranks(dpr.start_ranks(DP_RANKS, "gloo", device, dp2_out, ["--num_envs", str(n_envs)]),
+                       timeout_s=DP_RANKS_TIMEOUT_S)
+        dp2_results = [json.load(open(os.path.join(dp2_out, f"rank{r_}.json"))) for r_ in range(DP_RANKS)]
+        dp2_stages = dpr.check_ranks(dp2_results)
+    except Exception as exc:   # a rank failed, outlasted its time or the ranks disagree
+        fail(f"dp_two_ranks: {exc}")
+    finally:
+        shutil.rmtree(dp2_out, ignore_errors=True)
+    dp2_launches = {k: sum(rec["launches"][k] for recs in dp2_stages.values() for rec in recs)
+                    for k in _build.launches}
+    dp2_info = {"phase": "dp_two_ranks", "card": card, "backend": "gloo", "ranks": DP_RANKS, "envs": n_envs,
+                "envs_per_rank": n_envs // DP_RANKS, "seconds": time.perf_counter() - t_dp2, "launches": dp2_launches,
+                "replicated_state_bit_identical": True, "ppo_one_minibatch_tol": dpr.ONE_MB_TOL,
+                "stages": {st_: [{k: v for k, v in rec.items() if k not in ("digest", "result_digest")}
+                                 for rec in recs] for st_, recs in dp2_stages.items()}}
+    for st_ in ("amp", "distill"):   # each rank's
+        dp2_info[f"{st_}_collective_ms_per_gradient_step"] = [1e3 * rec["collective_s"] / rec["gradient_steps"]
+                                                              for rec in dp2_stages[st_]]
+    emit(dp2_info)
+    return dp2_info
 
 
 def main() -> int:
@@ -3837,6 +4019,11 @@ def main() -> int:
         fail(f"scripts_on_card: kernel launches {soc_launches}")
     del p_card, p_cpu, v_card, j_card
 
+    # ---- dp_world1 and dp_two_ranks: the data-parallel path ----------------- #
+    w1_launches = dp_world1(dev, "nccl", N_ENVS, card)["launches"]
+    torch.cuda.empty_cache()
+    dp2_launches = dp_two_ranks("cuda", N_ENVS, card)["launches"]
+
     # ---- K3's and RA's times on the kernel phase's inputs ---------------------- #
     with torch.no_grad():
         P, n_sub = int(model.cp_body.shape[0]), model.config.steps_per_control
@@ -4005,6 +4192,11 @@ def main() -> int:
         that neither runs (each gated to 0)."""
         return {**plain_phases(kernel), "motion_file_train": mf_launches[kernel]}
 
+    def dp_phases(kernel) -> dict:
+        """The data-parallel phases' launches of a kernel (dp_two_ranks' summed
+        over its ranks)."""
+        return {"dp_world1": w1_launches[kernel], "dp_two_ranks": dp2_launches[kernel]}
+
     emit({"kernels": [
         {"name": "step_reward_amp", "route": "cuda", "source": src + "step_reward_amp.cu",
          "replaces": "pulse_tpu/env/pallas_obs.py:376",
@@ -4012,7 +4204,7 @@ def main() -> int:
                                                          pulse_launches, pth_mcp_launches, mf_launches))
          + sum(entry_phases("step_reward_amp").values())
          + sum(getup_shape_curriculum_phases("step_reward_amp").values())
-         + sum(lib_phases("step_reward_amp").values()),
+         + sum(lib_phases("step_reward_amp").values()) + sum(dp_phases("step_reward_amp").values()),
          "launches_by_phase": {"train_im": im_launches["step_reward_amp"],
                                "motion_file_train": mf_launches["step_reward_amp"],
                                "train_amp_im": amp_im_launches["step_reward_amp"],
@@ -4021,7 +4213,7 @@ def main() -> int:
                                "pulse_stages": pulse_launches["step_reward_amp"],
                                "import_pth_mcp": pth_mcp_launches["step_reward_amp"], **entry_phases("step_reward_amp"),
                                **plain_phases("step_reward_amp"), **getup_shape_curriculum_phases("step_reward_amp"),
-                               **lib_phases("step_reward_amp")},
+                               **lib_phases("step_reward_amp"), **dp_phases("step_reward_amp")},
          "max_abs_err": max_err["step_reward_amp"], "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": None},
         {"name": "observe", "route": "cuda", "source": src + "observe.cuh",
@@ -4030,7 +4222,7 @@ def main() -> int:
                                                  dr_launches, im_z_launches, pulse_launches, pth_mcp_launches,
                                                  pth_distill_launches, mf_launches))
          + sum(entry_phases("observe").values()) + sum(getup_shape_curriculum_phases("observe").values())
-         + sum(lib_phases("observe").values()),
+         + sum(lib_phases("observe").values()) + sum(dp_phases("observe").values()),
          "launches_by_phase": {"train_im": im_launches["observe"], "train_amp_im": amp_im_launches["observe"],
                                "motion_file_train": mf_launches["observe"],
                                "train_mcp": mcp_launches["observe"], "train_mcp_getup": mcp_getup_launches["observe"],
@@ -4039,7 +4231,7 @@ def main() -> int:
                                "import_pth_mcp": pth_mcp_launches["observe"],
                                "import_pth_distill": pth_distill_launches["observe"], **entry_phases("observe"),
                                **plain_phases("observe"), **getup_shape_curriculum_phases("observe"),
-                               **lib_phases("observe")},
+                               **lib_phases("observe"), **dp_phases("observe")},
          "max_abs_err": max_err["observe"], "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": None},
         {"name": "physics_step", "route": "cuda", "source": src + "physics_step.cu",
@@ -4050,7 +4242,7 @@ def main() -> int:
                                                      traj_z_launches, pulse_launches, pth_distill_launches,
                                                      pth_z_launches))
          + sum(getup_shape_curriculum_phases("physics_step").values())
-         + sum(lib_phases("physics_step").values()),
+         + sum(lib_phases("physics_step").values()) + sum(dp_phases("physics_step").values()),
          "launches_by_phase": {"train_getup": getup_launches["physics_step"],
                                "train_vr": vr_launches["physics_step"], "train_amp": amp_launches["physics_step"],
                                "train_amp_getup": amp_getup_launches["physics_step"],
@@ -4064,19 +4256,19 @@ def main() -> int:
                                "import_pth_distill": pth_distill_launches["physics_step"],
                                "import_pth_speed_z": pth_z_launches["physics_step"], **no_launch_phases("physics_step"),
                                **entry_phases("physics_step"), **getup_shape_curriculum_phases("physics_step"),
-                               **lib_phases("physics_step")},
+                               **lib_phases("physics_step"), **dp_phases("physics_step")},
          "max_abs_err": max_err["physics_step"], "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
          "bound_by": k3_by, "library_ms": None},
         {"name": "physics_step_rows", "route": "cuda", "source": src + "physics_step.cu",
          "replaces": "pulse_tpu/physics/substep_pallas.py:744",
          "launches": shape_launches["physics_step_rows"] + dr_launches["physics_step_rows"]
          + sum(getup_shape_curriculum_phases("physics_step_rows").values())
-         + sum(lib_phases("physics_step_rows").values()),
+         + sum(lib_phases("physics_step_rows").values()) + sum(dp_phases("physics_step_rows").values()),
          "launches_by_phase": {"train_shape": shape_launches["physics_step_rows"],
                                "train_dr": dr_launches["physics_step_rows"], **no_launch_phases("physics_step_rows"),
                                **entry_phases("physics_step_rows"),
                                **getup_shape_curriculum_phases("physics_step_rows"),
-                               **lib_phases("physics_step_rows")},
+                               **lib_phases("physics_step_rows"), **dp_phases("physics_step_rows")},
          "max_abs_err": max_err["physics_step_rows"], "ms": k3r_ms, "plain_ms": k3r_plain_ms, "bound_ms": k3r_bound,
          "bound_by": k3r_by, "library_ms": None},
         {"name": "reward_amp", "route": "cuda", "source": src + "reward_amp.cu",
@@ -4084,14 +4276,14 @@ def main() -> int:
          "launches": sum(n["reward_amp"] for n in (getup_launches, amp_launches, amp_getup_launches,
                                                    mcp_getup_launches, dr_launches, pth_distill_launches))
          + sum(getup_shape_curriculum_phases("reward_amp").values())
-         + sum(lib_phases("reward_amp").values()),
+         + sum(lib_phases("reward_amp").values()) + sum(dp_phases("reward_amp").values()),
          "launches_by_phase": {"train_getup": getup_launches["reward_amp"], "train_amp": amp_launches["reward_amp"],
                                "train_amp_getup": amp_getup_launches["reward_amp"],
                                "train_mcp_getup": mcp_getup_launches["reward_amp"],
                                "train_dr": dr_launches["reward_amp"],
                                "import_pth_distill": pth_distill_launches["reward_amp"], **no_launch_phases("reward_amp"),
                                **entry_phases("reward_amp"), **getup_shape_curriculum_phases("reward_amp"),
-                               **lib_phases("reward_amp")},
+                               **lib_phases("reward_amp"), **dp_phases("reward_amp")},
          "max_abs_err": max_err["reward_amp"], "ms": ra_ms, "plain_ms": ra_plain_ms, "bound_ms": ra_bound,
          "bound_by": ra_by, "library_ms": None},
     ]})

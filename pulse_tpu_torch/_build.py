@@ -5,7 +5,9 @@ process, all started together, and the objects are linked into one shared
 library with a plain C interface under `build/` beside the package. The
 library's name carries a hash of the sources and flags, so a changed source
 is rebuilt and an unchanged one is reused within a checkout. Nothing is
-built until a kernel is first launched.
+built until a kernel is first launched. Processes that build at once (the
+ranks of a data-parallel run) take turns through a file lock in `build/`:
+the first builds, the others find the library when their turn comes.
 
 Also the state every kernel wrapper shares: the launch counts and the
 cache of constant tables each translation unit holds on each device.
@@ -13,7 +15,9 @@ cache of constant tables each translation unit holds on each device.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -107,6 +111,18 @@ def _parse_ptxas(text: str) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """An exclusive lock on `build/.lock`, across processes."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build() -> Path:
     """Compile and link the kernels if this checkout has not yet; return
     the library's path. Raises with nvcc's output of every source that
@@ -114,7 +130,13 @@ def build() -> Path:
     lib_path = BUILD_DIR / f"libpulse_kernels_{_digest()}.so"
     if lib_path.exists():
         return lib_path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with _build_lock():
+        if not lib_path.exists():
+            _compile_and_link(lib_path)
+    return lib_path
+
+
+def _compile_and_link(lib_path: Path) -> None:
     nvcc = _nvcc()
     t0 = time.perf_counter()
     procs = []
@@ -137,7 +159,6 @@ def build() -> Path:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
     os.replace(tmp, lib_path)
     build_report.update(seconds=time.perf_counter() - t0, ptxas=_parse_ptxas("\n".join(logs)))
-    return lib_path
 
 
 def load() -> ctypes.CDLL:

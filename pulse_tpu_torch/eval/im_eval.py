@@ -15,6 +15,11 @@ accumulators stay on the device: one host sync a batch.
 
 The returned per-clip failure mask feeds PMCP reweighting
 (`motion_lib.update_hard_sampling_weight`).
+
+With a mesh (`pulse_tpu_torch.parallel`), each rank evaluates its
+contiguous batch_size / D ids of every padded batch (the reference's
+per-rank eval split under Horovod, im_amp.py:136-242), the failures and
+sums are gathered in rank order, and every rank returns the same result.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import numpy as np
 import torch
 
 from pulse_tpu_torch.motion.motion_lib import get_motion_state
+from pulse_tpu_torch.parallel.mesh import all_gather_rows
 
 
 @dataclasses.dataclass
@@ -129,14 +135,20 @@ def _eval_batch(env, policy_fn, motion_ids: torch.Tensor, max_steps: int, termin
 
 
 def im_eval(env, policy_fn, batch_size: int = 64, termination_distance: float = 0.5,
-            collect_pa: bool = True) -> EvalResult:
+            collect_pa: bool = True, mesh=None) -> EvalResult:
     """policy_fn: obs [B, O] -> deterministic action [B, A]. Pass an env
     with early termination off: its auto-resets would otherwise cut the
-    clips short. The last batch is padded with its last clip."""
+    clips short. The last batch is padded with its last clip. With `mesh`,
+    each rank steps batch_size / D envs of each batch (ValueError unless
+    the mesh size divides batch_size)."""
     motion = env.motion
     M = motion.num_motions
     dt = env.model.config.control_dt
     max_steps = int(np.ceil(float(motion.motion_lengths.max()) / dt))
+    if mesh is not None and batch_size % mesh.size:
+        raise ValueError(f"im_eval's batch_size ({batch_size}) must be divisible by the mesh size ({mesh.size})")
+    bl = batch_size // mesh.size if mesh is not None else batch_size
+    lo = mesh.rank * bl if mesh is not None else 0
 
     failed_all = np.zeros(M, bool)
     per_sums = np.zeros((len(_SUMS), M))
@@ -144,9 +156,12 @@ def im_eval(env, policy_fn, batch_size: int = 64, termination_distance: float = 
         ids = np.arange(start, min(start + batch_size, M))
         pad = batch_size - len(ids)
         ids_p = np.concatenate([ids, np.full(pad, ids[-1])]) if pad else ids
-        failed, sums = _eval_batch(env, policy_fn, torch.as_tensor(ids_p, device=env.device), max_steps,
+        failed, sums = _eval_batch(env, policy_fn, torch.as_tensor(ids_p[lo:lo + bl], device=env.device), max_steps,
                                    termination_distance, collect_pa)
-        host = torch.cat([sums, failed[None].to(sums.dtype)]).cpu().numpy()[:, : len(ids)]   # the batch's one sync
+        out = torch.cat([sums, failed[None].to(sums.dtype)])
+        if mesh is not None:
+            out = all_gather_rows(out, mesh, dim=1)
+        host = out.cpu().numpy()[:, : len(ids)]   # the batch's one sync
         per_sums[:, ids] = host[:-1]
         failed_all[ids] = host[-1] > 0
 

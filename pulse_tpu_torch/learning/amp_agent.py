@@ -19,6 +19,11 @@ Counterpart of `pulse_tpu/learning/amp_agent.py`:
   * `JointAMPDistillAgent`: one rollout feeds both the AMP update and a
     distillation (behaviour cloning + KL) step on the frozen teacher's
     actions for the rollout's observations.
+
+Under a mesh (`env.mesh`) the PPO, discriminator and distillation updates
+are their data-parallel variants (the JAX package's `_update_dp`) and the
+rollout noise is the rank's own; the train state is placed with
+`parallel.shard_train_state`.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import torch
 from pulse_tpu_torch.learning.amp import AMPConfig, AMPModule, AMPState
 from pulse_tpu_torch.learning.distill import DistillRollout, DistillState
 from pulse_tpu_torch.learning.ppo import PPOAgent, PPOConfig, TrainState, compute_gae
+from pulse_tpu_torch.parallel.mesh import rollout_generator
 
 PROP_REDRAW_SEED = 19   # the JAX package re-draws the props from PRNGKey(19) folded with the epoch
 
@@ -183,7 +189,7 @@ class JointAMPDistillAgent:
         amp_ts, metrics = agent.update_from_rollout(ts.amp, ppo_ts, roll, last_value)
         with torch.no_grad():
             gt_action = dist.teacher_fn(roll.obs)
-        z_noise = torch.randn(roll.obs.shape[:-1] + (dist.network.latent_dim,), generator=dist.generator,
+        z_noise = torch.randn(roll.obs.shape[:-1] + (dist.network.latent_dim,), generator=rollout_generator(dist),
                               device=roll.obs.device)
         kin = DistillRollout(obs=roll.obs, gt_action=gt_action, z_noise=z_noise, rewards=roll.rewards)
         ds, kin_metrics = dist.update(ts.distill, kin)
